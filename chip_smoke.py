@@ -3,27 +3,43 @@
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
 
-Drives the port's main path — golden scene -> pack -> ``render_frame``
-(every ray query served by the hand-written CUDA kernel) -> BGRA -> BMP — at
-the PRODUCTION preset's geometry (1920x1080, 5 bounces) with spp cut from
-1024 to 8 (one motion-blur step), and holds the kernel against its plain
-PyTorch version and against the C++ oracle's goldens on the way. Phases, one
-JSON object per line:
+Drives the port's main paths — golden scene -> pack -> ``render_frame`` ->
+BGRA -> BMP, once on the binary BVH tables (every ray query served by the
+``ray_query`` kernel) and once on a scene packed with the wide-BVH mega-table
+(every ray query served by the ``wide_ray_query`` kernel) — at the PRODUCTION
+preset's geometry (1920x1080, 5 bounces) with spp cut from 1024 to 8 (one
+motion-blur step), and the row-gather probe (``gather_rows`` kernel). Every
+kernel is held against its plain PyTorch version and, where there is one,
+against the C++ oracle's goldens on the way. Phases, one JSON object per line:
 
-  device        card name + power limit (nvidia-smi), torch / CUDA versions
-  build         seconds to build csrc/ at first use, ptxas' register report
-  kernel_check  ray_query kernel vs plain version: the 4096 rays of
-                rays.gold in five modes, and the two batches the main path
-                gives it (primary: one tile of camera rays; bounce: 2 x tile
-                shadow+bounce rays with a per-lane any-hit mask and inactive
-                lanes). ids equal, thit/u/v within rtol=1e-6, atol=1e-6;
-                vs the oracle columns at tests/test_traversal.py's bars.
-                Kernel / plain times, the plain version's row-read counts
-                and the bound.
-  breakdown     one tile x one sample: time inside the kernel vs the rest
-  oracle_frame  TESTING preset 640x360, spp 8, 4 bounces vs render8.gold
-  main_path     the frame above; finite radiance, launch count, BMP written
-  kernels       the per-kernel summary line
+  device            card name + power limit (nvidia-smi), torch / CUDA versions
+  build             the three libraries of csrc/, built side by side: seconds,
+                    ptxas' registers and spills per kernel
+  scene, wide_scene table sizes; rows and bytes of the wide tables per layout
+  kernel_check      ray_query kernel vs plain version: the 4096 rays of
+                    rays.gold in five modes, and the two batches the main path
+                    gives it (primary: one tile of camera rays; bounce: 2 x
+                    tile shadow+bounce rays with a per-lane any-hit mask and
+                    inactive lanes). ids equal, thit/u/v within rtol=1e-6,
+                    atol=1e-6; vs the oracle columns at
+                    tests/test_traversal.py's bars. Kernel / plain times, the
+                    plain version's row-read counts and the bound.
+  wide_kernel_check wide_ray_query kernel, layouts w8, w16, s8: the same
+                    modes plus a per-lane tmin, vs its plain version (same
+                    bars), vs the oracle, vs the ray_query kernel on the same
+                    rays (ids may differ on exactly equal t only: <= 0.2 %);
+                    then for w8 the two main-path batches: vs plain, and its
+                    time beside the ray_query kernel's on the same batch in
+                    the same call, row counts and the bound.
+  breakdown         one tile x one sample: time inside the kernel vs the rest
+  gather_probe      gather_rows kernel bit-equal to index_select; the probe's
+                    harness times; one gather's time beside index_select's
+  oracle_frame, oracle_frame_wide
+                    TESTING preset 640x360, spp 8, 4 bounces vs render8.gold
+  main_path, main_path_wide
+                    the frame above; finite radiance, launch counts, BMP
+                    written; the wide frame against the binary frame
+  kernels           the per-kernel summary line
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises: the
 script exits non-zero and prints no result line. There is no CPU fallback:
 without a CUDA device it exits 2 at once. Imports nothing of JAX.
@@ -34,20 +50,25 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
-import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from pathtracing_tpu_torch.accel.wide import LAYOUTS_BY_WIDTH
 from pathtracing_tpu_torch.config import PRODUCTION, TESTING
 from pathtracing_tpu_torch.io.bmp import read_bmp, write_bmp
+from pathtracing_tpu_torch.ops import cuda_build
 from pathtracing_tpu_torch.ops import cuda_traversal as CT
+from pathtracing_tpu_torch.ops import cuda_wide_traversal as CW
 from pathtracing_tpu_torch.ops import integrator
 from pathtracing_tpu_torch.ops.tonemap import tonemap
 from pathtracing_tpu_torch.ops.traversal import ray_query, ray_query_plain
+from pathtracing_tpu_torch.ops.wide_traversal import wide_ray_query_plain
+from pathtracing_tpu_torch.probes import gather_probe as GP
 from pathtracing_tpu_torch.render import CUDA_TILE_PIXELS, render_frame
 from pathtracing_tpu_torch.scene.golden import scene_device_from_golden
 from pathtracing_tpu_torch.utils.goldenio import load_golden
@@ -56,6 +77,7 @@ from pathtracing_tpu_torch.utils.vec import Vec3
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
 MAIN_SPP = 8  # PRODUCTION asks for 1024; cut so the run fits its time limit
+MAIN_LAYOUT = "w8"  # the wide main path's layout (pack_scene's default)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and float32 rate outside the tensor cores.
@@ -67,6 +89,10 @@ NODE_ROW_B, TRI_ROW_B, INST_ROW_B = 32, 48, 84 + 24
 NODE_FLOPS, TRI_FLOPS, INST_FLOPS = 27, 52, 45
 
 RTOL = ATOL = 1e-6  # kernel vs plain version: same ops, same order, no FMA
+
+LIBRARIES = {"ray_query": CT.LIBRARY, "wide_ray_query": CW.LIBRARY,
+             "gather_rows": GP.LIBRARY}
+SOURCES = {k: str(lib.source.relative_to(ROOT)) for k, lib in LIBRARIES.items()}
 
 
 def require(cond, what) -> None:
@@ -137,39 +163,81 @@ def check_oracle(rays_g, hit, occluded_anyhit):
     return int(diff.sum())
 
 
+def id_mismatches(tag, ha, oa, hb, ob) -> int:
+    """Two walks of the same rays (wide vs binary kernel): hit/miss and
+    ``occluded`` equal; hit ids may differ only where two triangles are hit at
+    exactly equal t, on at most 0.2 % of the rays; thit equal where ids are."""
+    require(bool(torch.equal(oa, ob)), f"{tag}: occluded differs")
+    require(bool(torch.equal(ha.thit < 0, hb.thit < 0)), f"{tag}: hit/miss differs")
+    same = (ha.inst == hb.inst) & (ha.prim == hb.prim)
+    n_diff = int((~same).sum())
+    require(n_diff <= 0.002 * same.numel(), f"{tag}: {n_diff} id mismatches")
+    require(bool(torch.equal(ha.thit, hb.thit)), f"{tag}: thit differs")
+    for k in ("bary_u", "bary_v", "back"):
+        require(bool(torch.equal(getattr(ha, k)[same], getattr(hb, k)[same])),
+                f"{tag}: {k} differs where ids agree")
+    return n_diff
+
+
 # -------------------------------------------------------------------- timing
 
 
-def time_kernel(args, kwargs, reps=5):
-    """Median ms of one launch, L2 flushed before each (between two queries
-    of a frame the shading pass streams far more than the 50 MB L2)."""
+def time_launches(fns: dict, reps=5) -> dict:
+    """Median ms of one call of each function, L2 flushed before each call
+    (between two queries of a frame the shading pass streams far more than
+    the 50 MB L2), the functions taking turns within every repetition."""
     flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
-    ray_query(*args, **kwargs)  # warm-up
-    ms = []
-    for _ in range(reps):
-        flush.zero_()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        ray_query(*args, **kwargs)
-        b.record()
-        torch.cuda.synchronize()
-        ms.append(a.elapsed_time(b))
-    return float(np.median(ms)), ms
+    for fn in fns.values():
+        fn()  # warm-up
+    ms = {k: [] for k in fns}
+    for rep in range(reps):
+        order = list(fns) if rep % 2 == 0 else list(fns)[::-1]
+        for k in order:
+            flush.zero_()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fns[k]()
+            b.record()
+            torch.cuda.synchronize()
+            ms[k].append(a.elapsed_time(b))
+    return {k: (float(np.median(v)), v) for k, v in ms.items()}
 
 
-def ray_io_bytes(anyhit, tmax0, rays: int, active: int) -> int:
+def ray_io_bytes(anyhit, tmax0, rays: int, active: int, handles: int = 8,
+                 tmin=0.0) -> int:
     """Bytes the function must move for this batch's rays: every lane's
     ``active`` byte in and its seven outputs out; the ray itself only for an
-    active lane (an inactive lane's result does not depend on it)."""
+    active lane (an inactive lane's result does not depend on it).
+    ``handles``: bytes of TLAS handles a lane's walk reads (count and offset
+    for the binary walk, the offset alone for the wide one)."""
     every = 1 + 3 * 4 + 2 * 4 + 2  # active; thit,u,v + inst,prim + back,occluded
-    ray = 4 + 4 + 24  # tlas_count, tlas_offset, org+dir
+    ray = handles + 24  # TLAS handles, org+dir
     ray += 1 if isinstance(anyhit, torch.Tensor) else 0
     ray += 4 if isinstance(tmax0, torch.Tensor) and tmax0.dim() else 0
+    ray += 4 if isinstance(tmin, torch.Tensor) and tmin.dim() else 0
     return rays * every + active * ray
 
 
+def bound(table_b: int, io_b: int, row_b: int, flops: int) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the card's memory rate, against this batch's flops
+    (from the counted row visits) at its float32 rate. The row reads a walk
+    makes are many times the tables' size, but the tables sit in L2, so
+    re-reads are not traffic the card must pay for; their cost at
+    device-memory rate is reported beside the bound, not as the bound."""
+    by_bytes = (table_b + io_b) / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOPS * 1e3
+    return {
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "bound_bytes_ms": by_bytes, "bound_ops_ms": by_ops,
+        "row_reads_at_hbm_rate_ms": (row_b + io_b) / HBM_BYTES_PER_S * 1e3,
+    }
+
+
 def measure_shape(tag, args, kwargs):
-    """One main-path batch: kernel vs plain, times, counts, bound."""
+    """One main-path batch of the binary walk: kernel vs plain, times,
+    counts, bound."""
     R = args[3].x.shape[0]
     hk, ok = ray_query(*args, **kwargs)
     torch.cuda.synchronize()
@@ -180,30 +248,63 @@ def measure_shape(tag, args, kwargs):
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = compare_hits(tag, hk, ok, hp, op)
 
-    ms, all_ms = time_kernel(args, kwargs)
+    ms, all_ms = time_launches({"k": lambda: ray_query(*args, **kwargs)})["k"]
 
-    # The bound: each input read once and each output written once at the
-    # card's memory rate, against this batch's flops (from the counted row
-    # visits) at its float32 rate. The row reads the walk makes are many
-    # times the tables' size, but the tables sit in L2, so re-reads are not
-    # traffic the card must pay for; their cost at device-memory rate is
-    # reported beside the bound, not as the bound.
     n_active = int(args[7].sum())
     io_b = ray_io_bytes(kwargs.get("anyhit", False), args[6], R, n_active)
-    row_b = node * NODE_ROW_B + tri * TRI_ROW_B + inst * INST_ROW_B
-    flops = node * NODE_FLOPS + tri * TRI_FLOPS + inst * INST_FLOPS
-    bound_bytes_ms = (CT.table_bytes(args[0]) + io_b) / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = flops / FP32_FLOPS * 1e3
-    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    b = bound(
+        CT.table_bytes(args[0]), io_b,
+        node * NODE_ROW_B + tri * TRI_ROW_B + inst * INST_ROW_B,
+        node * NODE_FLOPS + tri * TRI_FLOPS + inst * INST_FLOPS,
+    )
     return {
         "shape": tag, "rays": R, "active": n_active, "io_bytes": io_b,
         "max_abs_err": err, "ms": ms, "ms_all": all_ms, "plain_ms": plain_ms,
         "node_rows": node, "inst_rows": inst, "tri_rows": tri,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
-        "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_ops_ms,
-        "row_reads_at_hbm_rate_ms": (row_b + io_b) / HBM_BYTES_PER_S * 1e3,
-        "roofline_share": bound_ms / ms,
+        **b, "roofline_share": b["bound_ms"] / ms,
+    }
+
+
+def measure_wide_shape(tag, args, kwargs):
+    """One main-path batch of the wide walk: kernel vs plain, its time beside
+    the binary kernel's on the same batch (the wide scene carries the binary
+    tables too), counts, bound."""
+    scene = args[0]
+    lay = LAYOUTS_BY_WIDTH[scene.wide_rows.shape[1]]
+    R = args[3].x.shape[0]
+    hk, ok = CW.wide_ray_query_cuda(*args, **kwargs)
+    hb, ob = CT.ray_query_cuda(*args, **kwargs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hp, op, c = wide_ray_query_plain(*args, **kwargs, return_counts=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = compare_hits(tag, hk, ok, hp, op)
+    ties = id_mismatches(tag + " vs ray_query", hk, ok, hb, ob)
+
+    t = time_launches({
+        "wide": lambda: CW.wide_ray_query_cuda(*args, **kwargs),
+        "binary": lambda: CT.ray_query_cuda(*args, **kwargs),
+    })
+
+    n_active = int(args[7].sum())
+    io_b = ray_io_bytes(kwargs.get("anyhit", False), args[6], R, n_active,
+                        handles=4, tmin=args[5])
+    S, L = lay.n_slots, lay.leaf_tris
+    leaf_row_b = (L + 1) * 4 if lay.stub else (10 * L + 1) * 4
+    finalize = c.hits * (INST_ROW_B + TRI_ROW_B)
+    row_b = (c.wide_rows * (4 * S + 1) * 4 + c.leaf_rows * leaf_row_b
+             + c.inst_rows * 21 * 4 + c.stub_tri_rows * TRI_ROW_B + finalize)
+    flops = (c.wide_rows * S * NODE_FLOPS + c.tri_tests * TRI_FLOPS
+             + c.inst_rows * INST_FLOPS + c.hits * (INST_FLOPS + TRI_FLOPS))
+    b = bound(CW.table_bytes(scene), io_b, row_b, flops)
+    ms, all_ms = t["wide"]
+    return {
+        "shape": tag, "layout": MAIN_LAYOUT, "rays": R, "active": n_active,
+        "io_bytes": io_b, "max_abs_err": err, "ms": ms, "ms_all": all_ms,
+        "p1_ms_same_batch": t["binary"][0], "p1_ms_all": t["binary"][1],
+        "id_mismatches_vs_ray_query": ties, "plain_ms": plain_ms,
+        **c._asdict(), **b, "roofline_share": b["bound_ms"] / ms,
     }
 
 
@@ -236,44 +337,81 @@ def capture_main_path_queries(cfg, scene, n):
 # -------------------------------------------------------------------- phases
 
 
-def phase_kernel_check(scene_g, rays_g, scene, prod_cfg, prod_scene):
-    dev = scene.nl8.device
+def phase_build():
+    """All three libraries, one nvcc each, started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(lambda lib: lib.build(), LIBRARIES.values()))
+    sec = time.perf_counter() - t0
+    report = {}
+    for name, lib in LIBRARIES.items():
+        res = lib.resources()
+        require(res, f"{name}: no ptxas report in {lib.build_log}")
+        report[name] = {"source": SOURCES[name], "seconds": lib.build_seconds,
+                        "kernels": res}
+    emit("build", seconds=sec, flags=list(cuda_build.NVCC_FLAGS), libraries=report)
+    return report
+
+
+def rays_gold_inputs(scene_g, rays_g, dev):
     R = 4096
     full = lambda v: torch.full((R,), int(v), dtype=torch.int32, device=dev)
-    tlc, tlo = full(scene_g["tlas"][0]), full(scene_g["tlas"][1])
     col = lambda a, i: torch.from_numpy(np.ascontiguousarray(a[:, i])).to(dev)
-    org = Vec3(*(col(rays_g["origins"], i) for i in range(3)))
-    d = Vec3(*(col(rays_g["dirs"], i) for i in range(3)))
-    on = torch.ones(R, dtype=torch.bool, device=dev)
     rs = np.random.default_rng(7)
-    mask = torch.from_numpy(rs.random(R) < 0.5).to(dev)
-    some = torch.from_numpy(rs.random(R) < 0.7).to(dev)
-    tmax_lane = torch.from_numpy(
-        rs.uniform(0.5, 40.0, R).astype(np.float32)
-    ).to(dev)
+    lane = lambda a: torch.from_numpy(a).to(dev)
+    return {
+        "R": R,
+        "tlc": full(scene_g["tlas"][0]), "tlo": full(scene_g["tlas"][1]),
+        "org": Vec3(*(col(rays_g["origins"], i) for i in range(3))),
+        "d": Vec3(*(col(rays_g["dirs"], i) for i in range(3))),
+        "on": torch.ones(R, dtype=torch.bool, device=dev),
+        "mask": lane(rs.random(R) < 0.5),
+        "some": lane(rs.random(R) < 0.7),
+        "tmax_lane": lane(rs.uniform(0.5, 40.0, R).astype(np.float32)),
+        "tmin_lane": lane(rs.uniform(0.0, 2.0, R).astype(np.float32)),
+    }
+
+
+def run_modes(scene, inp, kernel_fn, plain_fn, per_lane_tmin: bool):
+    """The kernel against its plain version on the rays of rays.gold in every
+    mode; returns ({mode: max abs err}, {mode: (hit, occluded)} of the kernel)."""
+    R = inp["R"]
 
     def both(tag, n, tmin, tmax0, active, anyhit):
         cut = lambda t: t[:n].contiguous() if isinstance(t, torch.Tensor) and t.dim() else t
-        a = (scene, cut(tlc), cut(tlo), Vec3(*map(cut, org)), Vec3(*map(cut, d)),
-             tmin, cut(tmax0), cut(active))
-        hk, ok = ray_query(*a, anyhit=cut(anyhit))
+        a = (scene, cut(inp["tlc"]), cut(inp["tlo"]), Vec3(*map(cut, inp["org"])),
+             Vec3(*map(cut, inp["d"])), cut(tmin), cut(tmax0), cut(active))
+        hk, ok = kernel_fn(*a, anyhit=cut(anyhit))
         torch.cuda.synchronize()
-        hp, op = ray_query_plain(*a, anyhit=cut(anyhit))
-        return compare_hits(tag, hk, ok, hp, op), hk, ok
+        hp, op = plain_fn(*a, anyhit=cut(anyhit))
+        return compare_hits(tag, hk, ok, hp, op), (hk, ok)
 
-    errs = {}
-    errs["closest"], hit_c, _ = both("closest", R, 0.0, 1e9, on, False)
-    errs["anyhit"], _, occ_a = both("anyhit", R, 1e-4, 1e9, on, True)
-    errs["mixed_mask"], _, _ = both("mixed_mask", R, 1e-4, 1e9, on, mask)
-    errs["inactive_lanes"], hit_i, occ_i = both("inactive_lanes", R, 0.0, 1e9, some, mask)
+    on, mask, some = inp["on"], inp["mask"], inp["some"]
+    modes = {
+        "closest": (R, 0.0, 1e9, on, False),
+        "anyhit": (R, 1e-4, 1e9, on, True),
+        "mixed_mask": (R, 1e-4, 1e9, on, mask),
+        "inactive_lanes": (R, 0.0, 1e9, some, mask),
+        # R not a multiple of the block, per-lane tmax0
+        "ragged_tmax_lane": (R - 37, 1e-4, inp["tmax_lane"], some, mask),
+    }
+    if per_lane_tmin:
+        modes["tmin_lane"] = (R - 37, inp["tmin_lane"], inp["tmax_lane"], some, mask)
+    errs, out = {}, {}
+    for tag, m in modes.items():
+        errs[tag], out[tag] = both(tag, *m)
+    hit_i, occ_i = out["inactive_lanes"]
     require(bool((hit_i.thit[~some] == -1).all()) and not bool(occ_i[~some].any()),
             "inactive lanes traced")
-    # R not a multiple of the block, per-lane tmax0
-    errs["ragged_tmax_lane"], _, _ = both(
-        "ragged_tmax_lane", R - 37, 1e-4, tmax_lane, some, mask
-    )
+    return errs, out
+
+
+def phase_kernel_check(scene_g, rays_g, scene, prod_cfg, prod_scene):
+    inp = rays_gold_inputs(scene_g, rays_g, scene.nl8.device)
+    R = inp["R"]
+    errs, out = run_modes(scene, inp, ray_query, ray_query_plain, per_lane_tmin=False)
     require((R - 37) % CT.block_size() != 0, "ragged batch is a block multiple")
-    id_ties = check_oracle(rays_g, hit_c, occ_a)
+    id_ties = check_oracle(rays_g, out["closest"][0], out["anyhit"][1])
     emit("kernel_check", part="rays.gold", rays=R, modes=list(errs),
          max_abs_err=max(errs.values()), rtol=RTOL, atol=ATOL,
          oracle_id_mismatches=id_ties, ids="equal")
@@ -289,10 +427,65 @@ def phase_kernel_check(scene_g, rays_g, scene, prod_cfg, prod_scene):
     require(shapes[1]["active"] < shapes[1]["rays"], "bounce batch holds no inactive lane")
     for s in shapes:
         emit("kernel_check", part="main_path_shape", **s)
-    return max(max(errs.values()), *(s["max_abs_err"] for s in shapes)), shapes
+    return max(max(errs.values()), *(s["max_abs_err"] for s in shapes)), shapes, out
 
 
-def phase_breakdown(cfg, scene):
+def phase_wide_scenes(scene_g):
+    """The golden scene packed wide in each shipped layout (TESTING preset)."""
+    scenes = {}
+    for name in ("w8", "w16", "s8"):
+        t0 = time.perf_counter()
+        # leaf_bundle=None: twice the layout's leaf width, so LEAF rows chain
+        s = scene_device_from_golden(
+            scene_g, TESTING, wide=True, leaf_bundle=None, wide_layout=name
+        )
+        sec = time.perf_counter() - t0
+        nbytes = lambda x: x.numel() * x.element_size()
+        emit("wide_scene", layout=name, seconds=sec,
+             wide_rows=list(s.wide_rows.shape), wide_rows_bytes=nbytes(s.wide_rows),
+             wide_root=list(s.wide_root.shape), wide_root_bytes=nbytes(s.wide_root),
+             tri_shade=list(s.tri_shade.shape), tri_shade_bytes=nbytes(s.tri_shade),
+             table_bytes=CW.table_bytes(s))
+        scenes[name] = s
+    return scenes
+
+
+def phase_wide_kernel_check(scene_g, rays_g, wide_scenes, binary_out, prod_cfg,
+                            prod_wide):
+    """wide_ray_query kernel vs its plain version, the oracle and the binary
+    kernel, per layout; then the main path's batches."""
+    max_err = 0.0
+    for name, scene in wide_scenes.items():
+        inp = rays_gold_inputs(scene_g, rays_g, scene.nl8.device)
+        errs, out = run_modes(scene, inp, CW.wide_ray_query_cuda,
+                              wide_ray_query_plain, per_lane_tmin=True)
+        require((inp["R"] - 37) % CW.block_size() != 0, "ragged batch is a block multiple")
+        oracle_ties = check_oracle(rays_g, out["closest"][0], out["anyhit"][1])
+        ties = {
+            m: id_mismatches(f"{name} {m} vs ray_query", *out[m], *binary_out[m])
+            for m in binary_out
+        }
+        emit("wide_kernel_check", part="rays.gold", layout=name, rays=inp["R"],
+             modes=list(errs), max_abs_err=max(errs.values()), rtol=RTOL, atol=ATOL,
+             oracle_id_mismatches=oracle_ties, id_mismatches_vs_ray_query=ties,
+             ids="equal to the plain version's")
+        max_err = max(max_err, *errs.values())
+
+    lanes = main_path_tile_lanes(prod_cfg)
+    calls = capture_main_path_queries(prod_cfg, prod_wide, lanes)
+    require(len(calls) == 1 + prod_cfg.max_bounces, f"{len(calls)} ray queries per sample")
+    shapes = [
+        measure_wide_shape("primary", *calls[0]),
+        measure_wide_shape("bounce", *calls[1]),
+    ]
+    require(shapes[1]["rays"] == 2 * lanes, "bounce batch is not 2 x tile")
+    require(shapes[1]["active"] < shapes[1]["rays"], "bounce batch holds no inactive lane")
+    for s in shapes:
+        emit("wide_kernel_check", part="main_path_shape", **s)
+    return max(max_err, *(s["max_abs_err"] for s in shapes)), shapes
+
+
+def phase_breakdown(cfg, scene, tag):
     """One tile, one sample: how much of its time is the kernel."""
     spans = []
     orig = integrator.ray_query
@@ -320,13 +513,67 @@ def phase_breakdown(cfg, scene):
     finally:
         integrator.ray_query = orig
     per_query = [a.elapsed_time(b) for a, b in spans]
-    emit("breakdown", lanes=lanes, samples=1,
+    emit("breakdown", scene=tag, lanes=lanes, samples=1,
          sample_wall_ms=wall_ms, ray_query_ms=per_query,
          ray_query_ms_total=sum(per_query),
          ray_query_share=sum(per_query) / wall_ms)
 
 
-def phase_oracle_frame(scene):
+def phase_gather_probe(smi):
+    """The gather kernel against ``index_select`` (bit-equal), one gather's
+    time beside it, then the probe's own entry point with the count at 0."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    checked = []
+    one = None
+    for n_rows, width in GP.TABLES:
+        table = GP.make_table(rng, n_rows, width, dev)
+        for lanes in GP.LANES:
+            idx = torch.from_numpy(rng.integers(0, n_rows, lanes).astype(np.int32)).to(dev)
+            ref = GP.gather_rows_plain(table, idx)
+            for k in (1, 16, 32):
+                got = GP.gather_rows(table, idx, k)
+                torch.cuda.synchronize()
+                require(got.shape == ref.shape and bool(torch.equal(got, ref)),
+                        f"gather_rows k={k} on {n_rows}x{width}, {lanes} lanes "
+                        "differs from index_select")
+            checked.append([n_rows, width, lanes])
+        if (n_rows, width) == GP.TABLES[-1]:
+            # the large table at one render tile's lanes: the kernels' line
+            t = time_launches({
+                "kernel": lambda: GP.gather_rows_cuda(table, idx, 16),
+                "index_select": lambda: GP.gather_rows_plain(table, idx),
+            })
+            touched = int(torch.unique(idx).numel())
+            # rows touched read once, indices read once, rows written once
+            move = touched * width * 4 + lanes * 4 + lanes * width * 4
+            one = {
+                "table": [n_rows, width], "lanes": lanes, "k": 16,
+                "rows_touched": touched, "ms": t["kernel"][0], "ms_all": t["kernel"][1],
+                "index_select_ms": t["index_select"][0],
+                "index_select_ms_all": t["index_select"][1],
+                "bound_ms": move / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "bytes_moved": move,
+            }
+        del table
+    emit("gather_probe", part="check", equal_to_index_select=checked,
+         k=[1, 16, 32], max_abs_err=0.0, single_gather=one)
+
+    GP.reset_launches()
+    results = GP.main(["--iters", "3"])
+    launches = GP.launches
+    require(launches > 0, "the probe launched no gather kernel")
+    require({r["gather"] for r in results} == {"kernel", "index_select"}
+            and all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in results),
+            "probe results")
+    emit("gather_probe", part="harnesses", launches=launches, card=smi,
+         results=[{k: r[k] for k in ("table", "lanes", "reps", "k", "harness",
+                                     "gather", "ms", "ns_per_row",
+                                     "payload_gb_per_s")} for r in results])
+    return launches, one
+
+
+def phase_oracle_frame(scene, phase="oracle_frame"):
     rg = load_golden(str(GOLDEN / "render8.gold"))
     ref = rg["colors"]
     t0 = time.perf_counter()
@@ -343,50 +590,68 @@ def phase_oracle_frame(scene):
 
     mse = ((tm(colors) - tm(ref)) ** 2).mean()
     psnr = float(10 * np.log10(255.0**2 / max(mse, 1e-12)))
-    emit("oracle_frame", width=640, height=360, spp=8, bounces=TESTING.max_bounces,
+    emit(phase, width=640, height=360, spp=8, bounces=TESTING.max_bounces,
          rel_q98=q98, rel_q98_bar=1e-3, psnr_db=psnr, psnr_bar_db=35.0, seconds=sec)
-    require(q98 < 1e-3, f"oracle frame rel q98 {q98}")
-    require(psnr > 35.0, f"oracle frame PSNR {psnr}")
+    require(q98 < 1e-3, f"{phase} rel q98 {q98}")
+    require(psnr > 35.0, f"{phase} PSNR {psnr}")
     return float(np.minimum(ref, 10.0).mean())
 
 
-def phase_main_path(cfg, scene, oracle_mean):
+def phase_main_path(cfg, scene, oracle_mean, wide: bool, binary_colors=None):
+    """The full-width frame. Both kernels' counts are set to 0 just before
+    and read just after: the frame must go through its own kernel for every
+    ray query and through the other for none."""
+    phase = "main_path_wide" if wide else "main_path"
     W, H = cfg.image_width, cfg.image_height
     tiles = -(-W * H // CUDA_TILE_PIXELS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     CT.reset_launches()
+    CW.reset_launches()
     t0 = time.perf_counter()
     colors, image = render_frame(cfg, scene, spp=MAIN_SPP)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    launches = CT.launches
+    binary_launches, wide_launches = CT.launches, CW.launches
     peak = torch.cuda.max_memory_allocated()
 
     expected = tiles * MAIN_SPP * (1 + cfg.max_bounces)
+    launches, other = (wide_launches, binary_launches) if wide else (
+        binary_launches, wide_launches)
     require(colors.shape == (H, W, 3) and image.shape == (H, W, 4), "frame shape")
     require(image.dtype == np.uint8, "image dtype")
     require(np.isfinite(colors).all(), "non-finite radiance")
     require(launches == expected, f"{launches} kernel launches, expected {expected}")
+    require(other == 0, f"{other} launches of the other walk's kernel")
     # same scene and camera as the oracle's 640x360 frame: the mean radiance
     # (fireflies clipped) must agree, whatever the resolution
     mean_ratio = float(np.minimum(colors, 10.0).mean()) / oracle_mean
     require(0.9 < mean_ratio < 1.1, f"mean radiance vs oracle frame: {mean_ratio}")
+    extra = {}
+    if binary_colors is not None:
+        # the wide walk confirms the same candidates as the binary one; only
+        # an exactly-equal-t tie inside a LEAF bundle may resolve differently
+        equal = (colors == binary_colors).all(axis=-1)
+        rel = np.abs(colors - binary_colors) / (np.abs(binary_colors) + 1e-3)
+        q98 = float(np.quantile(rel, 0.98))
+        extra = {"pixels_bit_equal_to_binary_frame": float(equal.mean()),
+                 "rel_q98_vs_binary_frame": q98}
+        require(q98 < 1e-3, f"wide frame vs binary frame: rel q98 {q98}")
 
     out = ROOT / "output"
     out.mkdir(exist_ok=True)
-    bmp = out / "chip_smoke_frame.bmp"
+    bmp = out / ("chip_smoke_frame_wide.bmp" if wide else "chip_smoke_frame.bmp")
     write_bmp(str(bmp), image)
     back = read_bmp(str(bmp))
     require(np.array_equal(back[..., ::-1], image[..., :3]), "BMP round trip")
-    emit("main_path", width=W, height=H, bounces=cfg.max_bounces, spp=MAIN_SPP,
+    emit(phase, width=W, height=H, bounces=cfg.max_bounces, spp=MAIN_SPP,
          spp_reduced_from=PRODUCTION.samples_per_pixel, tiles=tiles,
          tile_pixels=CUDA_TILE_PIXELS, launches=launches,
-         launches_expected=expected, seconds=sec,
+         launches_expected=expected, launches_of_other_kernel=other, seconds=sec,
          msamples_per_s=W * H * MAIN_SPP / sec / 1e6,
          peak_memory_allocated_bytes=int(peak), mean_vs_oracle=mean_ratio,
-         bmp=str(bmp.relative_to(ROOT)), bmp_bytes=bmp.stat().st_size)
-    return launches
+         bmp=str(bmp.relative_to(ROOT)), bmp_bytes=bmp.stat().st_size, **extra)
+    return launches, colors
 
 
 def main() -> int:
@@ -402,12 +667,7 @@ def main() -> int:
          cuda=torch.version.cuda, numpy=np.__version__,
          python=sys.version.split()[0])
 
-    CT.build(verbose=True)
-    log = (CT.BUILD_DIR / "build.log").read_text()
-    emit("build", seconds=CT.build_seconds, source=str(CT.SOURCE.relative_to(ROOT)),
-         flags=list(CT.NVCC_FLAGS),
-         registers=[int(x) for x in re.findall(r"Used (\d+) registers", log)],
-         spill_bytes=[int(x) for x in re.findall(r"(\d+) bytes spill stores", log)])
+    built = phase_build()
 
     scene_g = load_golden(str(GOLDEN / "scene.gold"))
     rays_g = load_golden(str(GOLDEN / "rays.gold"))
@@ -416,34 +676,98 @@ def main() -> int:
     # the config it is rendered with (one subframe row per motion-blur step)
     prod_cfg = dataclasses.replace(PRODUCTION, samples_per_pixel=MAIN_SPP)
     prod_scene = scene_device_from_golden(scene_g, prod_cfg)
+    prod_wide = scene_device_from_golden(
+        scene_g, prod_cfg, wide=True, wide_layout=MAIN_LAYOUT
+    )
     emit("scene", table_bytes=CT.table_bytes(scene),
          nl8_rows=scene.nl8.shape[0], triangles=scene.tri_pos.shape[0],
-         instances=scene.inst_f.shape[0])
+         instances=scene.inst_f.shape[0],
+         main_path_wide_layout=MAIN_LAYOUT,
+         main_path_wide_rows=list(prod_wide.wide_rows.shape),
+         main_path_wide_table_bytes=CW.table_bytes(prod_wide))
+    wide_scenes = phase_wide_scenes(scene_g)
 
-    max_err, shapes = phase_kernel_check(scene_g, rays_g, scene, prod_cfg, prod_scene)
-    phase_breakdown(prod_cfg, prod_scene)
+    max_err, shapes, binary_out = phase_kernel_check(
+        scene_g, rays_g, scene, prod_cfg, prod_scene
+    )
+    wide_err, wide_shapes = phase_wide_kernel_check(
+        scene_g, rays_g, wide_scenes, binary_out, prod_cfg, prod_wide
+    )
+    phase_breakdown(prod_cfg, prod_scene, "binary")
+    phase_breakdown(prod_cfg, prod_wide, "wide")
+    gather_launches, gather_one = phase_gather_probe(smi)
     oracle_mean = phase_oracle_frame(scene)
-    launches = phase_main_path(prod_cfg, prod_scene, oracle_mean)
+    phase_oracle_frame(wide_scenes[MAIN_LAYOUT], "oracle_frame_wide")
+    launches, colors = phase_main_path(prod_cfg, prod_scene, oracle_mean, wide=False)
+    wide_launches, _ = phase_main_path(
+        prod_cfg, prod_wide, oracle_mean, wide=True, binary_colors=colors
+    )
 
     emit("done", seconds=time.perf_counter() - t_start)
-    bounce = shapes[1]  # the batch launched max_bounces times of 1+max_bounces
-    print(json.dumps({"kernels": [{
-        "name": "ray_query",
-        "route": "cuda",
-        "source": "pathtracing_tpu_torch/csrc/ray_query.cu",
-        "replaces": "pathtracing_tpu/ops/pallas_traversal.py:64",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": bounce["ms"],
-        "plain_ms": bounce["plain_ms"],
-        "bound_ms": bounce["bound_ms"],
-        "bound_by": bounce["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes a BVH ray query
-        "shape": f"bounce batch, {bounce['rays']} rays",
-        "primary": {k: shapes[0][k] for k in
-                    ("rays", "ms", "plain_ms", "bound_ms", "bound_by")},
-        "card": smi,
-    }]}), flush=True)
+    # the batch launched max_bounces times of 1+max_bounces
+    bounce, wbounce = shapes[1], wide_shapes[1]
+    regs = lambda name: {
+        "registers": [k["registers"] for k in built[name]["kernels"]],
+        "spill_bytes": [k["spill_store_bytes"] + k["spill_load_bytes"]
+                        for k in built[name]["kernels"]],
+    }
+    five = ("rays", "ms", "plain_ms", "bound_ms", "bound_by")
+    print(json.dumps({"kernels": [
+        {
+            "name": "ray_query",
+            "route": "cuda",
+            "source": SOURCES["ray_query"],
+            "replaces": "pathtracing_tpu/ops/pallas_traversal.py:64",
+            "launches": launches,
+            "max_abs_err": max_err,
+            "ms": bounce["ms"],
+            "plain_ms": bounce["plain_ms"],
+            "bound_ms": bounce["bound_ms"],
+            "bound_by": bounce["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a BVH ray query
+            "shape": f"bounce batch, {bounce['rays']} rays",
+            "primary": {k: shapes[0][k] for k in five},
+            **regs("ray_query"),
+            "card": smi,
+        },
+        {
+            "name": "wide_ray_query",
+            "route": "cuda",
+            "source": SOURCES["wide_ray_query"],
+            "replaces": "pathtracing_tpu/ops/wide_traversal.py:672",
+            "layout": MAIN_LAYOUT,
+            "launches": wide_launches,
+            "max_abs_err": wide_err,
+            "ms": wbounce["ms"],
+            "plain_ms": wbounce["plain_ms"],
+            "bound_ms": wbounce["bound_ms"],
+            "bound_by": wbounce["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a BVH ray query
+            "p1_ms_same_batch": wbounce["p1_ms_same_batch"],
+            "shape": f"bounce batch, {wbounce['rays']} rays",
+            "primary": {k: wide_shapes[0][k] for k in five + ("p1_ms_same_batch",)},
+            **regs("wide_ray_query"),
+            "card": smi,
+        },
+        {
+            "name": "gather_rows",
+            "route": "cuda",
+            "source": SOURCES["gather_rows"],
+            "replaces": "tools/gather_probe.py:76",
+            "launches": gather_launches,
+            "max_abs_err": 0.0,  # bit-equal to index_select, or the phase raised
+            "ms": gather_one["ms"],
+            # the plain version IS the one PyTorch call: index_select
+            "plain_ms": gather_one["index_select_ms"],
+            "bound_ms": gather_one["bound_ms"],
+            "bound_by": gather_one["bound_by"],
+            "library_ms": gather_one["index_select_ms"],
+            "shape": (f"table {gather_one['table']}, {gather_one['lanes']} rows, "
+                      f"k={gather_one['k']}"),
+            **regs("gather_rows"),
+            "card": smi,
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

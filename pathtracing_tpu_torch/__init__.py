@@ -8,10 +8,13 @@ explicit ``device`` argument on every entry point.  The package imports
 Layering:
   utils/   SoA vec math, golden-file IO, host matrix math
   io/      BMP output, mesh handles
-  accel/   flat BVH buffer types
+  accel/   flat BVH buffer types, the wide-BVH mega-table (accel/wide.py)
   scene/   host scene types, device packing, golden-scene construction
-  ops/     rng, ray query (plain version + the CUDA kernel wrapper), camera,
-           samplers, bsdf, sky, integrator, tonemap
+  ops/     rng, ray query on the binary and on the wide tables (each a
+           plain version + a CUDA kernel wrapper; cuda_build.py builds and
+           loads the kernels), camera, samplers, bsdf, sky, integrator,
+           tonemap
+  probes/  micro-benchmarks (the row-gather probe and its kernel)
   csrc/    hand-written CUDA sources, built at first use
   render.py  tiled frame rendering
 

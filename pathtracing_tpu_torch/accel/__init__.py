@@ -1,1 +1,1 @@
-"""Flat BVH buffer types shared by the packers."""
+"""Flat BVH buffer types shared by the packers, and the wide-BVH mega-table."""

@@ -12,9 +12,11 @@ import numpy as np
 from pathtracing_tpu_torch import resolve_device
 from pathtracing_tpu_torch.scene.device import SceneDevice, to_device
 
-# fields of the JAX SceneDevice that this slice of the port does not read
+# optional wide-BVH tables: carried across when the JAX scene has them
+_WIDE = ("wide_rows", "wide_root", "wide_root_base", "tri_shade")
+# fields of the JAX SceneDevice that the port does not read yet
 _LATER = (
-    "nl5", "wide_rows", "wide_root", "wide_root_base", "tri_shade",
+    "nl5",
     "lt_tris", "lt_rows", "lt_cdf", "lt_seg", "lt_rank",
     "hot_rows", "hot_planes",
 )
@@ -23,10 +25,11 @@ _LATER = (
 def scene_from_jax(fields: dict[str, np.ndarray], device=None) -> SceneDevice:
     """The port's SceneDevice from the numpy fields of a JAX SceneDevice.
 
-    Tables are uploaded byte for byte (the link bit patterns in ``nl8`` pass
-    through no float op). Optional tables of later slices (wide BVH, packed
-    shading rows, area lights, hot rows) are refused rather than dropped, so
-    a scene never renders through another path than the caller packed it for.
+    Tables are uploaded byte for byte (the link bit patterns in ``nl8`` and
+    ``wide_rows`` pass through no float op). The wide-BVH tables come across
+    when present. Optional tables of later slices (bf16 node rows, area
+    lights, hot rows) are refused rather than dropped, so a scene never
+    renders through another path than the caller packed it for.
     """
     device = resolve_device(device)
     unknown = set(fields) - set(SceneDevice._fields)
@@ -38,7 +41,8 @@ def scene_from_jax(fields: dict[str, np.ndarray], device=None) -> SceneDevice:
             f"scene tables of a later slice of the port: {later}"
         )
     missing = [
-        k for k in SceneDevice._fields if k not in _LATER and fields.get(k) is None
+        k for k in SceneDevice._fields
+        if k not in _LATER and k not in _WIDE and fields.get(k) is None
     ]
     if missing:
         raise KeyError(f"missing SceneDevice fields: {missing}")
@@ -46,6 +50,6 @@ def scene_from_jax(fields: dict[str, np.ndarray], device=None) -> SceneDevice:
         **{
             k: to_device(np.asarray(fields[k]), device)
             for k in SceneDevice._fields
-            if k not in _LATER
+            if k not in _LATER and fields.get(k) is not None
         }
     )

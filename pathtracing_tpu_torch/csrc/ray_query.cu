@@ -38,94 +38,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ray_common.cuh"
+
 namespace {
 
-struct V3 { float x, y, z; };
-
-__device__ __forceinline__ V3 safe_inv(V3 d) {
-    const float big = __int_as_float(0x7f800000);  // +inf
-    V3 r;
-    r.x = d.x == 0.0f ? big : 1.0f / d.x;
-    r.y = d.y == 0.0f ? big : 1.0f / d.y;
-    r.z = d.z == 0.0f ? big : 1.0f / d.z;
-    return r;
-}
-
-__device__ __forceinline__ int octant(V3 d) {
-    return (d.x > 0.0f ? 1 : 0) + (d.y > 0.0f ? 2 : 0) + (d.z > 0.0f ? 4 : 0);
-}
-
-// Woop max-axis permutation + shear constants (reference: math.hh:340-356).
-__device__ __forceinline__ void tri_preprocess(V3 d, int& axis, V3& S) {
-    const float ax = fabsf(d.x), ay = fabsf(d.y), az = fabsf(d.z);
-    const bool is0 = ax > ay && ax > az;
-    const bool is1 = !is0 && ay > az;
-    axis = is0 ? 0 : (is1 ? 1 : 2);
-    const float rx = is0 ? d.z : d.x;
-    const float ry = is1 ? d.z : d.y;
-    const float rz = is0 ? d.x : (is1 ? d.y : d.z);
-    const float inv_z = 1.0f / rz;
-    S.x = rx * inv_z;
-    S.y = ry * inv_z;
-    S.z = 1.0f * inv_z;
-}
-
-// Watertight ray-triangle test (reference: math.hh:358-401).
-__device__ __forceinline__ bool tri_intersect(
-    V3 o, int axis, V3 S, V3 p0, V3 p1, V3 p2,
-    float& u, float& v, float& t, bool& back) {
-    const V3 A = {p0.x - o.x, p0.y - o.y, p0.z - o.z};
-    const V3 B = {p1.x - o.x, p1.y - o.y, p1.z - o.z};
-    const V3 C = {p2.x - o.x, p2.y - o.y, p2.z - o.z};
-    const V3 x = {A.x, B.x, C.x};
-    const V3 y = {A.y, B.y, C.y};
-    const V3 z = {A.z, B.z, C.z};
-    const bool is0 = axis == 0, is1 = axis == 1;
-    const V3 x2 = is0 ? z : x;
-    const V3 y2 = is1 ? z : y;
-    const V3 z2 = is0 ? x : (is1 ? y : z);
-    const V3 x3 = {x2.x - S.x * z2.x, x2.y - S.x * z2.y, x2.z - S.x * z2.z};
-    const V3 y3 = {y2.x - S.y * z2.x, y2.y - S.y * z2.y, y2.z - S.y * z2.z};
-    // uvw = cross(y3, x3)
-    const float wx = y3.y * x3.z - y3.z * x3.y;
-    const float wy = y3.z * x3.x - y3.x * x3.z;
-    const float wz = y3.x * x3.y - y3.y * x3.x;
-    const float det = wx + wy + wz;
-    const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
-    u = wx * inv_det;
-    v = wy * inv_det;
-    t = (wx * (S.z * z2.x) + wy * (S.z * z2.y) + wz * (S.z * z2.z)) * inv_det;
-    back = ((det < 0.0f) != (S.z < 0.0f)) != (axis != 2);
-    const bool all_pos = wx >= 0.0f && wy >= 0.0f && wz >= 0.0f;
-    const bool all_neg = wx <= 0.0f && wy <= 0.0f && wz <= 0.0f;
-    return det != 0.0f && t >= 0.0f && (all_pos || all_neg);
-}
-
-// Ray into instance space by the inverse transform's columns
-// (reference: ray_query.hh:159-165).  f = inst_f row, 21 floats.
-__device__ __forceinline__ void instance_ray(
-    const float* __restrict__ f, V3 o, V3 d, V3& bo, V3& bd) {
-    const float f0 = __ldg(f + 0), f1 = __ldg(f + 1), f2 = __ldg(f + 2);
-    const float f3 = __ldg(f + 3), f4 = __ldg(f + 4), f5 = __ldg(f + 5);
-    const float f6 = __ldg(f + 6), f7 = __ldg(f + 7), f8 = __ldg(f + 8);
-    const float f9 = __ldg(f + 9), f10 = __ldg(f + 10), f11 = __ldg(f + 11);
-    bo.x = f0 * o.x + f3 * o.y + f6 * o.z + f9;
-    bo.y = f1 * o.x + f4 * o.y + f7 * o.z + f10;
-    bo.z = f2 * o.x + f5 * o.y + f8 * o.z + f11;
-    bd.x = f0 * d.x + f3 * d.y + f6 * d.z;
-    bd.y = f1 * d.x + f4 * d.y + f7 * d.z;
-    bd.z = f2 * d.x + f5 * d.y + f8 * d.z;
-}
-
-__device__ __forceinline__ void load_tri(
-    const float4* __restrict__ tri_pos, int row, V3& p0, V3& p1, V3& p2) {
-    const float4 a = __ldg(tri_pos + 3 * (size_t)row);
-    const float4 b = __ldg(tri_pos + 3 * (size_t)row + 1);
-    const float4 c = __ldg(tri_pos + 3 * (size_t)row + 2);
-    p0 = {a.x, a.y, a.z};
-    p1 = {a.w, b.x, b.y};
-    p2 = {b.z, b.w, c.x};
-}
+using namespace ptq;
 
 constexpr int kBlock = 128;
 
@@ -142,23 +59,14 @@ __global__ void __launch_bounds__(kBlock) ray_query_kernel(
     const uint8_t* __restrict__ active,        // bool per lane
     const uint8_t* __restrict__ anyhit_lane,   // bool per lane, or null
     float tmin, float tmax_all, int anyhit_all,
-    float* __restrict__ thit, float* __restrict__ bu, float* __restrict__ bv,
-    int* __restrict__ out_inst, int* __restrict__ out_prim,
-    uint8_t* __restrict__ out_back, uint8_t* __restrict__ out_occ,
-    int R) {
+    HitOut out, int R) {
     const int r = blockIdx.x * kBlock + threadIdx.x;
     if (r >= R) return;
 
     // An inactive lane reads its `active` byte and nothing else, and writes
     // a miss: the batches of a bounce hold many such lanes.
     if (active[r] == 0) {
-        thit[r] = -1.0f;
-        bu[r] = 0.f;
-        bv[r] = 0.f;
-        out_inst[r] = -1;
-        out_prim[r] = 0;
-        out_back[r] = 0;
-        out_occ[r] = 0;
+        write_miss(out, r);
         return;
     }
 
@@ -255,26 +163,8 @@ __global__ void __launch_bounds__(kBlock) ray_query_kernel(
         }
     }
 
-    // ---- _finalize_hit: (u, v, back) once more from the hit ids ----
-    const bool hitm = c_inst >= 0;
-    float u = 0.f, v = 0.f;
-    bool back = false;
-    if (hitm) {
-        V3 bo, bd, S, p0, p1, p2;
-        int axis;
-        float t;
-        instance_ray(inst_f + 21 * (size_t)c_inst, org, dir, bo, bd);
-        tri_preprocess(bd, axis, S);
-        load_tri(tri_pos, __ldg(inst_u + 6 * (size_t)c_inst + 4) + c_prim, p0, p1, p2);
-        tri_intersect(bo, axis, S, p0, p1, p2, u, v, t, back);
-    }
-    thit[r] = hitm ? tmax : -1.0f;
-    bu[r] = u;
-    bv[r] = v;
-    out_inst[r] = c_inst;
-    out_prim[r] = hitm ? c_prim : 0;
-    out_back[r] = back ? 1 : 0;
-    out_occ[r] = occluded ? 1 : 0;
+    finalize_hit(tri_pos, inst_f, inst_u, org, dir, c_inst, c_prim, tmax,
+                 occluded, out, r);
 }
 
 }  // namespace
@@ -299,8 +189,10 @@ extern "C" int pt_ray_query(
         (const float*)ox, (const float*)oy, (const float*)oz, (const float*)dx,
         (const float*)dy, (const float*)dz, (const float*)tmax_lane,
         (const uint8_t*)active, (const uint8_t*)anyhit_lane, tmin, tmax_all,
-        anyhit_all, (float*)thit, (float*)bu, (float*)bv, (int*)out_inst,
-        (int*)out_prim, (uint8_t*)out_back, (uint8_t*)out_occ, R);
+        anyhit_all,
+        HitOut{(float*)thit, (float*)bu, (float*)bv, (int*)out_inst,
+               (int*)out_prim, (uint8_t*)out_back, (uint8_t*)out_occ},
+        R);
     return (int)cudaGetLastError();
 }
 

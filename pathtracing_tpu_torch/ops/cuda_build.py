@@ -1,0 +1,151 @@
+"""Build and load the hand-written CUDA kernels: one ``KernelLibrary`` each.
+
+A kernel's source (``csrc/*.cu``) is compiled by ``nvcc`` into a shared
+library with a plain C interface and loaded with ``ctypes`` (no PyTorch
+headers: seconds, not minutes). It is built at first use into
+``build/torch_kernels/`` at the root of the checkout, under a name keyed by a
+hash of the source, of every header it includes and of the flags, so a stale
+library is never loaded after an edit to any of them. A build or load failure
+propagates: nothing here gives way to another path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+
+# Parity flags: no FMA contraction (the oracle goldens were made without it,
+# and contraction in the triangle test flips equal-t ties between coincident
+# triangles), IEEE division and square root, denormals kept (link words in
+# the tables are bit patterns, small ones subnormal). No fast-math.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    "--fmad=false", "--prec-div=true", "--prec-sqrt=true", "--ftz=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers and spills per kernel, into the build log
+)
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+            if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+                return os.path.join(root, "bin", "nvcc")
+        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
+    return nvcc
+
+
+def build_command(nvcc: str, source, out) -> list[str]:
+    """The one compiler call that builds a kernel's shared library. Headers
+    lie beside the source, so no include path is given."""
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(source)]
+
+
+class KernelLibrary:
+    """One CUDA source, the headers it includes, and its C symbols.
+
+    ``symbols``: ``{name: (argtypes, restype)}`` — declared on the loaded
+    library, or ctypes would pass a pointer as a 32-bit int.
+    """
+
+    def __init__(self, source, headers=(), symbols=None):
+        self.source = pathlib.Path(source)
+        self.headers = tuple(pathlib.Path(h) for h in headers)
+        self.symbols = dict(symbols or {})
+        self.build_seconds: float | None = None  # set when this process built it
+        self._lib = None
+
+    @property
+    def name(self) -> str:
+        return self.source.stem
+
+    def path(self) -> pathlib.Path:
+        h = hashlib.sha256()
+        for f in (self.source, *self.headers):
+            h.update(f.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.name}_{h.hexdigest()[:16]}.so"
+
+    @property
+    def build_log(self) -> pathlib.Path:
+        return self.path().with_suffix(".log")
+
+    def build(self) -> pathlib.Path:
+        """Build the library if its hash-named file is missing; returns its
+        path. The compiler's output, ptxas' register/spill report included,
+        goes to the build log (``<library>.log`` beside the library)."""
+        out = self.path()
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = build_command(find_nvcc(), self.source, tmp)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: a half-written library is never loaded
+        return out
+
+    def load(self):
+        if self._lib is None:
+            lib = ctypes.CDLL(str(self.build()))
+            for name, (argtypes, restype) in self.symbols.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
+            self._lib = lib
+        return self._lib
+
+    def resources(self) -> list[dict]:
+        """ptxas' report per kernel from the build log: registers, spill
+        bytes, shared memory."""
+        log = self.build_log.read_text()
+        out = []
+        for m in re.finditer(
+            r"Compiling entry function '(\w+)'.*?"
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+            r"Used (\d+) registers(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?",
+            log, re.S,
+        ):
+            out.append({
+                "entry": m.group(1), "registers": int(m.group(4)),
+                "spill_store_bytes": int(m.group(2)),
+                "spill_load_bytes": int(m.group(3)),
+                "smem_bytes": int(m.group(5) or 0),
+            })
+        return out
+
+
+def check_tensor(name, t, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous tensor of this dtype, shape and
+    device (``shape=None``: any)."""
+    import torch
+
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")

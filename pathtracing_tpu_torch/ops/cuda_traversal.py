@@ -15,49 +15,41 @@ Differences from the TPU wrapper's interface, on purpose:
     there is no second path to give way to: a build or launch failure
     propagates. ``table_bytes`` only reports the tables' size.
 
-Build: ``nvcc`` into a shared library with a plain C interface, loaded with
-``ctypes`` (no PyTorch headers: seconds, not minutes). Built at first use
-from the source in this package into ``build/torch_kernels/`` at the root
-of the checkout, under a name keyed by a hash of source and flags, so a
-stale library is never loaded.
+Build and binding: ops/cuda_build.py (``nvcc`` into a shared library with a
+plain C interface, loaded with ``ctypes``, built at first use under a
+hash-keyed name in ``build/torch_kernels/``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import time
 
 import torch
 
+from pathtracing_tpu_torch.ops.cuda_build import (
+    CSRC,
+    KernelLibrary,
+    check_tensor as _check,
+)
 from pathtracing_tpu_torch.ops.traversal import RayHit
 from pathtracing_tpu_torch.utils.vec import Vec3
 
-_PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ray_query.cu"
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+SOURCE = CSRC / "ray_query.cu"
+HEADER = CSRC / "ray_common.cuh"
 
-# Parity flags: no FMA contraction (the oracle goldens were made without it,
-# and contraction in the triangle test flips equal-t ties between coincident
-# triangles), IEEE division and square root, denormals kept (the link words
-# in nl8 are bit patterns, small ones subnormal). No fast-math.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3",
-    "--fmad=false", "--prec-div=true", "--prec-sqrt=true", "--ftz=false",
-    "-shared", "-Xcompiler", "-fPIC",
+_p, _f, _i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+LIBRARY = KernelLibrary(
+    SOURCE,
+    headers=(HEADER,),
+    symbols={
+        "pt_ray_query": ([_p] * 15 + [_f, _f, _i] + [_p] * 7 + [_i, _p], _i),
+        "pt_ray_query_block_size": ([], _i),
+    },
 )
 
 # Launches of the kernel since the last reset: incremented where the kernel
 # is launched and nowhere else, so a run can show that it went through it.
 launches = 0
-
-_lib = None
-build_seconds: float | None = None  # set when this process built the library
 
 
 def reset_launches() -> None:
@@ -74,85 +66,9 @@ def table_bytes(scene) -> int:
     )
 
 
-def find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-            if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-                return os.path.join(root, "bin", "nvcc")
-        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-    return nvcc
-
-
-def build_command(nvcc: str, source, out, extra=()) -> list[str]:
-    """The one compiler call that builds the kernel's shared library."""
-    return [nvcc, *NVCC_FLAGS, *extra, "-o", str(out), str(source)]
-
-
-def _library_path() -> pathlib.Path:
-    h = hashlib.sha256()
-    h.update(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"ray_query_{h.hexdigest()[:16]}.so"
-
-
-def build(verbose: bool = False) -> pathlib.Path:
-    """Build the library if its hash-named file is missing; returns its path.
-    ``verbose`` adds ptxas' register/spill report to the returned build log
-    (``build.log`` beside the library)."""
-    global build_seconds
-    out = _library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = build_command(
-        find_nvcc(), SOURCE, tmp, extra=("-Xptxas", "-v") if verbose else ()
-    )
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a half-written library is never loaded
-    return out
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-        lib.pt_ray_query.argtypes = [p] * 15 + [f, f, i] + [p] * 7 + [i, p]
-        lib.pt_ray_query.restype = i
-        lib.pt_ray_query_block_size.argtypes = []
-        lib.pt_ray_query_block_size.restype = i
-        _lib = lib
-    return _lib
-
-
 def block_size() -> int:
     """Threads per block of the built kernel."""
-    return int(_load().pt_ray_query_block_size())
-
-
-def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+    return int(LIBRARY.load().pt_ray_query_block_size())
 
 
 def ray_query_cuda(
@@ -180,9 +96,9 @@ def ray_query_cuda(
     device = org.x.device
     if device.type != "cuda":
         raise ValueError(f"ray_query_cuda needs CUDA tensors, got {device}")
-    if scene.wide_rows is not None or scene.nl5 is not None:
+    if scene.nl5 is not None:
         raise NotImplementedError(
-            "wide-BVH and bf16 node tables are later slices of the port"
+            "bf16 node tables are a later slice of the port"
         )
     R = org.x.shape[0]
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
@@ -216,7 +132,7 @@ def ray_query_cuda(
     else:
         tmax_all = float(tmax0)
 
-    lib = _load()
+    lib = LIBRARY.load()
     thit = torch.empty(R, dtype=f32, device=device)
     bu = torch.empty(R, dtype=f32, device=device)
     bv = torch.empty(R, dtype=f32, device=device)

@@ -120,14 +120,16 @@ def shade_hit(
 ) -> HitInfo:
     """Shading fetch for a closest-hit result (reference: path_tracer.hh:356-412).
 
-    Gathers the per-vertex tables (tri_idx, vattr, tri_pos). The packed
-    ``tri_shade`` rows (``packed=True``) belong to the wide-BVH slice.
+    The default gathers the per-vertex tables (tri_idx, vattr, tri_pos).
+    ``packed=True`` reads the (T, 48) ``tri_shade`` rows of a scene packed
+    with ``wide=True`` instead (scene/device.pack_tri_shade): one row gives
+    the three 11-float vertex attributes and the 9 positions, and ``back`` is
+    re-derived from the triangle test instead of taken from ``hit``.
+    ``path_trace_samples`` does not pass it; it serves the fused renderers.
     """
-    if packed:
-        raise NotImplementedError(
-            "shade_hit(packed=True) reads the tri_shade rows of the wide-BVH "
-            "slice of the port"
-        )
+    if packed and scene.tri_shade is None:
+        raise ValueError("shade_hit(packed=True): the scene carries no "
+                         "tri_shade rows; pack it with wide=True")
     miss = hit.thit < 0
 
     # ---- miss: sun disk (reference: path_tracer.hh:356-366) ----
@@ -142,19 +144,26 @@ def shade_hit(
     ui = scene.inst_u[iidx]
     fi = scene.inst_f[iidx]
     tri_row = ui[:, 4] + torch.where(miss, 0, hit.prim)
-    ti = scene.tri_idx[tri_row]  # (R, 4) absolute vertex ids
-    a012 = scene.vattr[ti[:, 0:3]]  # (R, 3, 12)
-    a0 = a012[:, 0]
-    a1 = a012[:, 1]
-    a2 = a012[:, 2]
+    if packed:
+        ts_row = scene.tri_shade[tri_row]  # (R, 48)
+        a0 = ts_row[:, 0:11]
+        a1 = ts_row[:, 11:22]
+        a2 = ts_row[:, 22:33]
+        tp = ts_row[:, 33:42]
+    else:
+        ti = scene.tri_idx[tri_row]  # (R, 4) absolute vertex ids
+        a012 = scene.vattr[ti[:, 0:3]]  # (R, 3, 12)
+        a0 = a012[:, 0]
+        a1 = a012[:, 1]
+        a2 = a012[:, 2]
+        tp = scene.tri_pos[tri_row]  # (R, 12)
 
     # (u, v, t) re-derived at fixed topology from the hit ids, with the
     # same formulas as the ray query's own triangle test
     bo, bd = _instance_ray(fi, origin, d)
     baxis, bS = _tri_preprocess(bd)
-    tp = scene.tri_pos[tri_row]  # (R, 12)
-    _, du, dv, dt, _ = _tri_intersect(bo, baxis, bS, *_tri_vertices(tp))
-    back = hit.back
+    _, du, dv, dt, dback = _tri_intersect(bo, baxis, bS, *_tri_vertices(tp))
+    back = (torch.logical_not(miss) & dback) if packed else hit.back
     thit = torch.where(miss, hit.thit, dt)
     bu = torch.where(miss, hit.bary_u, du)
     bv = torch.where(miss, hit.bary_v, dv)

@@ -1,8 +1,9 @@
 """Two-level BVH ray query: dispatch, shared helpers and the plain version.
 
 Re-expresses the reference's incremental ray-query state machine
-(reference: ray_query.hh:111-290). ``ray_query`` is the entry point: CUDA
-tensors go to the hand-written kernel (ops/cuda_traversal.py,
+(reference: ray_query.hh:111-290). ``ray_query`` is the entry point: a scene
+that carries the wide-BVH mega-table goes to ops/wide_traversal.py; otherwise
+CUDA tensors go to the hand-written kernel (ops/cuda_traversal.py,
 csrc/ray_query.cu), CPU tensors to ``ray_query_plain`` below.
 
 ``ray_query_plain`` is the plain PyTorch version of that kernel: every lane
@@ -246,10 +247,18 @@ def ray_query(
     bool tensor so one batch can mix shadow and closest-hit rays.
     Returns (RayHit, occluded).
 
-    Tensors on a CUDA device launch the kernel (or raise — there is no way
-    from here to the plain version for them); tensors on the CPU take the
-    plain version.
+    A scene packed with ``wide=True`` (``scene.wide_rows`` set) is walked
+    through its mega-table (ops/wide_traversal.wide_ray_query), any other
+    through the binary tables. Tensors on a CUDA device launch the kernel
+    (or raise — there is no way from here to the plain version for them);
+    tensors on the CPU take the plain version.
     """
+    if scene.wide_rows is not None:
+        from pathtracing_tpu_torch.ops.wide_traversal import wide_ray_query
+
+        return wide_ray_query(
+            scene, tlas_count, tlas_offset, org, d, tmin, tmax0, active, anyhit
+        )
     if org.x.is_cuda:
         from pathtracing_tpu_torch.ops.cuda_traversal import ray_query_cuda
 
@@ -276,9 +285,9 @@ def ray_query_plain(
     """The plain PyTorch version of the ray-query kernel; same contract as
     ``ray_query``, on whatever device the tensors lie. ``return_counts``
     additionally returns the RayQueryCounts of this batch."""
-    if scene.wide_rows is not None or scene.nl5 is not None:
+    if scene.nl5 is not None:
         raise NotImplementedError(
-            "wide-BVH and bf16 node tables are later slices of the port"
+            "bf16 node tables are a later slice of the port"
         )
     R = org.x.shape
     dev = org.x.device

@@ -12,11 +12,16 @@ packed into one row, so a ray-query step or a shading fetch reads whole rows
   inst_u  (I, 6)   blas count/offset, index_offset, base_vertex, tri_offset
   vattr   (V, 12)  normal(3) + albedo(4) + material(4) + pad
   sf_*    (S, _)   per-subframe TLAS handle, camera, light rows
+and, for a scene packed with ``wide=True``:
+  wide_rows (M, w_row)  the wide-BVH mega-table (accel/wide.py)
+  wide_root (K, 8)      per-octant TLAS root cursors by tlas node_offset
+  tri_shade (T, 48)     per triangle: 3 x 11 vertex attributes + 9 positions
 
 The packers are numpy on the host and produce the same bytes as the JAX
 package's; only the upload differs. ``nl8[:, 6:8]`` hold int32 link bit
-patterns (small ids are subnormals, some patterns are NaNs): they are copied
-and bit-viewed, never sent through a float op.
+patterns (small ids are subnormals, some patterns are NaNs), and so do the
+link, prim-id and instance-id columns of ``wide_rows``: they are copied and
+bit-viewed, never sent through a float op.
 """
 
 from __future__ import annotations
@@ -27,6 +32,12 @@ import numpy as np
 import torch
 
 from pathtracing_tpu_torch import resolve_device
+from pathtracing_tpu_torch.accel.wide import (
+    LAYOUT_S8,
+    LAYOUT_W8,
+    LAYOUT_W16,
+    build_wide_tables,
+)
 
 Array = Any
 f32 = np.float32
@@ -43,15 +54,17 @@ class SceneDevice(NamedTuple):
     sf_tlas_offset: Array
     sf_cam: Array     # (S, 18) f32
     sf_light: Array   # (S, 7) f32
-    # Fields of the JAX package's SceneDevice that later slices of the port
-    # fill (bf16 node rows, wide-BVH mega-table, packed shading rows,
-    # emissive-light tables, hot rows). They stay None here, and the code of
-    # this slice raises NotImplementedError when one is set.
+    # Optional tables, in the JAX package's field order. nl5 (bf16 node
+    # rows), the emissive-light tables and the hot rows belong to later
+    # slices of the port: they stay None, and the code raises
+    # NotImplementedError when one is set.
     nl5: Array | None = None
-    wide_rows: Array | None = None
-    wide_root: Array | None = None
+    # Wide-BVH tables (pack_scene(wide=True)); wide_root_base stays None for
+    # a one-shot pack (wide_root is indexed by the tlas offset itself).
+    wide_rows: Array | None = None   # (M, w_row) f32; link columns are bits
+    wide_root: Array | None = None   # (K, 8) int32 cursor bits
     wide_root_base: Array | None = None
-    tri_shade: Array | None = None
+    tri_shade: Array | None = None   # (T, 48) f32
     lt_tris: Array | None = None
     lt_rows: Array | None = None
     lt_cdf: Array | None = None
@@ -132,6 +145,32 @@ def pack_tri_tables(indices, pos, meshes):
     return out_pos, out_idx
 
 
+def pack_tri_shade(indices, pos, normal, albedo, material, meshes):
+    """(T, 48) packed shading rows in global triangle order: per vertex
+    [normal(3), albedo(4), material(4)] (33 f32) then the 9 vertex
+    positions; one row read serves a whole hit's shading fetch."""
+    t_total = max(len(indices) // 3, 1)
+    out = np.zeros((t_total, 48), f32)
+    seen = set()
+    for m in meshes:
+        key = (m.index_offset, m.triangle_count)
+        if m.triangle_count == 0 or key in seen:
+            continue
+        seen.add(key)
+        tri = indices[
+            m.index_offset : m.index_offset + 3 * m.triangle_count
+        ].reshape(-1, 3).astype(np.int64) + m.base_vertex_offset
+        t0 = m.index_offset // 3
+        sl = slice(t0, t0 + m.triangle_count)
+        for v in range(3):
+            base = 11 * v
+            out[sl, base : base + 3] = normal[tri[:, v]]
+            out[sl, base + 3 : base + 7] = albedo[tri[:, v]]
+            out[sl, base + 7 : base + 11] = material[tri[:, v]]
+        out[sl, 33:42] = pos[tri].reshape(-1, 9)
+    return out
+
+
 def pack_vattr(normal, albedo, material) -> np.ndarray:
     v = max(len(normal), 1)
     out = np.zeros((v, 12), f32)
@@ -142,6 +181,34 @@ def pack_vattr(normal, albedo, material) -> np.ndarray:
     return out
 
 
+def _wide_layout(name):
+    if not isinstance(name, str):
+        return name
+    return {"w8": LAYOUT_W8, "w16": LAYOUT_W16, "s8": LAYOUT_S8}[name]
+
+
+def attach_wide(
+    scene: SceneDevice,
+    mesh_arrays,
+    bvh_nodes,
+    bvh_links,
+    instances,
+    subframes,
+    leaf_bundle: int | None = 8,
+    layout="w8",
+) -> SceneDevice:
+    """Attach the wide-BVH mega-table (accel/wide.py) to a packed scene, on
+    the scene's device."""
+    mega, root_by_off = build_wide_tables(
+        mesh_arrays, bvh_nodes, bvh_links, instances, subframes,
+        leaf_bundle=leaf_bundle, layout=_wide_layout(layout),
+    )
+    device = scene.nl8.device
+    return scene._replace(
+        wide_rows=to_device(mega, device), wide_root=to_device(root_by_off, device)
+    )
+
+
 def pack_scene(
     mesh_arrays,
     bvh_nodes: np.ndarray,
@@ -150,20 +217,19 @@ def pack_scene(
     subframes,
     emissive_nee: bool = False,
     wide: bool = False,
+    leaf_bundle: int | None = 8,
+    wide_layout="w8",
     device=None,
 ) -> SceneDevice:
     """Pack host scene state into device tensors.
 
     mesh_arrays: (indices, pos, normal, albedo, material) flat numpy arrays.
     subframes: list of scene.types.Subframe. ``device=None`` means CUDA and
-    raises when there is none. The wide-BVH tables (``wide=True``) and the
-    area-light tables (``emissive_nee=True``) are later slices of the port.
+    raises when there is none. ``wide=True`` also builds the wide-BVH
+    mega-table in ``wide_layout`` ("w8", "w16", "s8" or a WideLayout) and the
+    packed shading rows; ``ray_query`` then walks the mega-table. The
+    area-light tables (``emissive_nee=True``) are a later slice of the port.
     """
-    if wide:
-        raise NotImplementedError(
-            "pack_scene(wide=True): the wide-BVH mega-table is a later slice "
-            "of the port (accel/wide.py)"
-        )
     if emissive_nee:
         raise NotImplementedError(
             "pack_scene(emissive_nee=True): area-light NEE is a later slice "
@@ -182,7 +248,7 @@ def pack_scene(
         indices, pos, [i.mesh for i in instances]
     )
     dev = lambda a: to_device(a, device)
-    return SceneDevice(
+    scene = SceneDevice(
         nl8=dev(pack_nl8(bvh_nodes, bvh_links, segments)),
         tri_pos=dev(tri_pos),
         tri_idx=dev(tri_idx),
@@ -194,6 +260,20 @@ def pack_scene(
         sf_cam=dev(sf_cam),
         sf_light=dev(sf_light),
     )
+    if wide:
+        scene = attach_wide(
+            scene, mesh_arrays, bvh_nodes, bvh_links, instances, subframes,
+            leaf_bundle=leaf_bundle, layout=wide_layout,
+        )
+        scene = scene._replace(
+            tri_shade=dev(
+                pack_tri_shade(
+                    indices, pos, normal, albedo, material,
+                    [i.mesh for i in instances],
+                )
+            )
+        )
+    return scene
 
 
 def _subframe_rows(subframes):

@@ -62,11 +62,15 @@ def light_from_golden(g) -> DirectionalLight:
     )
 
 
-def scene_device_from_golden(g, config=TESTING, device=None) -> SceneDevice:
+def scene_device_from_golden(
+    g, config=TESTING, wide: bool = False, leaf_bundle: int | None = 8,
+    wide_layout="w8", device=None,
+) -> SceneDevice:
     """The golden scene with ``config.subframe_count`` identical subframes.
 
     Build it with the config it is rendered with: ``camera_sample`` indexes
     the subframe rows by ``sample_index // samples_per_motion_blur_step``.
+    ``wide``, ``leaf_bundle``, ``wide_layout``: as ``pack_scene``.
     """
     instances = [
         _GoldenInstance(g["instances_u"][i], g["instances_f"][i])
@@ -84,7 +88,9 @@ def scene_device_from_golden(g, config=TESTING, device=None) -> SceneDevice:
         g["material"],
     )
     return pack_scene(
-        mesh_arrays, g["nodes"], g["links"], instances, subframes, device=device
+        mesh_arrays, g["nodes"], g["links"], instances, subframes,
+        wide=wide, leaf_bundle=leaf_bundle, wide_layout=wide_layout,
+        device=device,
     )
 
 

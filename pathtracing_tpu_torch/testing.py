@@ -52,3 +52,45 @@ def stack(components) -> np.ndarray:
 
 def rel_err(got, ref, eps) -> np.ndarray:
     return np.abs(got - ref) / (np.abs(ref) + eps)
+
+
+def assert_same_tables(tscene, jscene) -> None:
+    """The port's SceneDevice against the JAX package's: same field names in
+    the same order, and every table the JAX scene has equal in shape, dtype
+    and bytes (contiguous on the port's side); what it lacks is None here."""
+    np_of_torch = {torch.float32: np.float32, torch.int32: np.int32}
+    assert tscene._fields == jscene._fields
+    for k in tscene._fields:
+        tv, jv = getattr(tscene, k), getattr(jscene, k)
+        if jv is None:
+            assert tv is None, k
+            continue
+        jv = np.asarray(jv)
+        assert tuple(tv.shape) == jv.shape, k
+        assert np_of_torch[tv.dtype] == jv.dtype, k
+        assert tv.is_contiguous(), k
+        assert n(tv).tobytes() == jv.tobytes(), k
+
+
+def assert_hits_agree(hit_t, occ_t, hit_j, occ_j) -> None:
+    """A ray query of the port against the JAX package's on the same rays:
+    ``occluded`` and hit/miss equal, ids equal on >= 99.8 % of hits, ``thit``
+    rtol 2e-5 / atol 1e-5, and where ids agree ``back`` equal and the
+    barycentrics rtol 1e-4 / atol 1e-5 (differences of products: FMA
+    contraction on the XLA side moves them by more ulps than it moves t)."""
+    np.testing.assert_array_equal(n(occ_t), n(occ_j))
+    thit_t, thit_j = n(hit_t.thit), n(hit_j.thit)
+    np.testing.assert_array_equal(thit_t < 0, thit_j < 0)
+    h = thit_j >= 0
+    np.testing.assert_allclose(thit_t[h], thit_j[h], rtol=2e-5, atol=1e-5)
+    same = (n(hit_t.inst) == n(hit_j.inst)) & (n(hit_t.prim) == n(hit_j.prim))
+    assert (h & ~same).sum() <= 0.002 * max(h.sum(), 1), (h & ~same).sum()
+    np.testing.assert_array_equal(n(hit_t.inst)[~h], -1)
+    np.testing.assert_array_equal(n(hit_t.prim)[~h], 0)
+    exact = h & same
+    np.testing.assert_array_equal(n(hit_t.back)[exact], n(hit_j.back)[exact])
+    for k in ("bary_u", "bary_v", "bary_w"):
+        np.testing.assert_allclose(
+            n(getattr(hit_t, k))[exact], n(getattr(hit_j, k))[exact],
+            rtol=1e-4, atol=1e-5,
+        )

@@ -2,6 +2,7 @@
 integrator over one tile.
 
     python3 -m pathtracing_tpu_torch.trace_sample [--lanes N] [--trace FILE]
+                                                  [--wide]
 
 Runs ``path_trace_samples`` on the golden scene at the PRODUCTION preset's
 geometry (1920x1080, 5 bounces) for one sample on ``--lanes`` pixels (default:
@@ -14,8 +15,10 @@ sample; the profiler slows the host, so it is an upper estimate.
 unprofiled sample's wall time: two runs, valid as far as a kernel takes the
 same time with the profiler on. Neither is clipped: busy time above either
 wall time raises. Then the number of device kernels and the kernels that
-take most device time, with the ray-query kernel's share singled out. CUDA
-only; it raises without a card.
+take most device time, with the ray-query kernel's share singled out.
+``--wide`` packs the scene with the wide-BVH mega-table (layout w8), so the
+ray queries go through the wide kernel; nothing else changes. CUDA only; it
+raises without a card.
 """
 
 from __future__ import annotations
@@ -46,10 +49,14 @@ def main() -> None:
         default=min(CUDA_TILE_PIXELS, PRODUCTION.image_width * PRODUCTION.image_height),
     )
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
+    ap.add_argument("--wide", action="store_true",
+                    help="pack the scene with the wide-BVH mega-table")
     args = ap.parse_args()
 
     cfg = dataclasses.replace(PRODUCTION, samples_per_pixel=8)
-    scene = scene_device_from_golden(load_golden(str(GOLDEN / "scene.gold")), cfg)
+    scene = scene_device_from_golden(
+        load_golden(str(GOLDEN / "scene.gold")), cfg, wide=args.wide
+    )
     idx = torch.arange(args.lanes, dtype=torch.int32, device="cuda")
     xs, ys = idx % cfg.image_width, idx // cfg.image_width
     si = torch.zeros_like(xs)
@@ -95,6 +102,7 @@ def main() -> None:
     ).stdout.strip()
     print(json.dumps({
         "card": smi, "lanes": args.lanes, "bounces": cfg.max_bounces,
+        "wide": args.wide,
         "sample_wall_ms": wall_ms,
         "profiled_sample_wall_ms": profiled_wall_ms,
         "device_busy_ms": busy_ms,

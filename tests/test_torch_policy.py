@@ -1,5 +1,6 @@
 """The port's policies: no JAX at run time, no silent CPU fallback, the
-kernel's build flags, and NotImplementedError for what later slices bring."""
+kernels' build flags, what the kernel wrappers refuse, and
+NotImplementedError for what later slices bring."""
 
 import dataclasses
 import json
@@ -14,7 +15,10 @@ import torch
 import pathtracing_tpu_torch
 from pathtracing_tpu_torch import render as trender
 from pathtracing_tpu_torch.config import TESTING
+from pathtracing_tpu_torch.ops import cuda_build
 from pathtracing_tpu_torch.ops import cuda_traversal as CT
+from pathtracing_tpu_torch.ops import cuda_wide_traversal as CW
+from pathtracing_tpu_torch.probes import gather_probe as GP
 from pathtracing_tpu_torch.scene import golden as tgolden
 from pathtracing_tpu_torch.testing import golden
 
@@ -104,7 +108,7 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_has_no_fallback():
 
 
 def test_build_command_flags():
-    cmd = CT.build_command("nvcc", CT.SOURCE, "out.so")
+    cmd = cuda_build.build_command("nvcc", CT.SOURCE, "out.so")
     assert cmd[0] == "nvcc" and cmd[-1] == str(CT.SOURCE)
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "--fmad=false" in cmd and "-shared" in cmd and "-std=c++17" in cmd
@@ -114,10 +118,136 @@ def test_build_command_flags():
     assert "-I" not in joined  # plain C interface: no PyTorch headers
     assert CT.SOURCE.exists() and "torch/extension.h" not in CT.SOURCE.read_text()
     # built into a git-ignored directory of the checkout, keyed by a hash
-    lib = CT._library_path()
+    lib = CT.LIBRARY.path()
     assert lib.parent == ROOT / "build" / "torch_kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert len(lib.stem.split("_")[-1]) == 16
+
+
+@pytest.mark.parametrize(
+    "library", [CT.LIBRARY, CW.LIBRARY, GP.LIBRARY], ids=lambda lib: lib.name
+)
+def test_kernel_library_sources_and_hash(library, tmp_path):
+    """Every kernel is a CUDA source of the package with a plain C interface;
+    its library's name is keyed by the source, every header it includes and
+    the flags, so an edit to a shared header never loads a stale library."""
+    src = library.source.read_text()
+    assert library.source.parent == ROOT / "pathtracing_tpu_torch" / "csrc"
+    assert "torch/extension.h" not in src and "__global__" in src
+    for name in library.symbols:
+        assert f"{name}(" in src
+    included = {
+        line.split('"')[1] for line in src.splitlines()
+        if line.startswith("#include \"")
+    }
+    assert included == {h.name for h in library.headers}
+    assert library.path().name.startswith(library.name + "_")
+    # the hash moves with the header's bytes
+    for h in library.headers:
+        copy_src = tmp_path / library.source.name
+        copy_hdr = tmp_path / h.name
+        copy_src.write_bytes(library.source.read_bytes())
+        copy_hdr.write_bytes(h.read_bytes() + b"\n// edited\n")
+        edited = cuda_build.KernelLibrary(copy_src, headers=(copy_hdr,))
+        same = cuda_build.KernelLibrary(library.source, headers=library.headers)
+        assert same.path() == library.path() != edited.path()
+
+
+def test_both_ray_query_kernels_share_the_header():
+    assert CT.HEADER == CW.HEADER and CT.HEADER in CT.LIBRARY.headers
+    assert CW.HEADER in CW.LIBRARY.headers and GP.LIBRARY.headers == ()
+
+
+def _wide_args(n=8, device="cpu"):
+    from pathtracing_tpu_torch.testing import vec3_t
+
+    g, rg = golden("scene.gold"), golden("rays.gold")
+    scene = tgolden.scene_device_from_golden(g, CFG, wide=True, device=device)
+    z = torch.zeros(n, dtype=torch.int32)
+    return scene, (
+        z, z, vec3_t(rg["origins"][:n]), vec3_t(rg["dirs"][:n]),
+        0.0, 1e9, torch.ones(n, dtype=torch.bool),
+    )
+
+
+def test_wide_kernel_wrapper_refuses_cpu_tensors_and_has_no_fallback():
+    scene, args = _wide_args()
+    before = CW.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        CW.wide_ray_query_cuda(scene, *args)
+    assert CW.launches == before  # counted only where the kernel is launched
+    src = (ROOT / "pathtracing_tpu_torch" / "ops" / "cuda_wide_traversal.py").read_text()
+    assert "except" not in src and "wide_ray_query_plain" not in src
+    assert CW.table_bytes(scene) == sum(
+        x.numel() * 4 for x in (scene.wide_rows, scene.wide_root, scene.tri_pos,
+                                scene.inst_f, scene.inst_u)
+    )
+
+
+def test_wide_kernel_wrapper_refuses_what_the_kernel_does_not_take():
+    """The wrapper's table checks (``check_scene``) run before anything is
+    built or launched; here on CPU tensors, with the CPU as the device asked
+    for."""
+    from pathtracing_tpu_torch.ops.wide_traversal import wide_ray_query_plain
+
+    scene, args = _wide_args()
+    cpu = torch.device("cpu")
+    assert CW.check_scene(scene, cpu).w_row == 48
+    # a row width no shipped layout has: refused by the wrapper's check and
+    # by the plain walk alike
+    bad = scene._replace(wide_rows=scene.wide_rows[:, :44].contiguous())
+    with pytest.raises(ValueError, match="44 columns"):
+        CW.check_scene(bad, cpu)
+    with pytest.raises(ValueError, match="44 columns"):
+        wide_ray_query_plain(bad, *args)
+    # a table that starts 4 bytes past a 16-byte boundary
+    flat = torch.zeros(scene.wide_rows.numel() + 1, dtype=torch.float32)
+    shifted = flat[1:].view(scene.wide_rows.shape)
+    assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        CW.check_scene(scene._replace(wide_rows=shifted), cpu)
+    # a strided view, a float root table, a scene without wide tables, a
+    # table on another device
+    with pytest.raises(ValueError, match="not contiguous"):
+        CW.check_scene(
+            scene._replace(wide_rows=scene.wide_rows.repeat(1, 2)[:, :48]), cpu
+        )
+    with pytest.raises(TypeError, match="dtype"):
+        CW.check_scene(scene._replace(wide_root=scene.wide_root.float()), cpu)
+    with pytest.raises(ValueError, match="wide=True"):
+        CW.check_scene(scene._replace(wide_rows=None), cpu)
+    with pytest.raises(ValueError, match="expected"):
+        CW.check_scene(scene._replace(wide_root=scene.wide_root.to("meta")), cpu)
+
+
+def test_gather_wrapper_refusals():
+    table = torch.zeros((16, 8), dtype=torch.float32)
+    idx = torch.zeros(4, dtype=torch.int32)
+    before = GP.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        GP.gather_rows_cuda(table, idx)
+    # CPU tensors take the plain version through the dispatcher only
+    assert torch.equal(GP.gather_rows(table, idx), table[idx.long()])
+    assert GP.launches == before
+    src = (ROOT / "pathtracing_tpu_torch" / "probes" / "gather_probe.py").read_text()
+    assert "except" not in src
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            GP.main([])
+    cpu = torch.device("cpu")
+    assert GP.check_args(table, idx, 16, cpu) == 16
+    with pytest.raises(ValueError, match="multiple of 4 floats"):
+        GP.check_args(torch.zeros((16, 6)), idx, 16, cpu)
+    flat = torch.zeros(16 * 8 + 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        GP.check_args(flat[1:].view(16, 8), idx, 16, cpu)
+    for k in (0, 33):
+        with pytest.raises(ValueError, match="copies in flight"):
+            GP.check_args(table, idx, k, cpu)
+    with pytest.raises(ValueError, match="shared memory"):
+        GP.check_args(torch.zeros((4, 1024)), idx, 32, cpu)
+    with pytest.raises(TypeError, match="dtype"):
+        GP.check_args(table, idx.long(), 16, cpu)
 
 
 @pytest.mark.parametrize("kw", [{"wavefront": True}, {"megakernel": True}])

@@ -5,35 +5,17 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from pathtracing_tpu_torch.config import PRODUCTION, TESTING
 from pathtracing_tpu_torch.convert import scene_from_jax
 from pathtracing_tpu_torch.scene import golden as tgolden
-from pathtracing_tpu_torch.scene.device import SceneDevice, pack_scene
-from pathtracing_tpu_torch.testing import golden, n
+from pathtracing_tpu_torch.scene.device import pack_scene
+from pathtracing_tpu_torch.testing import assert_same_tables, golden, n
 
 import golden_scene as jgolden
 
-_NP_OF_TORCH = {torch.float32: np.float32, torch.int32: np.int32}
-
-
 def _jax_fields(jscene) -> dict:
     return {k: np.asarray(v) for k, v in jscene._asdict().items() if v is not None}
-
-
-def _assert_same_tables(tscene, jscene):
-    assert tscene._fields == jscene._fields  # same field names, same order
-    for k in SceneDevice._fields:
-        tv, jv = getattr(tscene, k), getattr(jscene, k)
-        if jv is None:
-            assert tv is None, k
-            continue
-        jv = np.asarray(jv)
-        assert tuple(tv.shape) == jv.shape, k
-        assert _NP_OF_TORCH[tv.dtype] == jv.dtype, k
-        assert tv.is_contiguous(), k
-        assert n(tv).tobytes() == jv.tobytes(), k
 
 
 def test_config_presets_equal_jax():
@@ -48,7 +30,7 @@ def test_config_presets_equal_jax():
 
 def test_golden_scene_tables_byte_equal():
     g = golden("scene.gold")
-    _assert_same_tables(
+    assert_same_tables(
         tgolden.scene_device_from_golden(g, device="cpu"),
         jgolden.scene_device_from_golden(g),
     )
@@ -87,12 +69,12 @@ def test_golden_scene_follows_config_subframes():
     cfg = dataclasses.replace(TESTING, samples_per_pixel=8)
     ts = tgolden.scene_device_from_golden(g, cfg, device="cpu")
     assert ts.sf_cam.shape[0] == 1
-    _assert_same_tables(ts, jgolden.scene_device_from_golden(g, cfg))
+    assert_same_tables(ts, jgolden.scene_device_from_golden(g, cfg))
 
 
 def test_motion_scene_tables_byte_equal():
     g = golden("motion.gold")
-    _assert_same_tables(
+    assert_same_tables(
         tgolden.scene_device_from_motion_golden(g, device="cpu"),
         jgolden.scene_device_from_motion_golden(g),
     )
@@ -115,21 +97,25 @@ def test_scene_from_jax_round_trips_byte_equal(which):
         js = jgolden.scene_device_from_golden(golden("scene.gold"))
     else:
         js = jgolden.scene_device_from_motion_golden(golden("motion.gold"))
-    _assert_same_tables(scene_from_jax(_jax_fields(js), device="cpu"), js)
+    assert_same_tables(scene_from_jax(_jax_fields(js), device="cpu"), js)
 
 
 def test_scene_from_jax_refuses_tables_of_later_slices():
     js = jgolden.scene_device_from_golden(golden("scene.gold"))
     fields = _jax_fields(js)
     with pytest.raises(NotImplementedError):
-        scene_from_jax({**fields, "wide_rows": np.zeros((4, 48), np.float32)}, device="cpu")
+        scene_from_jax({**fields, "nl5": np.zeros((4, 5), np.float32)}, device="cpu")
+    with pytest.raises(NotImplementedError):
+        scene_from_jax({**fields, "hot_rows": np.zeros((4, 48), np.float32)}, device="cpu")
     with pytest.raises(KeyError):
         scene_from_jax({k: v for k, v in fields.items() if k != "vattr"}, device="cpu")
     with pytest.raises(KeyError):
         scene_from_jax({**fields, "not_a_field": np.zeros(1)}, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [{"wide": True}, {"emissive_nee": True}])
+@pytest.mark.parametrize(
+    "kw", [{"emissive_nee": True, "wide": True}, {"emissive_nee": True}]
+)
 def test_pack_scene_later_slices_raise(kw):
     g = golden("scene.gold")
     with pytest.raises(NotImplementedError):

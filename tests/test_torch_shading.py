@@ -287,5 +287,6 @@ def test_shade_hit_matches_jax(scenes):
         axis=1,
     )
     _close(flat(ti), flat(ji), rtol=1e-4, atol=1e-5, frac=0.999)
-    with pytest.raises(NotImplementedError):
+    # the packed fetch needs a scene packed with wide=True
+    with pytest.raises(ValueError, match="tri_shade"):
         tinteg.shade_hit(tscene, tl, thit, _t3(o), _t3(d), packed=True)

@@ -19,7 +19,7 @@ from pathtracing_tpu.ops.traversal import ray_query as jax_ray_query
 from pathtracing_tpu.utils.vec import Vec3 as JVec3
 from pathtracing_tpu_torch.ops.traversal import ray_query, ray_query_plain
 from pathtracing_tpu_torch.scene.golden import scene_device_from_golden
-from pathtracing_tpu_torch.testing import golden, n, t, vec3_t
+from pathtracing_tpu_torch.testing import assert_hits_agree, golden, n, t, vec3_t
 
 import golden_scene as jgolden
 
@@ -77,28 +77,6 @@ def _jax_args(jscene, scene_g, rays_g, r, tmin, tmax0, active):
     )
 
 
-def _assert_agree(hit_t, occ_t, hit_j, occ_j):
-    np.testing.assert_array_equal(n(occ_t), n(occ_j))
-    thit_t, thit_j = n(hit_t.thit), n(hit_j.thit)
-    np.testing.assert_array_equal(thit_t < 0, thit_j < 0)
-    h = thit_j >= 0
-    np.testing.assert_allclose(thit_t[h], thit_j[h], rtol=2e-5, atol=1e-5)
-    same = (n(hit_t.inst) == n(hit_j.inst)) & (n(hit_t.prim) == n(hit_j.prim))
-    assert (h & ~same).sum() <= 0.002 * max(h.sum(), 1), (h & ~same).sum()
-    np.testing.assert_array_equal(n(hit_t.inst)[~h], -1)
-    np.testing.assert_array_equal(n(hit_t.prim)[~h], 0)
-    exact = h & same
-    np.testing.assert_array_equal(n(hit_t.back)[exact], n(hit_j.back)[exact])
-    # barycentrics come from differences of products (the cross product of
-    # the sheared edges): FMA contraction on the XLA side moves them by more
-    # ulps than it moves t
-    for k in ("bary_u", "bary_v", "bary_w"):
-        np.testing.assert_allclose(
-            n(getattr(hit_t, k))[exact], n(getattr(hit_j, k))[exact],
-            rtol=1e-4, atol=1e-5,
-        )
-
-
 @pytest.mark.parametrize(
     "mode",
     ["closest", "anyhit", "mixed_mask", "inactive_lanes", "inactive_mixed",
@@ -112,7 +90,7 @@ def test_plain_matches_jax_ray_query(setup, mode):
     hit_j, occ_j = jax_ray_query(
         *_jax_args(jscene, scene_g, rays_g, R, tmin, tmax0, active), anyhit=ja
     )
-    _assert_agree(hit_t, occ_t, hit_j, occ_j)
+    assert_hits_agree(hit_t, occ_t, hit_j, occ_j)
     if not active.all():
         assert (n(hit_t.thit)[~active] == -1).all() and not n(occ_t)[~active].any()
 
@@ -130,7 +108,7 @@ def test_plain_matches_pallas_interpret(setup, mode):
         *_jax_args(jscene, scene_g, rays_g, R, tmin, tmax0, active),
         anyhit=anyhit, block=256, interpret=True,
     )
-    _assert_agree(hit_t, occ_t, hit_p, occ_p)
+    assert_hits_agree(hit_t, occ_t, hit_p, occ_p)
 
 
 def test_closest_hit_matches_oracle_all_rays(setup):
