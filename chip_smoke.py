@@ -265,13 +265,11 @@ def measure_shape(tag, args, kwargs):
     }
 
 
-def measure_wide_shape(tag, args, kwargs):
-    """One main-path batch of the wide walk: kernel vs plain, its time beside
-    the binary kernel's on the same batch (the wide scene carries the binary
-    tables too), counts, bound."""
-    scene = args[0]
-    lay = LAYOUTS_BY_WIDTH[scene.wide_rows.shape[1]]
-    R = args[3].x.shape[0]
+def check_wide_batch(tag, args, kwargs):
+    """One main-path batch through the wide kernel, its plain version (which
+    counts this batch's row visits) and the binary kernel (the wide scene
+    carries the binary tables too). Returns the kernel's result, the plain
+    version's counts and time, and the comparisons' outcomes."""
     hk, ok = CW.wide_ray_query_cuda(*args, **kwargs)
     hb, ob = CT.ray_query_cuda(*args, **kwargs)
     torch.cuda.synchronize()
@@ -281,6 +279,33 @@ def measure_wide_shape(tag, args, kwargs):
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = compare_hits(tag, hk, ok, hp, op)
     ties = id_mismatches(tag + " vs ray_query", hk, ok, hb, ob)
+    return hk, c, plain_ms, err, ties
+
+
+def wide_table_bytes_needed(scene, lay, args, hit, c) -> int:
+    """Bytes of tables this batch's walk must read at least once: the
+    mega-table rows it visited, the root-cursor rows of its active lanes'
+    TLAS offsets, and for the finalize step one ``inst_f`` + ``inst_u`` row
+    per distinct instance hit and one ``tri_pos`` row per distinct triangle
+    hit. (A stub layout also reads ``tri_pos`` for its leaf tests; no
+    main-path batch runs one, so that term is not counted here.)"""
+    require(not lay.stub, "the bound is worked out for non-stub layouts")
+    roots = int(torch.unique(args[2][args[7]]).numel())
+    h = hit.inst >= 0
+    inst = hit.inst[h].long()
+    tri = scene.inst_u[inst, 4] + hit.prim[h]  # the instance's triangle base
+    return (c.rows_touched * lay.w_row * 4 + roots * 8 * 4
+            + int(torch.unique(inst).numel()) * INST_ROW_B
+            + int(torch.unique(tri).numel()) * TRI_ROW_B)
+
+
+def measure_wide_shape(tag, args, kwargs):
+    """One main-path batch of the wide walk: kernel vs plain, its time beside
+    the binary kernel's on the same batch, counts, bound."""
+    scene = args[0]
+    lay = LAYOUTS_BY_WIDTH[scene.wide_rows.shape[1]]
+    R = args[3].x.shape[0]
+    hk, c, plain_ms, err, ties = check_wide_batch(tag, args, kwargs)
 
     t = time_launches({
         "wide": lambda: CW.wide_ray_query_cuda(*args, **kwargs),
@@ -291,17 +316,20 @@ def measure_wide_shape(tag, args, kwargs):
     io_b = ray_io_bytes(kwargs.get("anyhit", False), args[6], R, n_active,
                         handles=4, tmin=args[5])
     S, L = lay.n_slots, lay.leaf_tris
-    leaf_row_b = (L + 1) * 4 if lay.stub else (10 * L + 1) * 4
     finalize = c.hits * (INST_ROW_B + TRI_ROW_B)
-    row_b = (c.wide_rows * (4 * S + 1) * 4 + c.leaf_rows * leaf_row_b
-             + c.inst_rows * 21 * 4 + c.stub_tri_rows * TRI_ROW_B + finalize)
-    flops = (c.wide_rows * S * NODE_FLOPS + c.tri_tests * TRI_FLOPS
+    row_b = (c.wide_rows * (4 * S + 1) * 4 + c.leaf_rows * (10 * L + 1) * 4
+             + c.inst_rows * 21 * 4 + finalize)
+    # slab tests the walk needs (slots from the cursor's start slot on whose
+    # link is not the empty one), not S per WIDE visit
+    flops = (c.slab_tests * NODE_FLOPS + c.tri_tests * TRI_FLOPS
              + c.inst_rows * INST_FLOPS + c.hits * (INST_FLOPS + TRI_FLOPS))
-    b = bound(CW.table_bytes(scene), io_b, row_b, flops)
+    table_b = wide_table_bytes_needed(scene, lay, args, hk, c)
+    b = bound(table_b, io_b, row_b, flops)
     ms, all_ms = t["wide"]
     return {
         "shape": tag, "layout": MAIN_LAYOUT, "rays": R, "active": n_active,
-        "io_bytes": io_b, "max_abs_err": err, "ms": ms, "ms_all": all_ms,
+        "io_bytes": io_b, "table_bytes_needed": table_b, "flops": flops,
+        "max_abs_err": err, "ms": ms, "ms_all": all_ms,
         "p1_ms_same_batch": t["binary"][0], "p1_ms_all": t["binary"][1],
         "id_mismatches_vs_ray_query": ties, "plain_ms": plain_ms,
         **c._asdict(), **b, "roofline_share": b["bound_ms"] / ms,
@@ -453,7 +481,9 @@ def phase_wide_scenes(scene_g):
 def phase_wide_kernel_check(scene_g, rays_g, wide_scenes, binary_out, prod_cfg,
                             prod_wide):
     """wide_ray_query kernel vs its plain version, the oracle and the binary
-    kernel, per layout; then the main path's batches."""
+    kernel, per layout, also with a tail-only root table and its base; then
+    the main path's batches: both on the main path's layout with times and
+    bound, and the primary one on the other layouts (checked, not timed)."""
     max_err = 0.0
     for name, scene in wide_scenes.items():
         inp = rays_gold_inputs(scene_g, rays_g, scene.nl8.device)
@@ -465,10 +495,27 @@ def phase_wide_kernel_check(scene_g, rays_g, wide_scenes, binary_out, prod_cfg,
             m: id_mismatches(f"{name} {m} vs ray_query", *out[m], *binary_out[m])
             for m in binary_out
         }
+        # what a frame packer ships: the root table's tail and its base row.
+        # Same modes against the plain version; same bits as with the whole table
+        off = int(scene_g["tlas"][1])
+        require(off > 0, "the golden TLAS offset is 0: the base would be idle")
+        tail = scene._replace(
+            wide_root=scene.wide_root[off:].contiguous(),
+            wide_root_base=torch.tensor([off], dtype=torch.int32,
+                                        device=scene.wide_root.device),
+        )
+        tail_errs, tail_out = run_modes(tail, inp, CW.wide_ray_query_cuda,
+                                        wide_ray_query_plain, per_lane_tmin=True)
+        for m, (h_full, o_full) in out.items():
+            h_tail, o_tail = tail_out[m]
+            require(all(bool(torch.equal(a, b)) for a, b in
+                        zip((*h_full, o_full), (*h_tail, o_tail))),
+                    f"{name} {m}: a root table with a base gives other bits")
+        errs = {**errs, **{m + "+root_base": e for m, e in tail_errs.items()}}
         emit("wide_kernel_check", part="rays.gold", layout=name, rays=inp["R"],
              modes=list(errs), max_abs_err=max(errs.values()), rtol=RTOL, atol=ATOL,
              oracle_id_mismatches=oracle_ties, id_mismatches_vs_ray_query=ties,
-             ids="equal to the plain version's")
+             root_base=off, ids="equal to the plain version's")
         max_err = max(max_err, *errs.values())
 
     lanes = main_path_tile_lanes(prod_cfg)
@@ -482,7 +529,22 @@ def phase_wide_kernel_check(scene_g, rays_g, wide_scenes, binary_out, prod_cfg,
     require(shapes[1]["active"] < shapes[1]["rays"], "bounce batch holds no inactive lane")
     for s in shapes:
         emit("wide_kernel_check", part="main_path_shape", **s)
-    return max(max_err, *(s["max_abs_err"] for s in shapes)), shapes
+    max_err = max(max_err, *(s["max_abs_err"] for s in shapes))
+
+    # the other instantiations at a main-path batch: the same primary rays on
+    # the same scene packed in their layout
+    scene_args, kwargs = calls[0]
+    for name in wide_scenes:
+        if name == MAIN_LAYOUT:
+            continue
+        other = scene_device_from_golden(scene_g, prod_cfg, wide=True, wide_layout=name)
+        _, c, plain_ms, err, ties = check_wide_batch(
+            f"primary {name}", (other, *scene_args[1:]), kwargs)
+        emit("wide_kernel_check", part="main_path_shape_other_layout", shape="primary",
+             layout=name, rays=lanes, max_abs_err=err, plain_ms=plain_ms,
+             id_mismatches_vs_ray_query=ties, **c._asdict())
+        max_err = max(max_err, err)
+    return max_err, shapes
 
 
 def phase_breakdown(cfg, scene, tag):

@@ -103,6 +103,21 @@ __global__ void __launch_bounds__(kBlock) gather_rows_kernel(
 
 }  // namespace
 
+// The limits the wrapper checks its arguments against, so that it need not
+// repeat them: warps per block, the most row copies in flight, and the most
+// dynamic shared memory a block of the current device may opt in to (-1 if
+// the device cannot be asked).
+extern "C" int pt_gather_rows_warps() { return kWarps; }
+extern "C" int pt_gather_rows_max_in_flight() { return kMaxInFlight; }
+extern "C" int pt_gather_rows_max_shared_bytes() {
+    int dev = 0, bytes = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+    if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess)
+        return -1;
+    return bytes;
+}
+
 // Plain C interface for ctypes.  Launches on `stream`, does not synchronise,
 // allocates nothing.  `width` is f32 per row (a multiple of 4), `k` in
 // 1..32.  Returns the cudaError_t of the launch (0 = accepted), -1 for a bad

@@ -122,10 +122,12 @@ class _WideTravState(NamedTuple):
 
 class WideQueryCounts(NamedTuple):
     """Table rows one query read, summed over its rays: mega-table rows by
-    kind, triangle tests made in LEAF rows (non-empty candidates),
-    ``tri_pos`` rows read for them (stub layouts only: one per test), and
-    finalized hits (each reads one ``inst_f``, one ``inst_u`` and one
-    ``tri_pos`` row)."""
+    kind, slab tests the WIDE visits needed (slots at or after the cursor's
+    start slot whose link is not the empty one), triangle tests made in LEAF
+    rows (non-empty candidates), ``tri_pos`` rows read for them (stub layouts
+    only: one per test), finalized hits (each reads one ``inst_f``, one
+    ``inst_u`` and one ``tri_pos`` row), and the distinct mega-table rows the
+    batch visited."""
 
     wide_rows: int
     leaf_rows: int
@@ -133,6 +135,8 @@ class WideQueryCounts(NamedTuple):
     tri_tests: int
     stub_tri_rows: int
     hits: int
+    slab_tests: int
+    rows_touched: int
 
 
 def _f32_bits(bits):
@@ -146,6 +150,11 @@ def _unpack_bf16_hi(bits):
 def _unpack_bf16_lo(bits):
     # the low half moved up; the int32 shift wraps to the uint32 bits
     return _f32_bits((bits & 0xFFFF) << 16)
+
+
+class _Counters(NamedTuple):
+    totals: Array    # int64 (5,): WIDE, LEAF, INST rows, triangle tests, slab tests
+    touched: Array   # bool (M,): mega-table rows visited so far
 
 
 def _leaf_block(scene, lay, row, rbits, s, tmin, mask, counts):
@@ -169,7 +178,7 @@ def _leaf_block(scene, lay, row, rbits, s, tmin, mask, counts):
         pk = prims[:, k]
         fetch = mask & (pk >= 0)
         if counts is not None:
-            counts[3] += fetch.sum()
+            counts.totals[3] += fetch.sum()
         if lay.stub:
             v = scene.tri_pos[torch.where(fetch, tri_base + pk, 0).long()]
         else:
@@ -286,8 +295,11 @@ def _wide_step(scene, lay, s: _WideTravState, consts, tmin, anyhit, counts=None)
     cursor = torch.where(done | cfm_any, s.cursor, cursor)
 
     if counts is not None:
-        # in place: one small running total, no new tensor per step
-        counts[:3] += torch.stack([is_wide.sum(), is_leaf.sum(), is_inst.sum()])
+        # in place: small running totals, no new tensor per step
+        needed = is_wide[:, None] & (iota >= start[:, None]) & (links != _INVALID)
+        counts.totals[:3] += torch.stack([is_wide.sum(), is_leaf.sum(), is_inst.sum()])
+        counts.totals[4] += needed.sum()
+        counts.touched[row_id[valid].long()] = True
 
     upd = lambda old, new, m: torch.where(m, new, old)
     return _WideTravState(
@@ -400,14 +412,20 @@ def wide_ray_query_plain(
     root = root_cursor(scene, tlas_offset, _octant(d))
     consts = make_consts(tlas_count, tlas_offset, org, d)
     state = _wide_init(R, active, tmax0, root, dev)
-    counts = torch.zeros(4, dtype=torch.int64, device=dev) if return_counts else None
+    counts = None
+    if return_counts:
+        counts = _Counters(
+            torch.zeros(5, dtype=torch.int64, device=dev),
+            torch.zeros(scene.wide_rows.shape[0], dtype=torch.bool, device=dev),
+        )
     while not bool(state.done.all()):
         state = _wide_step(scene, lay, state, consts, tmin, anyhit, counts)
     hit = _finalize_hit(scene, consts, state)
     if return_counts:
-        c = counts.tolist()
+        c = counts.totals.tolist()
         n_hit = int((state.c_inst >= 0).sum())
         return hit, state.occluded, WideQueryCounts(
-            c[0], c[1], c[2], c[3], c[3] if lay.stub else 0, n_hit
+            c[0], c[1], c[2], c[3], c[3] if lay.stub else 0, n_hit,
+            c[4], int(counts.touched.sum()),
         )
     return hit, state.occluded

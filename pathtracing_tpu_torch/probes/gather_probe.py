@@ -1,7 +1,7 @@
 """Row-fetch probe: what a random row read from a device-memory table costs.
 
     python3 -m pathtracing_tpu_torch.probes.gather_probe [--reps 64] [--k 16]
-                                                         [--iters 5] [--json FILE]
+                                                         [--iters 5]
 
 Counterpart of the JAX package's ``tools/gather_probe.py``. The wide-BVH walk
 (ops/wide_traversal.py) reads one table row per step per ray, each address
@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import json
 import subprocess
 
 import numpy as np
@@ -50,11 +49,18 @@ SOURCE = CSRC / "gather_rows.cu"
 _p, _i = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary(
     SOURCE,
-    symbols={"pt_gather_rows": ([_p, _p, _p, _i, _i, _i, _p], _i)},
+    symbols={
+        "pt_gather_rows": ([_p, _p, _p, _i, _i, _i, _p], _i),
+        "pt_gather_rows_warps": ([], _i),
+        "pt_gather_rows_max_in_flight": ([], _i),
+        "pt_gather_rows_max_shared_bytes": ([], _i),
+    },
 )
 
-MAX_IN_FLIGHT = 32            # csrc/gather_rows.cu: kMaxInFlight
-WARPS_PER_BLOCK = 4           # csrc/gather_rows.cu: kWarps
+# The kernel's limits, for checking arguments where the library cannot be
+# asked (no card); ``gather_rows_cuda`` holds them against the built library.
+MAX_IN_FLIGHT = 32            # most row copies in flight per warp
+WARPS_PER_BLOCK = 4
 MAX_SHARED_BYTES = 232_448    # what one block may use on an H100
 
 # The two tables of the probe: the golden scene's w8 mega-table (inside L2)
@@ -132,6 +138,14 @@ def gather_rows_cuda(table, idx, k: int = 16):
     lib = LIBRARY.load()
     out = torch.empty((R, W), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
+        built = (lib.pt_gather_rows_max_in_flight(), lib.pt_gather_rows_warps(),
+                 lib.pt_gather_rows_max_shared_bytes())
+        if built != (MAX_IN_FLIGHT, WARPS_PER_BLOCK, MAX_SHARED_BYTES):
+            raise RuntimeError(
+                "kernel and wrapper disagree on (copies in flight, warps per "
+                f"block, shared bytes per block): {built} vs "
+                f"{(MAX_IN_FLIGHT, WARPS_PER_BLOCK, MAX_SHARED_BYTES)}"
+            )
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pt_gather_rows(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), W, R, k, stream
@@ -217,10 +231,10 @@ def time_ms(fn, iters: int) -> float:
 
 
 def probe(n_rows: int, width: int, lanes: int, reps: int, k: int, iters: int,
-          device, seed: int = 0) -> list[dict]:
+          device) -> list[dict]:
     """Every harness over {kernel, index_select} for one table and batch
     size. The two gather functions must return the same harness value."""
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(0)
     table = make_table(rng, n_rows, width, device)
     i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)
     idx0 = i32(rng.integers(0, n_rows, lanes))
@@ -263,8 +277,6 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--reps", type=int, default=64)
     ap.add_argument("--k", type=int, default=16)
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--json", default=None, help="also write the results here")
     args = ap.parse_args(argv)
 
     device = resolve_device(None)  # the card, or it raises
@@ -277,7 +289,7 @@ def main(argv=None) -> list[dict]:
     for n_rows, width in TABLES:
         for lanes in LANES:
             for r in probe(n_rows, width, lanes, args.reps, args.k, args.iters,
-                           device, args.seed):
+                           device):
                 r["card"] = card
                 results.append(r)
                 print(
@@ -286,9 +298,6 @@ def main(argv=None) -> list[dict]:
                     f"{r['ns_per_row']:.4f} ns/row ({r['payload_gb_per_s']:.1f} GB/s payload)",
                     flush=True,
                 )
-    if args.json:
-        with open(args.json, "w") as f:
-            json.dump(results, f)
     return results
 
 

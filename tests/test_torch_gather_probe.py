@@ -95,10 +95,22 @@ def test_indep_equals_the_tools_scan(data):
 
     def tool_indep(tab, rows):  # tools/gather_probe.py, inside main()
         def body(acc, idx):
-            return acc + _xla_gather(tab, idx)[:, 0].sum(), None
+            rows = _xla_gather(tab, idx)
+            return acc + rows[:, 0].sum(), None
 
         acc, _ = jax.lax.scan(body, jnp.float32(0), rows)
         return acc
+
+    # the tool defines its scan inside main(), out of reach of an import: the
+    # copy above is tied to it by its lines, so a change there fails here
+    src = (ROOT / "tools" / "gather_probe.py").read_text()
+    for line in (
+        "def indep(table, idx_rows):",
+        "rows = xla_gather(table, idx)",
+        "return acc + rows[:, 0].sum(), None",
+        "acc, _ = jax.lax.scan(body, jnp.float32(0), idx_rows)",
+    ):
+        assert line in src, line
 
     got = GP.indep(GP.gather_rows, torch.from_numpy(table), torch.from_numpy(idx_rows))
     assert float(got) == float(tool_indep(jnp.asarray(table), jnp.asarray(idx_rows)))

@@ -215,6 +215,11 @@ def test_counts(wide, base):
     assert c.stub_tri_rows == (c.tri_tests if layout == "s8" else 0)
     lay_tris = {"w8": 4, "w16": 8, "s8": 8}[layout]
     assert c.tri_tests <= lay_tris * c.leaf_rows
+    # a WIDE visit needs fewer slab tests than it has slots where it resumes
+    # past slot 0 or holds empty slots; every BLAS entry was a needed slot
+    slots = {"w8": 8, "w16": 16, "s8": 8}[layout]
+    assert c.inst_rows <= c.slab_tests < slots * c.wide_rows
+    assert 0 < c.rows_touched <= tscene.wide_rows.shape[0]
 
 
 def test_root_cursor_with_a_base(wide, base):
