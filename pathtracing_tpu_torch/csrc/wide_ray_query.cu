@@ -156,18 +156,24 @@ __global__ void __launch_bounds__(kBlock) wide_ray_query_kernel(
         const uint32_t* __restrict__ roww = (const uint32_t*)row;
 
         if (kind == 0u) {
-            // =============== WIDE: S-slot slab test ======================
+            // =============== WIDE: slab tests from the start slot on =====
+            // The first slot >= the cursor's start slot that passes its slab
+            // test and whose link is not empty wins.  Slots are tested four
+            // at a time (twelve words: three float4 loads), from the start
+            // slot's group on, and no later group is read once one wins; a
+            // link word is read only for a slot that passed, the exit word
+            // only when the walk needs it.
             const V3 o = in_blas ? b_org : org;
             const V3 inv = in_blas ? b_inv : t_inv;
-            const uint32_t exit_link = __ldg(roww + Lay::kExitCol);
-            uint32_t links[S];
-            load_words<S / 4>(row, Lay::kLinksCol / 4, links);
-            uint32_t hits = 0;
-            // four slots are twelve words: three float4 loads
+            const uint32_t start = cursor & (uint32_t)(S - 1);
+            int j = -1;
+            uint32_t target = kInvalid;
 #pragma unroll
             for (int g = 0; g < S / 4; ++g) {
+                if (g < (int)(start >> 2) || j >= 0) continue;
                 uint32_t w[12];
                 load_words<3>(row, 3 * g, w);
+                uint32_t hits = 0;
 #pragma unroll
                 for (int k = 0; k < 4; ++k) {
                     const uint32_t c0 = w[3 * k], c1 = w[3 * k + 1], c2 = w[3 * k + 2];
@@ -181,29 +187,35 @@ __global__ void __launch_bounds__(kBlock) wide_ray_query_kernel(
                         fminf(t0x, t1x), fmaxf(fminf(t0y, t1y), fminf(t0z, t1z)));
                     const float tfar = fminf(
                         fmaxf(t0x, t1x), fminf(fmaxf(t0y, t1y), fmaxf(t0z, t1z)));
-                    const bool ok = tnear <= tfar && tfar > tmin && tnear < tmax &&
-                                    links[4 * g + k] != kInvalid;
-                    hits |= (ok ? 1u : 0u) << (4 * g + k);
+                    const bool ok = tnear <= tfar && tfar > tmin && tnear < tmax;
+                    hits |= (ok ? 1u : 0u) << k;
+                }
+                if (g == (int)(start >> 2)) hits &= ~((1u << (start & 3u)) - 1u);
+                while (hits != 0u) {
+                    const int k = __ffs((int)hits) - 1;
+                    const uint32_t link = __ldg(roww + Lay::kLinksCol + 4 * g + k);
+                    if (link != kInvalid) {
+                        j = 4 * g + k;
+                        target = link;
+                        break;
+                    }
+                    hits &= hits - 1u;  // an empty slot passes any slab test
                 }
             }
-            const uint32_t start = cursor & (uint32_t)(S - 1);
-            hits &= ~((1u << start) - 1u);
-            if (hits == 0u) {
-                cursor = exit_link;
+            if (j < 0) {
+                cursor = __ldg(roww + Lay::kExitCol);
                 continue;
             }
-            const int j = __ffs((int)hits) - 1;
-            uint32_t target = links[0];
-#pragma unroll
-            for (int k = 1; k < S; ++k) target = (k == j) ? links[k] : target;
-            // where the walk goes on after a LEAF chain or an instance:
-            // this row at slot j+1, or the row's exit after the last slot
-            const uint32_t resume =
-                j < S - 1 ? (cursor & ~(uint32_t)(S - 1)) + (uint32_t)(j + 1)
-                          : exit_link;
             const uint32_t tkind = target >> 30;
-            if (tkind == 2u) inst_resume = resume;
-            else if (tkind == 1u) leaf_resume = resume;
+            if (tkind == 1u || tkind == 2u) {
+                // where the walk goes on after a LEAF chain or an instance:
+                // this row at slot j+1, or the row's exit after the last slot
+                const uint32_t resume =
+                    j < S - 1 ? (cursor & ~(uint32_t)(S - 1)) + (uint32_t)(j + 1)
+                              : __ldg(roww + Lay::kExitCol);
+                if (tkind == 2u) inst_resume = resume;
+                else leaf_resume = resume;
+            }
             cursor = target;
         } else if (kind == 2u) {
             // =============== INST: enter BLAS ============================

@@ -297,9 +297,10 @@ def camera_sample(config: RenderConfig, scene, xs, ys, sample_index):
     """Seed warm-up, film/aperture draw, and camera ray for one sample per
     lane (reference: path_tracer.hh:655-672).
 
-    ``subframe`` must stay inside the scene's subframe rows (an index past
-    them raises in PyTorch): build the scene with the config it is rendered
-    with.
+    A ``subframe`` past the scene's subframe rows reads the last row, as
+    XLA's gather clamps an index into its table (PyTorch's would raise, and
+    on the card stop the process); ``subframe`` itself is returned as
+    computed, as the JAX package returns it.
 
     Returns (seed, subframe, light, tlas_count, tlas_offset, ray_o, ray_dir).
     """
@@ -324,10 +325,11 @@ def camera_sample(config: RenderConfig, scene, xs, ys, sample_index):
 
     film = sample_gaussian_weighted_disk(Vec2(u.x, u.y), 0.4) + 0.5
 
-    cam = camera_from_table(scene.sf_cam, subframe)
-    light = light_from_table(scene.sf_light, subframe)
-    tlas_count = scene.sf_tlas_count[subframe]
-    tlas_offset = scene.sf_tlas_offset[subframe]
+    row = lambda table: subframe.clamp(0, table.shape[0] - 1)
+    cam = camera_from_table(scene.sf_cam, row(scene.sf_cam))
+    light = light_from_table(scene.sf_light, row(scene.sf_light))
+    tlas_count = scene.sf_tlas_count[row(scene.sf_tlas_count)]
+    tlas_offset = scene.sf_tlas_offset[row(scene.sf_tlas_offset)]
 
     coord = Vec2(
         xs.to(torch.float32) + film.x, ys.to(torch.float32) + film.y

@@ -192,14 +192,47 @@ class _TravConsts(NamedTuple):
 
 
 class RayQueryCounts(NamedTuple):
-    """Table rows one query read, summed over its rays (what the card has
-    to move at the least: one nl8 row per node visit, one inst_f + inst_u
-    row per BLAS entry and per finalized hit, one tri_pos row per triangle
-    test and per finalized hit)."""
+    """Table rows one query read, summed over its rays (one nl8 row per node
+    visit, one inst_f + inst_u row per BLAS entry and per finalized hit, one
+    tri_pos row per triangle test and per finalized hit); the distinct rows
+    of each table the batch read (what the card has to move at the least);
+    and the node visits of each lane (``lane_steps``, int32 (R,), 0 for an
+    inactive lane: what ``simd_efficiency`` reads)."""
 
     node_rows: int
     inst_rows: int
     tri_rows: int
+    node_rows_touched: int
+    inst_rows_touched: int
+    tri_rows_touched: int
+    lane_steps: Array
+
+
+class _Counters(NamedTuple):
+    totals: Array        # int64 (3,): node visits, BLAS entries, triangle tests
+    lane_steps: Array    # int32 (R,): node visits per lane
+    node_touched: Array  # bool per nl8 row
+    inst_touched: Array  # bool per instance
+    tri_touched: Array   # bool per tri_pos row
+
+
+def simd_efficiency(lane_steps, width: int = 32) -> tuple[float, float]:
+    """Share of a SIMD group's lane-steps that do work when each group of
+    ``width`` lanes runs as long as its longest lane: sum of steps / (width x
+    sum over groups of the group's most steps). Returns (groups in launch
+    order, groups with the lanes that walked packed first, in order). An
+    inactive lane walks no step, so the second is the share an active-ray
+    queue could reach without reordering rays."""
+    steps = torch.as_tensor(lane_steps).to(torch.int64).flatten()
+
+    def eff(x):
+        if int(x.sum()) == 0:
+            return 0.0
+        pad = (-x.numel()) % width
+        x = torch.cat([x, x.new_zeros(pad)]).view(-1, width)
+        return float(x.sum()) / (width * float(x.amax(dim=1).sum()))
+
+    return eff(steps), eff(steps[steps > 0])
 
 
 def _instance_ray(fi, org: Vec3, d: Vec3):
@@ -300,14 +333,30 @@ def ray_query_plain(
 
     consts = make_consts(tlas_count, tlas_offset, org, d)
     state = init_state(R, active, tmax0, dev)
-    counts = torch.zeros(3, dtype=torch.int64, device=dev) if return_counts else None
+    counts = None
+    if return_counts:
+        flags = lambda t: torch.zeros(t.shape[0], dtype=torch.bool, device=dev)
+        counts = _Counters(
+            torch.zeros(3, dtype=torch.int64, device=dev),
+            torch.zeros(R, dtype=torch.int32, device=dev),
+            flags(scene.nl8), flags(scene.inst_f), flags(scene.tri_pos),
+        )
     while not bool(state.done.all()):
         state = _full_step(scene, state, consts, tmin, anyhit, counts)
     hit = _finalize_hit(scene, consts, state)
     if return_counts:
-        n_hit = int((state.c_inst >= 0).sum())
-        c = counts.tolist()
-        return hit, state.occluded, RayQueryCounts(c[0], c[1] + n_hit, c[2] + n_hit)
+        # the finalize step reads the hit's instance and triangle rows
+        h = state.c_inst >= 0
+        inst = state.c_inst[h].long()
+        counts.inst_touched[inst] = True
+        counts.tri_touched[scene.inst_u[inst, 4].long() + state.c_prim[h].long()] = True
+        n_hit = int(h.sum())
+        c = counts.totals.tolist()
+        return hit, state.occluded, RayQueryCounts(
+            c[0], c[1] + n_hit, c[2] + n_hit,
+            int(counts.node_touched.sum()), int(counts.inst_touched.sum()),
+            int(counts.tri_touched.sum()), counts.lane_steps,
+        )
     return hit, state.occluded
 
 
@@ -470,8 +519,12 @@ def _full_step(scene, s, consts, tmin, anyhit, counts=None):
         tmax = torch.where(cfm_cl, tt, s.tmax)
 
     if counts is not None:
-        # in place: one small running total, no new tensor per step
-        counts += torch.stack([valid.sum(), enter.sum(), test.sum()])
+        # in place: small running totals, no new tensor per step
+        counts.totals.add_(torch.stack([valid.sum(), enter.sum(), test.sum()]))
+        counts.lane_steps.add_(valid)
+        counts.node_touched[lidx[valid].long()] = True
+        counts.inst_touched[payload[enter].long()] = True
+        counts.tri_touched[tri_row[test].long()] = True
 
     return _TravState(
         t_node=t_node,

@@ -126,8 +126,10 @@ class WideQueryCounts(NamedTuple):
     start slot whose link is not the empty one), triangle tests made in LEAF
     rows (non-empty candidates), ``tri_pos`` rows read for them (stub layouts
     only: one per test), finalized hits (each reads one ``inst_f``, one
-    ``inst_u`` and one ``tri_pos`` row), and the distinct mega-table rows the
-    batch visited."""
+    ``inst_u`` and one ``tri_pos`` row), the distinct mega-table rows the
+    batch visited; then the visits of each mega-table row (``row_visits``,
+    int64 (M,)) and the row visits of each lane (``lane_steps``, int32 (R,),
+    0 for an inactive lane: what ``ops/traversal.simd_efficiency`` reads)."""
 
     wide_rows: int
     leaf_rows: int
@@ -137,6 +139,8 @@ class WideQueryCounts(NamedTuple):
     hits: int
     slab_tests: int
     rows_touched: int
+    row_visits: Array
+    lane_steps: Array
 
 
 def _f32_bits(bits):
@@ -153,8 +157,9 @@ def _unpack_bf16_lo(bits):
 
 
 class _Counters(NamedTuple):
-    totals: Array    # int64 (5,): WIDE, LEAF, INST rows, triangle tests, slab tests
-    touched: Array   # bool (M,): mega-table rows visited so far
+    totals: Array      # int64 (5,): WIDE, LEAF, INST rows, triangle tests, slab tests
+    row_visits: Array  # int64 (M,): visits per mega-table row so far
+    lane_steps: Array  # int32 (R,): row visits per lane so far
 
 
 def _leaf_block(scene, lay, row, rbits, s, tmin, mask, counts):
@@ -299,7 +304,9 @@ def _wide_step(scene, lay, s: _WideTravState, consts, tmin, anyhit, counts=None)
         needed = is_wide[:, None] & (iota >= start[:, None]) & (links != _INVALID)
         counts.totals[:3] += torch.stack([is_wide.sum(), is_leaf.sum(), is_inst.sum()])
         counts.totals[4] += needed.sum()
-        counts.touched[row_id[valid].long()] = True
+        rows = row_id[valid].long()
+        counts.row_visits.index_add_(0, rows, torch.ones_like(rows))
+        counts.lane_steps.add_(valid)
 
     upd = lambda old, new, m: torch.where(m, new, old)
     return _WideTravState(
@@ -416,7 +423,8 @@ def wide_ray_query_plain(
     if return_counts:
         counts = _Counters(
             torch.zeros(5, dtype=torch.int64, device=dev),
-            torch.zeros(scene.wide_rows.shape[0], dtype=torch.bool, device=dev),
+            torch.zeros(scene.wide_rows.shape[0], dtype=torch.int64, device=dev),
+            torch.zeros(R, dtype=torch.int32, device=dev),
         )
     while not bool(state.done.all()):
         state = _wide_step(scene, lay, state, consts, tmin, anyhit, counts)
@@ -426,6 +434,7 @@ def wide_ray_query_plain(
         n_hit = int((state.c_inst >= 0).sum())
         return hit, state.occluded, WideQueryCounts(
             c[0], c[1], c[2], c[3], c[3] if lay.stub else 0, n_hit,
-            c[4], int(counts.touched.sum()),
+            c[4], int((counts.row_visits > 0).sum()), counts.row_visits,
+            counts.lane_steps,
         )
     return hit, state.occluded

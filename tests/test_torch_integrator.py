@@ -123,15 +123,18 @@ def test_negative_sample_index_uses_subframe0(scenes):
 
 def test_production_config_runs_and_subframe_rows_bound(scenes):
     """PRODUCTION preset (5 bounces) on a tiny batch; the golden scene has 32
-    subframe rows, so sample_index < 256 stays in range — and one past the
-    rows raises (PyTorch does not clamp an index as XLA does)."""
+    subframe rows, so sample_index < 256 stays in range — and a sample past
+    the rows reads the last one, as XLA's gather clamps: equal to the JAX
+    package's sample (TESTING preset, same 8 samples per subframe), and
+    finite under PRODUCTION."""
     import dataclasses
 
     cfg = dataclasses.replace(PRODUCTION, image_width=640, image_height=360)
     keys = np.array([[100, 100, 0], [200, 200, 255]], np.int32)
     assert np.isfinite(_torch_radiance(scenes[0], keys, cfg)).all()
-    with pytest.raises(IndexError):
-        _torch_radiance(scenes[0], np.array([[1, 1, 256]], np.int32), cfg)
+    past = np.array([[1, 1, 256], [320, 180, 300]], np.int32)
+    assert np.isfinite(_torch_radiance(scenes[0], past, cfg)).all()
+    _bars(_torch_radiance(scenes[0], past), _jax_radiance(scenes[1], past))
 
 
 @pytest.mark.parametrize(

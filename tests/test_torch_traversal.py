@@ -17,7 +17,11 @@ import torch
 from pathtracing_tpu.ops.pallas_traversal import ray_query_pallas
 from pathtracing_tpu.ops.traversal import ray_query as jax_ray_query
 from pathtracing_tpu.utils.vec import Vec3 as JVec3
-from pathtracing_tpu_torch.ops.traversal import ray_query, ray_query_plain
+from pathtracing_tpu_torch.ops.traversal import (
+    ray_query,
+    ray_query_plain,
+    simd_efficiency,
+)
 from pathtracing_tpu_torch.scene.golden import scene_device_from_golden
 from pathtracing_tpu_torch.testing import assert_hits_agree, golden, n, t, vec3_t
 
@@ -154,20 +158,45 @@ def test_anyhit_matches_oracle_all_rays(setup):
 
 
 def test_counts_and_dispatch(setup):
-    """CPU tensors take the plain version; its row-read counts are those of
-    the walk (at least one node row per active ray, one tri row per hit)."""
+    """CPU tensors take the plain version, and counting changes none of its
+    results; its row-read counts are those of the walk (at least one node row
+    per active ray, one tri row per hit); ``lane_steps`` sums to the node
+    visits and is 0 on inactive lanes."""
     scene_g, rays_g, tscene, _ = setup
     r = 256
     full = lambda v: torch.full((r,), int(v), dtype=torch.int32)
+    active = t(np.random.default_rng(5).random(r) < 0.7)
     args = (
         tscene, full(scene_g["tlas"][0]), full(scene_g["tlas"][1]),
         vec3_t(rays_g["origins"][:r]), vec3_t(rays_g["dirs"][:r]),
-        0.0, 1e9, torch.ones(r, dtype=torch.bool),
+        0.0, 1e9, active,
     )
     hit_a, occ_a = ray_query(*args)
     hit_b, occ_b, counts = ray_query_plain(*args, return_counts=True)
     for a, b in zip((*hit_a, occ_a), (*hit_b, occ_b)):
         assert torch.equal(a, b)
     n_hit = int((hit_b.thit >= 0).sum())
-    assert counts.node_rows >= r and counts.tri_rows >= 2 * n_hit > 0
+    n_active = int(active.sum())
+    assert counts.node_rows >= n_active and counts.tri_rows >= 2 * n_hit > 0
     assert counts.inst_rows >= 2 * n_hit
+    steps = counts.lane_steps
+    assert steps.dtype == torch.int32 and steps.shape == (r,)
+    assert int(steps.sum()) == counts.node_rows
+    assert (steps[~active] == 0).all() and (steps[active] > 0).all()
+    # distinct rows: no more than the table has or the walk read
+    for touched, reads, table in (
+        (counts.node_rows_touched, counts.node_rows, tscene.nl8),
+        (counts.inst_rows_touched, counts.inst_rows, tscene.inst_f),
+        (counts.tri_rows_touched, counts.tri_rows, tscene.tri_pos),
+    ):
+        assert 0 < touched <= min(reads, table.shape[0])
+
+
+def test_simd_efficiency_hand_made():
+    """Steps / (width x sum of each group's longest lane); the second value
+    packs the lanes that walked first, in order; a ragged last group counts
+    as a whole one."""
+    assert simd_efficiency(torch.tensor([1, 2, 3, 4]), width=2) == (10 / 12, 10 / 12)
+    assert simd_efficiency(torch.tensor([0, 3, 0, 1]), width=2) == (4 / 8, 4 / 6)
+    assert simd_efficiency(torch.tensor([2, 2, 2]), width=2) == (6 / 8, 6 / 8)
+    assert simd_efficiency(torch.zeros(5, dtype=torch.int32)) == (0.0, 0.0)

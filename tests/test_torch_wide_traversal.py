@@ -25,7 +25,7 @@ import torch
 
 from pathtracing_tpu.ops.wide_traversal import wide_ray_query as jax_wide_ray_query
 from pathtracing_tpu.utils.vec import Vec3 as JVec3
-from pathtracing_tpu_torch.ops.traversal import ray_query, ray_query_plain
+from pathtracing_tpu_torch.ops.traversal import _octant, ray_query, ray_query_plain
 from pathtracing_tpu_torch.ops.wide_traversal import (
     WideQueryCounts,
     root_cursor,
@@ -220,6 +220,18 @@ def test_counts(wide, base):
     slots = {"w8": 8, "w16": 16, "s8": 8}[layout]
     assert c.inst_rows <= c.slab_tests < slots * c.wide_rows
     assert 0 < c.rows_touched <= tscene.wide_rows.shape[0]
+    # visits per row and per lane: both sum to the row visits; a row is
+    # touched where it has a visit, and every active lane's root row has one
+    visits = c.row_visits
+    assert visits.shape == (tscene.wide_rows.shape[0],)
+    assert int(visits.sum()) == c.wide_rows + c.leaf_rows + c.inst_rows
+    assert int((visits > 0).sum()) == c.rows_touched
+    active = t(_mode("inactive_lanes")[2])
+    root = root_cursor(tscene, base[2][1], _octant(base[3][1]))
+    assert (visits[root[active] >> {"w8": 3, "w16": 4, "s8": 3}[layout]] > 0).all()
+    steps = c.lane_steps
+    assert steps.dtype == torch.int32 and int(steps.sum()) == int(visits.sum())
+    assert (steps[~active] == 0).all() and (steps[active] > 0).all()
 
 
 def test_root_cursor_with_a_base(wide, base):
