@@ -77,6 +77,9 @@ struct Layout {
     static constexpr int kExitCol = 4 * S;
     static constexpr int kPrimsCol = STUB ? 0 : 9 * L;
     static constexpr int kNextCol = STUB ? L : 10 * L;
+    // Blocks of kBlock threads an SM must hold: 8 caps the 8-slot layouts at
+    // 64 registers (32 resident warps); w16 takes what it needs.
+    static constexpr int kMinBlocks = S == 8 ? 8 : 1;
 };
 
 __device__ __forceinline__ float bf16_hi(uint32_t w) {
@@ -101,7 +104,8 @@ __device__ __forceinline__ void load_words(
 }
 
 template <int S, int L, bool STUB>
-__global__ void __launch_bounds__(kBlock) wide_ray_query_kernel(
+__global__ void __launch_bounds__(kBlock, Layout<S, L, STUB>::kMinBlocks)
+wide_ray_query_kernel(
     const float4* __restrict__ rows,     // (M, W) f32 as W/4 float4 per row
     const uint32_t* __restrict__ wide_root,  // (K, 8) root cursors
     const int* __restrict__ root_base,   // one int32, or null
