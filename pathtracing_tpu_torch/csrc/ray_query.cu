@@ -46,62 +46,70 @@ using namespace ptq;
 
 constexpr int kBlock = 128;
 
-__global__ void __launch_bounds__(kBlock) ray_query_kernel(
-    const float4* __restrict__ nl8,      // (8N, 8) f32 as 2 x float4 per row
-    const float4* __restrict__ tri_pos,  // (T, 12) f32 as 3 x float4 per row
-    const float* __restrict__ inst_f,    // (I, 21) f32
-    const int* __restrict__ inst_u,      // (I, 6) i32
-    const int* __restrict__ tlas_count, const int* __restrict__ tlas_offset,
-    const float* __restrict__ ox, const float* __restrict__ oy,
-    const float* __restrict__ oz, const float* __restrict__ dx,
-    const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ tmax_lane,       // per-lane tmax0, or null
-    const uint8_t* __restrict__ active,        // bool per lane
-    const uint8_t* __restrict__ anyhit_lane,   // bool per lane, or null
-    float tmin, float tmax_all, int anyhit_all,
-    HitOut out, int R) {
-    const int r = blockIdx.x * kBlock + threadIdx.x;
-    if (r >= R) return;
+// The kernel's arguments, passed as one __grid_constant__ struct.
+struct RayParams {
+    const float4* nl8;      // (8N, 8) f32 as 2 x float4 per row
+    const float4* tri_pos;  // (T, 12) f32 as 3 x float4 per row
+    const float* inst_f;    // (I, 21) f32
+    const int* inst_u;      // (I, 6) i32
+    const int *tlas_count, *tlas_offset;
+    const float *ox, *oy, *oz, *dx, *dy, *dz;
+    const float* tmax_lane;       // per-lane tmax0, or null
+    const uint8_t* active;        // bool per lane
+    const uint8_t* anyhit_lane;   // bool per lane, or null
+    float tmin, tmax_all;
+    int anyhit_all;
+    HitOut out;
+    int R;
+    int* next_chunk;              // the queue's counter, 0 at launch
+};
 
-    // An inactive lane reads its `active` byte and nothing else, and writes
-    // a miss: the batches of a bounce hold many such lanes.
-    if (active[r] == 0) {
-        write_miss(out, r);
-        return;
+// One ray's walk of the two-level BVH (the Walk of run_ray_queue).
+struct RayWalk {
+    const RayParams& p;
+    V3 org, dir, t_inv;
+    int t_count, t_link_off;
+    bool any, occluded;
+    float tmax;
+    int c_inst, c_prim;
+    // TLAS cursor, and the BLAS context of the instance being walked
+    int t_node;
+    bool in_blas;
+    int b_node, b_count, b_link_off, b_axis, tri_offset, cand_inst;
+    V3 b_org, b_inv, b_S;
+
+    __device__ __forceinline__ bool start(int r) {
+        org = {p.ox[r], p.oy[r], p.oz[r]};
+        dir = {p.dx[r], p.dy[r], p.dz[r]};
+        t_count = p.tlas_count[r];
+        t_link_off = p.tlas_offset[r] * 8 + octant(dir) * t_count;
+        t_inv = safe_inv(dir);
+        any = p.anyhit_lane ? p.anyhit_lane[r] != 0 : p.anyhit_all != 0;
+        tmax = p.tmax_lane ? p.tmax_lane[r] : p.tmax_all;
+        occluded = false;
+        c_inst = -1;
+        c_prim = 0;
+        t_node = 0;
+        in_blas = false;
+        b_node = b_count = b_link_off = tri_offset = 0;
+        b_axis = 2;
+        cand_inst = -1;
+        b_org = b_inv = b_S = {0.f, 0.f, 0.f};
+        return resolve();
     }
 
-    const V3 org = {ox[r], oy[r], oz[r]};
-    const V3 dir = {dx[r], dy[r], dz[r]};
-    const int t_count = tlas_count[r];
-    const int t_link_off = tlas_offset[r] * 8 + octant(dir) * t_count;
-    const V3 t_inv = safe_inv(dir);
-    const bool any = anyhit_lane ? anyhit_lane[r] != 0 : anyhit_all != 0;
+    // BLAS exhausted => pop to the TLAS; TLAS exhausted => the walk is over
+    // (reference: ray_query.hh:271-275).  Both resolve before a row is read.
+    __device__ __forceinline__ bool resolve() {
+        if (in_blas && !(b_node >= 0 && b_node < b_count)) in_blas = false;
+        return in_blas || (t_node >= 0 && t_node < t_count);
+    }
 
-    float tmax = tmax_lane ? tmax_lane[r] : tmax_all;
-    bool done = false;
-    bool occluded = false;
-    int c_inst = -1, c_prim = 0;
-
-    // TLAS cursor, and the BLAS context of the instance being walked
-    int t_node = 0;
-    bool in_blas = false;
-    int b_node = 0, b_count = 0, b_link_off = 0, b_axis = 2;
-    int tri_offset = 0, cand_inst = -1;
-    V3 b_org = {0.f, 0.f, 0.f}, b_inv = {0.f, 0.f, 0.f}, b_S = {0.f, 0.f, 0.f};
-
-    while (!done) {
-        const int count = in_blas ? b_count : t_count;
+    __device__ __forceinline__ bool step() {
         const int node = in_blas ? b_node : t_node;
-        if (!(node >= 0 && node < count)) {
-            // BLAS exhausted => pop to the TLAS; TLAS exhausted => done
-            // (reference: ray_query.hh:271-275)
-            if (!in_blas) break;
-            in_blas = false;
-            continue;
-        }
         const size_t lidx = (size_t)((in_blas ? b_link_off : t_link_off) + node);
-        const float4 n0 = __ldg(nl8 + 2 * lidx);
-        const float4 n1 = __ldg(nl8 + 2 * lidx + 1);
+        const float4 n0 = __ldg(p.nl8 + 2 * lidx);
+        const float4 n1 = __ldg(p.nl8 + 2 * lidx + 1);
         const int accept = __float_as_int(n1.z);
         const int cancel = __float_as_int(n1.w);
 
@@ -119,18 +127,18 @@ __global__ void __launch_bounds__(kBlock) ray_query_kernel(
                                   fmaxf(fminf(t0y, t1y), fminf(t0z, t1z)));
         const float tfar = fminf(fmaxf(t0x, t1x),
                                  fminf(fmaxf(t0y, t1y), fmaxf(t0z, t1z)));
-        const bool hit = tnear <= tfar && tfar > tmin && tnear < tmax;
+        const bool hit = tnear <= tfar && tfar > p.tmin && tnear < tmax;
         const bool is_leaf = accept < 0;  // top bit (reference: bvh.hh:57-63)
         const int payload = accept & 0x7FFFFFFF;
         const int next = (hit && !is_leaf) ? accept : cancel;
         if (in_blas) b_node = next; else t_node = next;
-        if (!(hit && is_leaf)) continue;
+        if (!(hit && is_leaf)) return resolve();
 
         if (!in_blas) {
             // ---- enter BLAS (reference: ray_query.hh:153-182) ----
-            const int* iu = inst_u + 6 * (size_t)payload;
+            const int* iu = p.inst_u + 6 * (size_t)payload;
             V3 bd;
-            instance_ray(inst_f + 21 * (size_t)payload, org, dir, b_org, bd);
+            instance_ray(p.inst_f + 21 * (size_t)payload, org, dir, b_org, bd);
             b_count = __ldg(iu + 0);
             b_link_off = __ldg(iu + 1) * 8 + octant(bd) * b_count;
             tri_offset = __ldg(iu + 4);
@@ -142,34 +150,44 @@ __global__ void __launch_bounds__(kBlock) ray_query_kernel(
         } else {
             // ---- triangle test (reference: ray_query.hh:225-246) ----
             V3 p0, p1, p2;
-            load_tri(tri_pos, tri_offset + payload, p0, p1, p2);
+            load_tri(p.tri_pos, tri_offset + payload, p0, p1, p2);
             float u, v, t;
             bool back;
             const bool ok = tri_intersect(b_org, b_axis, b_S, p0, p1, p2, u, v, t, back);
-            if (ok && t < tmax && t > tmin) {
+            if (ok && t < tmax && t > p.tmin) {
                 if (any) {
                     // first passing candidate ends an any-hit ray
                     // (reference: path_tracer.hh:415-427)
                     occluded = true;
-                    done = true;
-                } else {
-                    // closest-hit confirms every candidate
-                    // (reference: ray_query.hh:280-290)
-                    c_inst = cand_inst;
-                    c_prim = payload;
-                    tmax = t;
+                    return false;
                 }
+                // closest-hit confirms every candidate
+                // (reference: ray_query.hh:280-290)
+                c_inst = cand_inst;
+                c_prim = payload;
+                tmax = t;
             }
         }
+        return resolve();
     }
 
-    finalize_hit(tri_pos, inst_f, inst_u, org, dir, c_inst, c_prim, tmax,
-                 occluded, out, r);
+    __device__ __forceinline__ void finish(const HitOut& out, int r) {
+        finalize_hit(p.tri_pos, p.inst_f, p.inst_u, org, dir, c_inst, c_prim,
+                     tmax, occluded, out, r);
+    }
+};
+
+__global__ void __launch_bounds__(kBlock) ray_query_kernel(
+    const __grid_constant__ RayParams p) {
+    __shared__ int ring[kBlock / kWarp][kRing];
+    RayWalk walk{p};
+    run_ray_queue(walk, ring[threadIdx.x / kWarp], p.next_chunk, p.active, p.out, p.R);
 }
 
 }  // namespace
 
-// Plain C interface for ctypes.  Launches on `stream`, does not synchronise,
+// Plain C interface for ctypes.  Zeroes the queue's counter and launches on
+// `stream` with `grid` blocks of kBlock threads; does not synchronise,
 // allocates nothing.  Returns the launch's cudaError_t (0 = accepted).
 extern "C" int pt_ray_query(
     const void* nl8, const void* tri_pos, const void* inst_f, const void* inst_u,
@@ -179,11 +197,10 @@ extern "C" int pt_ray_query(
     const void* tmax_lane, const void* active, const void* anyhit_lane,
     float tmin, float tmax_all, int anyhit_all,
     void* thit, void* bu, void* bv, void* out_inst, void* out_prim,
-    void* out_back, void* out_occ, int R, void* stream) {
+    void* out_back, void* out_occ, int R, void* next_chunk, int grid,
+    void* stream) {
     if (R <= 0) return 0;
-    const dim3 grid((unsigned)((R + kBlock - 1) / kBlock)), block(kBlock);
-    cudaStream_t s = (cudaStream_t)stream;
-    ray_query_kernel<<<grid, block, 0, s>>>(
+    const RayParams p = {
         (const float4*)nl8, (const float4*)tri_pos, (const float*)inst_f,
         (const int*)inst_u, (const int*)tlas_count, (const int*)tlas_offset,
         (const float*)ox, (const float*)oy, (const float*)oz, (const float*)dx,
@@ -192,8 +209,17 @@ extern "C" int pt_ray_query(
         anyhit_all,
         HitOut{(float*)thit, (float*)bu, (float*)bv, (int*)out_inst,
                (int*)out_prim, (uint8_t*)out_back, (uint8_t*)out_occ},
-        R);
+        R, (int*)next_chunk};
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t e = cudaMemsetAsync(next_chunk, 0, sizeof(int), s);
+    if (e != cudaSuccess) return (int)e;
+    ray_query_kernel<<<grid, kBlock, 0, s>>>(p);
     return (int)cudaGetLastError();
 }
 
 extern "C" int pt_ray_query_block_size(void) { return kBlock; }
+
+// Blocks of the kernel one SM holds at once (negative: the CUDA error).
+extern "C" int pt_ray_query_occupancy(void) {
+    return resident_blocks_per_sm(ray_query_kernel, kBlock);
+}

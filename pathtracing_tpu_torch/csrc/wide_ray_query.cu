@@ -103,60 +103,74 @@ __device__ __forceinline__ void load_words(
     }
 }
 
-template <int S, int L, bool STUB>
-__global__ void __launch_bounds__(kBlock, Layout<S, L, STUB>::kMinBlocks)
-wide_ray_query_kernel(
-    const float4* __restrict__ rows,     // (M, W) f32 as W/4 float4 per row
-    const uint32_t* __restrict__ wide_root,  // (K, 8) root cursors
-    const int* __restrict__ root_base,   // one int32, or null
-    const float4* __restrict__ tri_pos,  // (T, 12) f32 as 3 x float4 per row
-    const float* __restrict__ inst_f,    // (I, 21) f32
-    const int* __restrict__ inst_u,      // (I, 6) i32
-    const int* __restrict__ tlas_offset,
-    const float* __restrict__ ox, const float* __restrict__ oy,
-    const float* __restrict__ oz, const float* __restrict__ dx,
-    const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ tmin_lane,       // per-lane tmin, or null
-    const float* __restrict__ tmax_lane,       // per-lane tmax0, or null
-    const uint8_t* __restrict__ active,        // bool per lane
-    const uint8_t* __restrict__ anyhit_lane,   // bool per lane, or null
-    float tmin_all, float tmax_all, int anyhit_all,
-    HitOut out, int R) {
-    using Lay = Layout<S, L, STUB>;
-    const int r = blockIdx.x * kBlock + threadIdx.x;
-    if (r >= R) return;
+// The kernel's arguments, passed as one __grid_constant__ struct.
+struct WideParams {
+    const float4* rows;        // (M, W) f32 as W/4 float4 per row
+    const uint32_t* wide_root; // (K, 8) root cursors
+    const int* root_base;      // one int32, or null
+    const float4* tri_pos;     // (T, 12) f32 as 3 x float4 per row
+    const float* inst_f;       // (I, 21) f32
+    const int* inst_u;         // (I, 6) i32
+    const int* tlas_offset;
+    const float *ox, *oy, *oz, *dx, *dy, *dz;
+    const float* tmin_lane;    // per-lane tmin, or null
+    const float* tmax_lane;    // per-lane tmax0, or null
+    const uint8_t* active;     // bool per lane
+    const uint8_t* anyhit_lane;  // bool per lane, or null
+    float tmin_all, tmax_all;
+    int anyhit_all;
+    HitOut out;
+    int R;
+    int* next_chunk;           // the queue's counter, 0 at launch
+};
 
-    // An inactive lane reads its `active` byte and nothing else, and writes
-    // a miss: the batches of a bounce hold many such lanes.
-    if (active[r] == 0) {
-        write_miss(out, r);
-        return;
+// One ray's walk of the mega-table (the Walk of run_ray_queue).
+template <int S, int L, bool STUB>
+struct WideWalk {
+    using Lay = Layout<S, L, STUB>;
+    const WideParams& p;
+    V3 org, dir, t_inv;
+    bool any, in_blas, occluded;
+    float tmin, tmax;
+    uint32_t cursor, inst_resume, leaf_resume;
+    int c_inst, c_prim, cand_inst, tri_base, b_axis;
+    V3 b_org, b_inv, b_S;
+
+    __device__ __forceinline__ bool start(int r) {
+        org = {p.ox[r], p.oy[r], p.oz[r]};
+        dir = {p.dx[r], p.dy[r], p.dz[r]};
+        t_inv = safe_inv(dir);
+        any = p.anyhit_lane ? p.anyhit_lane[r] != 0 : p.anyhit_all != 0;
+        tmin = p.tmin_lane ? p.tmin_lane[r] : p.tmin_all;
+        tmax = p.tmax_lane ? p.tmax_lane[r] : p.tmax_all;
+        const int root_row =
+            p.tlas_offset[r] - (p.root_base ? __ldg(p.root_base) : 0);
+        cursor = __ldg(p.wide_root + 8 * (size_t)root_row + octant(dir));
+        inst_resume = leaf_resume = kEndTlas;
+        in_blas = occluded = false;
+        c_inst = -1;
+        c_prim = 0;
+        cand_inst = -1;
+        tri_base = 0;
+        b_axis = 2;
+        b_org = b_inv = b_S = {0.f, 0.f, 0.f};
+        return resolve();
     }
 
-    const V3 org = {ox[r], oy[r], oz[r]};
-    const V3 dir = {dx[r], dy[r], dz[r]};
-    const V3 t_inv = safe_inv(dir);
-    const bool any = anyhit_lane ? anyhit_lane[r] != 0 : anyhit_all != 0;
-    const float tmin = tmin_lane ? tmin_lane[r] : tmin_all;
-    float tmax = tmax_lane ? tmax_lane[r] : tmax_all;
-
-    const int root_row = tlas_offset[r] - (root_base ? __ldg(root_base) : 0);
-    uint32_t cursor = __ldg(wide_root + 8 * (size_t)root_row + octant(dir));
-    uint32_t inst_resume = kEndTlas, leaf_resume = kEndTlas;
-    bool in_blas = false, occluded = false;
-    int c_inst = -1, c_prim = 0, cand_inst = -1, tri_base = 0, b_axis = 2;
-    V3 b_org = {0.f, 0.f, 0.f}, b_inv = {0.f, 0.f, 0.f}, b_S = {0.f, 0.f, 0.f};
-
-    while (cursor != kEndTlas) {
+    // END_BLAS pops to inst_resume; END_TLAS (or any other sentinel) ends
+    // the walk.  Both resolve before a row is read.
+    __device__ __forceinline__ bool resolve() {
         if (cursor == kEndBlas) {  // BLAS exhausted: back to the TLAS walk
             cursor = inst_resume;
             in_blas = false;
-            continue;
         }
+        return (cursor >> 30) != 3u;
+    }
+
+    __device__ __forceinline__ bool step() {
         const uint32_t kind = cursor >> 30;
-        if (kind == 3u) break;  // no other sentinel is ever a cursor
         const uint32_t row_id = (cursor >> Lay::kSlotBits) & Lay::kRowMask;
-        const float4* __restrict__ row = rows + (size_t)row_id * Lay::kVec;
+        const float4* __restrict__ row = p.rows + (size_t)row_id * Lay::kVec;
         const uint32_t* __restrict__ roww = (const uint32_t*)row;
 
         if (kind == 0u) {
@@ -208,7 +222,7 @@ wide_ray_query_kernel(
             }
             if (j < 0) {
                 cursor = __ldg(roww + Lay::kExitCol);
-                continue;
+                return resolve();
             }
             const uint32_t tkind = target >> 30;
             if (tkind == 1u || tkind == 2u) {
@@ -235,7 +249,7 @@ wide_ray_query_kernel(
             tri_preprocess(bd, b_axis, b_S);
             cursor = __ldg(roww + 12 + octant(bd));
             cand_inst = (int)__ldg(roww + 20);
-            if (STUB) tri_base = __ldg(inst_u + 6 * (size_t)cand_inst + 4);
+            if (STUB) tri_base = __ldg(p.inst_u + 6 * (size_t)cand_inst + 4);
             in_blas = true;
         } else {
             // =============== LEAF: L exact triangle tests ================
@@ -258,7 +272,7 @@ wide_ray_query_kernel(
                     if (pk < 0) continue;  // an empty candidate never passes
                     V3 p0, p1, p2;
                     if (STUB) {
-                        load_tri(tri_pos, tri_base + pk, p0, p1, p2);
+                        load_tri(p.tri_pos, tri_base + pk, p0, p1, p2);
                     } else {
                         const uint32_t* v = w + 9 * k;
                         p0 = {__uint_as_float(v[0]), __uint_as_float(v[1]),
@@ -288,7 +302,7 @@ wide_ray_query_kernel(
                     // first passing candidate ends an any-hit ray
                     // (reference: path_tracer.hh:415-427)
                     occluded = true;
-                    break;
+                    return false;
                 }
                 tmax = new_tmax;
                 c_inst = cand_inst;
@@ -296,35 +310,35 @@ wide_ray_query_kernel(
             }
             cursor = nxt == kReturn ? leaf_resume : nxt;
         }
+        return resolve();
     }
 
-    finalize_hit(tri_pos, inst_f, inst_u, org, dir, c_inst, c_prim, tmax,
-                 occluded, out, r);
+    __device__ __forceinline__ void finish(const HitOut& out, int r) {
+        finalize_hit(p.tri_pos, p.inst_f, p.inst_u, org, dir, c_inst, c_prim,
+                     tmax, occluded, out, r);
+    }
+};
+
+template <int S, int L, bool STUB>
+__global__ void __launch_bounds__(kBlock, Layout<S, L, STUB>::kMinBlocks)
+wide_ray_query_kernel(const __grid_constant__ WideParams p) {
+    __shared__ int ring[kBlock / kWarp][kRing];
+    WideWalk<S, L, STUB> walk{p};
+    run_ray_queue(walk, ring[threadIdx.x / kWarp], p.next_chunk, p.active, p.out, p.R);
 }
 
 template <int S, int L, bool STUB>
-int launch(const void* rows, const void* wide_root, const void* root_base,
-           const void* tri_pos, const void* inst_f, const void* inst_u,
-           const void* tlas_offset, const void* ox, const void* oy,
-           const void* oz, const void* dx, const void* dy, const void* dz,
-           const void* tmin_lane, const void* tmax_lane, const void* active,
-           const void* anyhit_lane, float tmin_all, float tmax_all,
-           int anyhit_all, HitOut out, int R, cudaStream_t s) {
-    const dim3 grid((unsigned)((R + kBlock - 1) / kBlock)), block(kBlock);
-    wide_ray_query_kernel<S, L, STUB><<<grid, block, 0, s>>>(
-        (const float4*)rows, (const uint32_t*)wide_root, (const int*)root_base,
-        (const float4*)tri_pos, (const float*)inst_f, (const int*)inst_u,
-        (const int*)tlas_offset, (const float*)ox, (const float*)oy,
-        (const float*)oz, (const float*)dx, (const float*)dy, (const float*)dz,
-        (const float*)tmin_lane, (const float*)tmax_lane,
-        (const uint8_t*)active, (const uint8_t*)anyhit_lane, tmin_all,
-        tmax_all, anyhit_all, out, R);
+int launch(const WideParams& p, int grid, cudaStream_t s) {
+    cudaError_t e = cudaMemsetAsync(p.next_chunk, 0, sizeof(int), s);
+    if (e != cudaSuccess) return (int)e;
+    wide_ray_query_kernel<S, L, STUB><<<grid, kBlock, 0, s>>>(p);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface for ctypes.  Launches on `stream`, does not synchronise,
+// Plain C interface for ctypes.  Zeroes the queue's counter and launches on
+// `stream` with `grid` blocks of kBlock threads; does not synchronise,
 // allocates nothing.  `width` (f32 per row) selects the layout.  Returns the
 // launch's cudaError_t (0 = accepted), or -1 for a width no layout has.
 extern "C" int pt_wide_ray_query(
@@ -336,18 +350,24 @@ extern "C" int pt_wide_ray_query(
     const void* tmin_lane, const void* tmax_lane, const void* active,
     const void* anyhit_lane, float tmin_all, float tmax_all, int anyhit_all,
     void* thit, void* bu, void* bv, void* out_inst, void* out_prim,
-    void* out_back, void* out_occ, int R, void* stream) {
+    void* out_back, void* out_occ, int R, void* next_chunk, int grid,
+    void* stream) {
     if (R <= 0) return 0;
-    const HitOut out = {(float*)thit, (float*)bu, (float*)bv, (int*)out_inst,
-                        (int*)out_prim, (uint8_t*)out_back, (uint8_t*)out_occ};
+    const WideParams p = {
+        (const float4*)rows, (const uint32_t*)wide_root, (const int*)root_base,
+        (const float4*)tri_pos, (const float*)inst_f, (const int*)inst_u,
+        (const int*)tlas_offset, (const float*)ox, (const float*)oy,
+        (const float*)oz, (const float*)dx, (const float*)dy, (const float*)dz,
+        (const float*)tmin_lane, (const float*)tmax_lane,
+        (const uint8_t*)active, (const uint8_t*)anyhit_lane, tmin_all,
+        tmax_all, anyhit_all,
+        HitOut{(float*)thit, (float*)bu, (float*)bv, (int*)out_inst,
+               (int*)out_prim, (uint8_t*)out_back, (uint8_t*)out_occ},
+        R, (int*)next_chunk};
     cudaStream_t s = (cudaStream_t)stream;
-#define PT_WIDE_LAUNCH(S, L, STUB)                                            \
-    if (width == Layout<S, L, STUB>::kWidth)                                  \
-        return launch<S, L, STUB>(rows, wide_root, root_base, tri_pos,        \
-                                  inst_f, inst_u, tlas_offset, ox, oy, oz,    \
-                                  dx, dy, dz, tmin_lane, tmax_lane, active,   \
-                                  anyhit_lane, tmin_all, tmax_all,            \
-                                  anyhit_all, out, R, s);
+#define PT_WIDE_LAUNCH(S, L, STUB)                  \
+    if (width == Layout<S, L, STUB>::kWidth)        \
+        return launch<S, L, STUB>(p, grid, s);
     PT_WIDE_LAUNCH(8, 4, false)   // w8: 48 columns
     PT_WIDE_LAUNCH(16, 8, false)  // w16: 88 columns
     PT_WIDE_LAUNCH(8, 8, true)    // s8: 40 columns
@@ -356,6 +376,18 @@ extern "C" int pt_wide_ray_query(
 }
 
 extern "C" int pt_wide_ray_query_block_size(void) { return kBlock; }
+
+// Blocks of the layout's kernel one SM holds at once (negative: the CUDA
+// error), or 0 for a width no layout has.
+extern "C" int pt_wide_ray_query_occupancy(int width) {
+    if (width == Layout<8, 4, false>::kWidth)
+        return resident_blocks_per_sm(wide_ray_query_kernel<8, 4, false>, kBlock);
+    if (width == Layout<16, 8, false>::kWidth)
+        return resident_blocks_per_sm(wide_ray_query_kernel<16, 8, false>, kBlock);
+    if (width == Layout<8, 8, true>::kWidth)
+        return resident_blocks_per_sm(wide_ray_query_kernel<8, 8, true>, kBlock);
+    return 0;
+}
 
 // Row width of a layout as this source computes it, for the wrapper's check
 // against accel/wide.py (0 = not instantiated).
