@@ -64,19 +64,34 @@ struct RayParams {
     int* next_chunk;              // the queue's counter, 0 at launch
 };
 
-// One ray's walk of the two-level BVH (the Walk of run_ray_queue).
+// The slab test of one nl8 row with C fmin/fmax NaN semantics (reference:
+// ray_query.hh:197-207): nmin = n0.xyz, nmax = (n0.w, n1.x, n1.y).
+__device__ __forceinline__ bool slab_hit(float4 n0, float4 n1, V3 o, V3 inv,
+                                         float tmin, float tmax) {
+    const float t0x = (n0.x - o.x) * inv.x;
+    const float t0y = (n0.y - o.y) * inv.y;
+    const float t0z = (n0.z - o.z) * inv.z;
+    const float t1x = (n0.w - o.x) * inv.x;
+    const float t1y = (n1.x - o.y) * inv.y;
+    const float t1z = (n1.y - o.z) * inv.z;
+    const float tnear = fmaxf(fminf(t0x, t1x),
+                              fmaxf(fminf(t0y, t1y), fminf(t0z, t1z)));
+    const float tfar = fminf(fmaxf(t0x, t1x),
+                             fminf(fmaxf(t0y, t1y), fmaxf(t0z, t1z)));
+    return tnear <= tfar && tfar > tmin && tnear < tmax;
+}
+
+// One ray's walk of the two-level BVH (the Walk of run_ray_queue).  A step
+// is one TLAS node visit; a TLAS leaf that passes walks its instance's BLAS
+// to the end in an inner loop, so the BLAS state lives only there and no
+// visit selects between the two levels' state.
 struct RayWalk {
     const RayParams& p;
     V3 org, dir, t_inv;
-    int t_count, t_link_off;
+    int t_count, t_link_off, t_node;
     bool any, occluded;
     float tmax;
     int c_inst, c_prim;
-    // TLAS cursor, and the BLAS context of the instance being walked
-    int t_node;
-    bool in_blas;
-    int b_node, b_count, b_link_off, b_axis, tri_offset, cand_inst;
-    V3 b_org, b_inv, b_S;
 
     __device__ __forceinline__ bool start(int r) {
         org = {p.ox[r], p.oy[r], p.oz[r]};
@@ -90,85 +105,66 @@ struct RayWalk {
         c_inst = -1;
         c_prim = 0;
         t_node = 0;
-        in_blas = false;
-        b_node = b_count = b_link_off = tri_offset = 0;
-        b_axis = 2;
-        cand_inst = -1;
-        b_org = b_inv = b_S = {0.f, 0.f, 0.f};
-        return resolve();
+        return t_node < t_count;  // TLAS exhausted => the walk is over
     }
 
-    // BLAS exhausted => pop to the TLAS; TLAS exhausted => the walk is over
-    // (reference: ray_query.hh:271-275).  Both resolve before a row is read.
-    __device__ __forceinline__ bool resolve() {
-        if (in_blas && !(b_node >= 0 && b_node < b_count)) in_blas = false;
-        return in_blas || (t_node >= 0 && t_node < t_count);
+    // The link a visit follows: accept on a hit of an inner node, else
+    // cancel (reference: ray_query.hh:209-222).
+    __device__ __forceinline__ static int next_node(bool hit, int accept, int cancel) {
+        return (hit && accept >= 0) ? accept : cancel;
     }
 
     __device__ __forceinline__ bool step() {
-        const int node = in_blas ? b_node : t_node;
-        const size_t lidx = (size_t)((in_blas ? b_link_off : t_link_off) + node);
+        const size_t lidx = (size_t)(t_link_off + t_node);
         const float4 n0 = __ldg(p.nl8 + 2 * lidx);
         const float4 n1 = __ldg(p.nl8 + 2 * lidx + 1);
         const int accept = __float_as_int(n1.z);
-        const int cancel = __float_as_int(n1.w);
-
-        const V3 o = in_blas ? b_org : org;
-        const V3 inv = in_blas ? b_inv : t_inv;
-        // slab test with C fmin/fmax NaN semantics (reference:
-        // ray_query.hh:197-207); nmin = n0.xyz, nmax = (n0.w, n1.x, n1.y)
-        const float t0x = (n0.x - o.x) * inv.x;
-        const float t0y = (n0.y - o.y) * inv.y;
-        const float t0z = (n0.z - o.z) * inv.z;
-        const float t1x = (n0.w - o.x) * inv.x;
-        const float t1y = (n1.x - o.y) * inv.y;
-        const float t1z = (n1.y - o.z) * inv.z;
-        const float tnear = fmaxf(fminf(t0x, t1x),
-                                  fmaxf(fminf(t0y, t1y), fminf(t0z, t1z)));
-        const float tfar = fminf(fmaxf(t0x, t1x),
-                                 fminf(fmaxf(t0y, t1y), fmaxf(t0z, t1z)));
-        const bool hit = tnear <= tfar && tfar > p.tmin && tnear < tmax;
-        const bool is_leaf = accept < 0;  // top bit (reference: bvh.hh:57-63)
-        const int payload = accept & 0x7FFFFFFF;
-        const int next = (hit && !is_leaf) ? accept : cancel;
-        if (in_blas) b_node = next; else t_node = next;
-        if (!(hit && is_leaf)) return resolve();
-
-        if (!in_blas) {
+        const bool hit = slab_hit(n0, n1, org, t_inv, p.tmin, tmax);
+        t_node = next_node(hit, accept, __float_as_int(n1.w));
+        if (hit && accept < 0) {  // leaf: top bit (reference: bvh.hh:57-63)
             // ---- enter BLAS (reference: ray_query.hh:153-182) ----
-            const int* iu = p.inst_u + 6 * (size_t)payload;
-            V3 bd;
-            instance_ray(p.inst_f + 21 * (size_t)payload, org, dir, b_org, bd);
-            b_count = __ldg(iu + 0);
-            b_link_off = __ldg(iu + 1) * 8 + octant(bd) * b_count;
-            tri_offset = __ldg(iu + 4);
-            b_inv = safe_inv(bd);
+            const int inst = accept & 0x7FFFFFFF;
+            const int* iu = p.inst_u + 6 * (size_t)inst;
+            V3 b_org, bd, b_S;
+            int b_axis;
+            instance_ray(p.inst_f + 21 * (size_t)inst, org, dir, b_org, bd);
+            const int b_count = __ldg(iu + 0);
+            const int b_link_off = __ldg(iu + 1) * 8 + octant(bd) * b_count;
+            const int tri_offset = __ldg(iu + 4);
+            const V3 b_inv = safe_inv(bd);
             tri_preprocess(bd, b_axis, b_S);
-            b_node = 0;
-            cand_inst = payload;
-            in_blas = true;
-        } else {
-            // ---- triangle test (reference: ray_query.hh:225-246) ----
-            V3 p0, p1, p2;
-            load_tri(p.tri_pos, tri_offset + payload, p0, p1, p2);
-            float u, v, t;
-            bool back;
-            const bool ok = tri_intersect(b_org, b_axis, b_S, p0, p1, p2, u, v, t, back);
-            if (ok && t < tmax && t > p.tmin) {
-                if (any) {
-                    // first passing candidate ends an any-hit ray
-                    // (reference: path_tracer.hh:415-427)
-                    occluded = true;
-                    return false;
+            // BLAS walk from entry to pop (reference: ray_query.hh:271-275)
+            for (int b_node = 0; b_node >= 0 && b_node < b_count;) {
+                const size_t bidx = (size_t)(b_link_off + b_node);
+                const float4 m0 = __ldg(p.nl8 + 2 * bidx);
+                const float4 m1 = __ldg(p.nl8 + 2 * bidx + 1);
+                const int b_accept = __float_as_int(m1.z);
+                const bool b_hit = slab_hit(m0, m1, b_org, b_inv, p.tmin, tmax);
+                b_node = next_node(b_hit, b_accept, __float_as_int(m1.w));
+                if (!(b_hit && b_accept < 0)) continue;
+                // ---- triangle test (reference: ray_query.hh:225-246) ----
+                const int prim = b_accept & 0x7FFFFFFF;
+                V3 p0, p1, p2;
+                load_tri(p.tri_pos, tri_offset + prim, p0, p1, p2);
+                float u, v, t;
+                bool back;
+                const bool ok = tri_intersect(b_org, b_axis, b_S, p0, p1, p2, u, v, t, back);
+                if (ok && t < tmax && t > p.tmin) {
+                    if (any) {
+                        // first passing candidate ends an any-hit ray
+                        // (reference: path_tracer.hh:415-427)
+                        occluded = true;
+                        return false;
+                    }
+                    // closest-hit confirms every candidate
+                    // (reference: ray_query.hh:280-290)
+                    c_inst = inst;
+                    c_prim = prim;
+                    tmax = t;
                 }
-                // closest-hit confirms every candidate
-                // (reference: ray_query.hh:280-290)
-                c_inst = cand_inst;
-                c_prim = payload;
-                tmax = t;
             }
         }
-        return resolve();
+        return t_node >= 0 && t_node < t_count;
     }
 
     __device__ __forceinline__ void finish(const HitOut& out, int r) {
