@@ -58,7 +58,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from pathtracing_tpu_torch.accel.wide import LAYOUTS_BY_WIDTH
+from pathtracing_tpu_torch.accel.wide import (
+    LAYOUT_S8,
+    LAYOUT_W8,
+    LAYOUT_W16,
+    LAYOUTS_BY_WIDTH,
+)
 from pathtracing_tpu_torch.config import PRODUCTION, TESTING
 from pathtracing_tpu_torch.io.bmp import read_bmp, write_bmp
 from pathtracing_tpu_torch.ops import cuda_build
@@ -66,7 +71,7 @@ from pathtracing_tpu_torch.ops import cuda_traversal as CT
 from pathtracing_tpu_torch.ops import cuda_wide_traversal as CW
 from pathtracing_tpu_torch.ops import integrator
 from pathtracing_tpu_torch.ops.tonemap import tonemap
-from pathtracing_tpu_torch.ops.traversal import ray_query, ray_query_plain
+from pathtracing_tpu_torch.ops.traversal import ray_query, ray_query_plain, simd_efficiency
 from pathtracing_tpu_torch.ops.wide_traversal import wide_ray_query_plain
 from pathtracing_tpu_torch.probes import gather_probe as GP
 from pathtracing_tpu_torch.render import CUDA_TILE_PIXELS, render_frame
@@ -78,6 +83,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
 MAIN_SPP = 8  # PRODUCTION asks for 1024; cut so the run fits its time limit
 MAIN_LAYOUT = "w8"  # the wide main path's layout (pack_scene's default)
+LAYOUTS = {"w8": LAYOUT_W8, "w16": LAYOUT_W16, "s8": LAYOUT_S8}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and float32 rate outside the tensor cores.
@@ -89,6 +95,10 @@ NODE_ROW_B, TRI_ROW_B, INST_ROW_B = 32, 48, 84 + 24
 NODE_FLOPS, TRI_FLOPS, INST_FLOPS = 27, 52, 45
 
 RTOL = ATOL = 1e-6  # kernel vs plain version: same ops, same order, no FMA
+# Shared memory a block could give to staged mega-table rows: the share of
+# row visits the hottest rows of this size carry is printed per batch.
+HOT_ROW_BYTES = 160 * 1024
+EDGE_R = (1, 31, 33, 4097)  # below, just under, just over one chunk; ragged
 
 LIBRARIES = {"ray_query": CT.LIBRARY, "wide_ray_query": CW.LIBRARY,
              "gather_rows": GP.LIBRARY}
@@ -243,7 +253,7 @@ def measure_shape(tag, args, kwargs):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # this batch's row reads, counted by the plain version as it walks
-    hp, op, (node, inst, tri) = ray_query_plain(*args, **kwargs, return_counts=True)
+    hp, op, c = ray_query_plain(*args, **kwargs, return_counts=True)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = compare_hits(tag, hk, ok, hp, op)
@@ -252,15 +262,21 @@ def measure_shape(tag, args, kwargs):
 
     n_active = int(args[7].sum())
     io_b = ray_io_bytes(kwargs.get("anyhit", False), args[6], R, n_active)
+    node, inst, tri = c.node_rows, c.inst_rows, c.tri_rows
+    # each table row the batch's walk touched, read once (the finalize
+    # step's instance and triangle rows included)
+    table_b = (c.node_rows_touched * NODE_ROW_B + c.inst_rows_touched * INST_ROW_B
+               + c.tri_rows_touched * TRI_ROW_B)
     b = bound(
-        CT.table_bytes(args[0]), io_b,
+        table_b, io_b,
         node * NODE_ROW_B + tri * TRI_ROW_B + inst * INST_ROW_B,
         node * NODE_FLOPS + tri * TRI_FLOPS + inst * INST_FLOPS,
     )
     return {
         "shape": tag, "rays": R, "active": n_active, "io_bytes": io_b,
-        "max_abs_err": err, "ms": ms, "ms_all": all_ms, "plain_ms": plain_ms,
-        "node_rows": node, "inst_rows": inst, "tri_rows": tri,
+        "table_bytes_needed": table_b, "max_abs_err": err, "ms": ms,
+        "ms_all": all_ms, "plain_ms": plain_ms, **scalars(c),
+        **walk_stats(c.lane_steps, args[7]),
         **b, "roofline_share": b["bound_ms"] / ms,
     }
 
@@ -299,6 +315,29 @@ def wide_table_bytes_needed(scene, lay, args, hit, c) -> int:
             + int(torch.unique(tri).numel()) * TRI_ROW_B)
 
 
+def scalars(counts) -> dict:
+    """A counts tuple's numbers (its per-lane and per-row tensors left out)."""
+    return {k: v for k, v in counts._asdict().items() if not isinstance(v, torch.Tensor)}
+
+
+def walk_stats(lane_steps, active, row_visits=None, row_bytes=0) -> dict:
+    """How a batch fills the card's SIMD lanes: ``simd_efficiency`` of the
+    plain version's steps per lane, in launch order and with the active lanes
+    packed first; the share of 32-lane warps that hold an active lane; and
+    for the wide walk the share of row visits that fall on the hottest rows
+    fitting in HOT_ROW_BYTES."""
+    in_order, packed = simd_efficiency(lane_steps)
+    pad = (-active.numel()) % 32
+    warps = torch.cat([active, active.new_zeros(pad)]).view(-1, 32).any(dim=1)
+    out = {"simd_efficiency": in_order, "simd_efficiency_packed": packed,
+           "active_warp_share": float(warps.float().mean())}
+    if row_visits is not None:
+        hot = HOT_ROW_BYTES // row_bytes
+        v = row_visits.sort(descending=True).values
+        out.update(hot_rows=hot, hot_row_visit_share=float(v[:hot].sum()) / float(v.sum()))
+    return out
+
+
 def measure_wide_shape(tag, args, kwargs):
     """One main-path batch of the wide walk: kernel vs plain, its time beside
     the binary kernel's on the same batch, counts, bound."""
@@ -332,7 +371,8 @@ def measure_wide_shape(tag, args, kwargs):
         "max_abs_err": err, "ms": ms, "ms_all": all_ms,
         "p1_ms_same_batch": t["binary"][0], "p1_ms_all": t["binary"][1],
         "id_mismatches_vs_ray_query": ties, "plain_ms": plain_ms,
-        **c._asdict(), **b, "roofline_share": b["bound_ms"] / ms,
+        **scalars(c), **walk_stats(c.lane_steps, args[7], c.row_visits, lay.w_row * 4),
+        **b, "roofline_share": b["bound_ms"] / ms,
     }
 
 
@@ -377,14 +417,25 @@ def phase_build():
         require(res, f"{name}: no ptxas report in {lib.build_log}")
         report[name] = {"source": SOURCES[name], "seconds": lib.build_seconds,
                         "kernels": res}
-    emit("build", seconds=sec, flags=list(cuda_build.NVCC_FLAGS), libraries=report)
+    # the persistent ray-query launches: blocks of block_size() threads one
+    # SM holds at once (registers and the ring decide), and the grid that gives
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    occ = {"ray_query": CT.LIBRARY.load().pt_ray_query_occupancy()}
+    for name, lay in LAYOUTS.items():
+        occ[name] = CW.LIBRARY.load().pt_wide_ray_query_occupancy(lay.w_row)
+    require(all(v > 0 for v in occ.values()), f"occupancy query failed: {occ}")
+    report["ray_query"]["blocks_per_sm"] = occ["ray_query"]
+    report["wide_ray_query"]["blocks_per_sm"] = {k: occ[k] for k in LAYOUTS}
+    emit("build", seconds=sec, flags=list(cuda_build.NVCC_FLAGS), libraries=report,
+         sms=sms, block=CT.block_size(),
+         resident_warps_per_sm={k: v * CT.block_size() // 32 for k, v in occ.items()})
     return report
 
 
-def rays_gold_inputs(scene_g, rays_g, dev):
-    R = 4096
+def rays_gold_inputs(scene_g, rays_g, dev, R=4096):
+    """rays.gold's 4096 rays (repeated to R lanes) and the lane masks."""
     full = lambda v: torch.full((R,), int(v), dtype=torch.int32, device=dev)
-    col = lambda a, i: torch.from_numpy(np.ascontiguousarray(a[:, i])).to(dev)
+    col = lambda a, i: torch.from_numpy(np.ascontiguousarray(np.resize(a, (R, 3))[:, i])).to(dev)
     rs = np.random.default_rng(7)
     lane = lambda a: torch.from_numpy(a).to(dev)
     return {
@@ -434,6 +485,46 @@ def run_modes(scene, inp, kernel_fn, plain_fn, per_lane_tmin: bool):
     return errs, out
 
 
+def run_edge_modes(scene, scene_g, rays_g, kernel_fn, plain_fn, tag):
+    """The ray queue's edge cases, each bit-equal to the plain version
+    (closest and any-hit lanes mixed): batches of EDGE_R lanes; every lane
+    inactive; every lane active; active lanes only in the last chunk of 32;
+    and two launches in a row on one wrapper (each launch zeroes its own
+    counter). Returns {mode: max abs err}."""
+    dev = scene.nl8.device
+    inp = rays_gold_inputs(scene_g, rays_g, dev, max(EDGE_R))
+    R = 4096
+    last = torch.zeros(max(EDGE_R), dtype=torch.bool, device=dev)
+    last[R - 32 + 3:R] = True
+    cases = {f"R={n}": (n, inp["some"]) for n in EDGE_R}
+    cases["all_inactive"] = (R, torch.zeros_like(last))
+    cases["all_active"] = (R, torch.ones_like(last))
+    cases["last_chunk_only"] = (R, last)
+
+    def lanes(n, active):
+        cut = lambda t: t[:n].contiguous()
+        return ((scene, cut(inp["tlc"]), cut(inp["tlo"]), Vec3(*map(cut, inp["org"])),
+                 Vec3(*map(cut, inp["d"])), 1e-4, 1e9, cut(active)), cut(inp["mask"]))
+
+    errs = {}
+    for name, (n, active) in cases.items():
+        a, mask = lanes(n, active)
+        hk, ok = kernel_fn(*a, anyhit=mask)
+        torch.cuda.synchronize()
+        hp, op = plain_fn(*a, anyhit=mask)
+        errs[name] = compare_hits(f"{tag} {name}", hk, ok, hp, op)
+    require(bool((kernel_fn(*lanes(R, cases["all_inactive"][1])[0])[0].thit == -1).all()),
+            f"{tag}: an all-inactive batch traced")
+    a, mask = lanes(max(EDGE_R), inp["some"])
+    first = kernel_fn(*a, anyhit=mask)
+    second = kernel_fn(*a, anyhit=mask)
+    torch.cuda.synchronize()
+    hp, op = plain_fn(*a, anyhit=mask)
+    errs["two_launches"] = max(compare_hits(f"{tag} launch {i}", *hk, hp, op)
+                               for i, hk in enumerate((first, second)))
+    return errs
+
+
 def phase_kernel_check(scene_g, rays_g, scene, prod_cfg, prod_scene):
     inp = rays_gold_inputs(scene_g, rays_g, scene.nl8.device)
     R = inp["R"]
@@ -443,6 +534,10 @@ def phase_kernel_check(scene_g, rays_g, scene, prod_cfg, prod_scene):
     emit("kernel_check", part="rays.gold", rays=R, modes=list(errs),
          max_abs_err=max(errs.values()), rtol=RTOL, atol=ATOL,
          oracle_id_mismatches=id_ties, ids="equal")
+    edge = run_edge_modes(scene, scene_g, rays_g, ray_query, ray_query_plain, "ray_query")
+    emit("kernel_check", part="edge_modes", modes=list(edge),
+         max_abs_err=max(edge.values()), ids="equal")
+    errs.update(edge)
 
     lanes = main_path_tile_lanes(prod_cfg)
     calls = capture_main_path_queries(prod_cfg, prod_scene, lanes)
@@ -512,6 +607,9 @@ def phase_wide_kernel_check(scene_g, rays_g, wide_scenes, binary_out, prod_cfg,
                         zip((*h_full, o_full), (*h_tail, o_tail))),
                     f"{name} {m}: a root table with a base gives other bits")
         errs = {**errs, **{m + "+root_base": e for m, e in tail_errs.items()}}
+        edge = run_edge_modes(scene, scene_g, rays_g, CW.wide_ray_query_cuda,
+                              wide_ray_query_plain, f"wide_ray_query {name}")
+        errs.update({"edge " + m: e for m, e in edge.items()})
         emit("wide_kernel_check", part="rays.gold", layout=name, rays=inp["R"],
              modes=list(errs), max_abs_err=max(errs.values()), rtol=RTOL, atol=ATOL,
              oracle_id_mismatches=oracle_ties, id_mismatches_vs_ray_query=ties,
@@ -534,17 +632,28 @@ def phase_wide_kernel_check(scene_g, rays_g, wide_scenes, binary_out, prod_cfg,
     # the other instantiations at a main-path batch: the same primary rays on
     # the same scene packed in their layout
     scene_args, kwargs = calls[0]
+    other_times = {}
     for name in wide_scenes:
         if name == MAIN_LAYOUT:
             continue
         other = scene_device_from_golden(scene_g, prod_cfg, wide=True, wide_layout=name)
-        _, c, plain_ms, err, ties = check_wide_batch(
-            f"primary {name}", (other, *scene_args[1:]), kwargs)
+        other_args = (other, *scene_args[1:])
+        _, c, plain_ms, err, ties = check_wide_batch(f"primary {name}", other_args, kwargs)
+        # its time beside w8's on the same rays, in turns
+        t = time_launches({
+            MAIN_LAYOUT: lambda: CW.wide_ray_query_cuda(*scene_args, **kwargs),
+            name: lambda: CW.wide_ray_query_cuda(*other_args, **kwargs),
+        })
+        lay = LAYOUTS_BY_WIDTH[other.wide_rows.shape[1]]
         emit("wide_kernel_check", part="main_path_shape_other_layout", shape="primary",
              layout=name, rays=lanes, max_abs_err=err, plain_ms=plain_ms,
-             id_mismatches_vs_ray_query=ties, **c._asdict())
+             ms=t[name][0], ms_all=t[name][1], w8_ms_same_call=t[MAIN_LAYOUT][0],
+             w8_ms_all=t[MAIN_LAYOUT][1], id_mismatches_vs_ray_query=ties,
+             **scalars(c),
+             **walk_stats(c.lane_steps, scene_args[7], c.row_visits, lay.w_row * 4))
+        other_times[name] = t[name][0]
         max_err = max(max_err, err)
-    return max_err, shapes
+    return max_err, shapes, other_times
 
 
 def phase_breakdown(cfg, scene, tag):
@@ -752,7 +861,7 @@ def main() -> int:
     max_err, shapes, binary_out = phase_kernel_check(
         scene_g, rays_g, scene, prod_cfg, prod_scene
     )
-    wide_err, wide_shapes = phase_wide_kernel_check(
+    wide_err, wide_shapes, other_times = phase_wide_kernel_check(
         scene_g, rays_g, wide_scenes, binary_out, prod_cfg, prod_wide
     )
     phase_breakdown(prod_cfg, prod_scene, "binary")
@@ -774,6 +883,8 @@ def main() -> int:
                         for k in built[name]["kernels"]],
     }
     five = ("rays", "ms", "plain_ms", "bound_ms", "bound_by")
+    fill = ("simd_efficiency", "simd_efficiency_packed", "active_warp_share")
+    walk = lambda sh: {sh["shape"]: {k: sh[k] for k in fill}}
     print(json.dumps({"kernels": [
         {
             "name": "ray_query",
@@ -790,6 +901,8 @@ def main() -> int:
             "shape": f"bounce batch, {bounce['rays']} rays",
             "primary": {k: shapes[0][k] for k in five},
             **regs("ray_query"),
+            "blocks_per_sm": built["ray_query"]["blocks_per_sm"],
+            "lane_fill": {**walk(shapes[0]), **walk(bounce)},
             "card": smi,
         },
         {
@@ -808,7 +921,10 @@ def main() -> int:
             "p1_ms_same_batch": wbounce["p1_ms_same_batch"],
             "shape": f"bounce batch, {wbounce['rays']} rays",
             "primary": {k: wide_shapes[0][k] for k in five + ("p1_ms_same_batch",)},
+            "other_layouts_primary_ms": other_times,
             **regs("wide_ray_query"),
+            "blocks_per_sm": built["wide_ray_query"]["blocks_per_sm"],
+            "lane_fill": {**walk(wide_shapes[0]), **walk(wbounce)},
             "card": smi,
         },
         {
