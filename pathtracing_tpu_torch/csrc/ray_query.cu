@@ -1,4 +1,5 @@
-// Ray query on the two-level binary BVH: one thread per ray.
+// Ray query on the two-level binary BVH: persistent warps over an active-ray
+// queue (ray_common.cuh::run_ray_queue), one ray per thread at a time.
 //
 // Replaces the TPU kernel pathtracing_tpu/ops/pallas_traversal.py::_kernel
 // (launched by ray_query_pallas).  It computes the same function: for each
@@ -10,25 +11,30 @@
 // and stop), then _finalize_hit (thit = tmax; u, v, back re-derived from the
 // hit ids by one more triangle test; miss -> thit -1, inst -1, prim 0).
 //
-// What bounds it on an H100: bytes and latency, not arithmetic.  A node visit
-// reads one scattered 32 B row and does ~30 flops, a triangle test one 48 B
-// row and ~50 flops, and neighbouring rays of a warp leave the loop at
-// different times.  What the design does about it:
-//   * The Pallas kernel kept the four tables in on-chip memory per block and
-//     ended each block's loop on its own.  Here the loop's exit is per thread,
-//     the state (~25 words) lives in registers, and the tables are read
-//     through the read-only path as 16 B vectors (an nl8 row is 2 x float4,
-//     a tri_pos row 3 x float4): tables of a few MB stay resident in the
-//     50 MB L2 across the batch, larger ones are served from device memory,
-//     so no table size is refused.  inst_f rows are 84 B and only 4 B
-//     aligned: scalar loads, once per BLAS entry.
-//   * Blocks are small (128 threads) so that a block's slowest ray holds few
-//     others' registers; the per-thread `while` needs no batch-wide step
-//     count and no lane compaction.
-//   * The block size and the TPU kernel's `leaf_every` were schedule knobs
-//     whose results are identical by construction; the wrapper takes neither.
-//     `vmem_fits` gated a fallback that does not exist here; the wrapper
-//     keeps only a helper that reports the tables' bytes.
+// What bounds it on an H100: instruction issue and latency, not device
+// memory.  The golden scene's tables (1.5 MB) sit in the 50 MB L2; a node
+// visit reads one dependent 32 B row and does ~30 flops, a triangle test one
+// 48 B row and ~50 flops, and a warp runs as long as its longest ray.  What
+// the design does about it:
+//   * Persistent warps: inactive lanes (most of a bounce batch) cost one
+//     coalesced miss write and no warp slot, and a thread whose ray ends
+//     takes a new one from its warp's queue, so warps stay full until the
+//     queue runs dry.  The Pallas kernel's per-block loop, its `block` and
+//     `leaf_every` knobs and the `vmem_fits` fallback have nothing left to
+//     do; the wrapper takes none of them.
+//   * The walk is a TLAS loop with an inner BLAS loop from entry to pop: the
+//     BLAS state lives only inside it, and no visit selects between the two
+//     levels' state.  Visit order, the accept/cancel links and the confirm
+//     rule are those of _full_step.
+//   * Rows are read through the read-only path as 16 B vectors (an nl8 row
+//     is 2 x float4, a tri_pos row 3 x float4); inst_f rows are 84 B and
+//     only 4 B aligned: scalar loads, once per BLAS entry.  Tables of a few
+//     MB stay in L2, larger ones are served from device memory; no table
+//     size is refused.
+//   * Of Hopper's additions only shared memory is used, for the ray queue.
+//     Tensor cores have no matrix product to do in a walk, and TMA has no
+//     tile to fetch ahead: each row's address depends on the slab test of
+//     the row before it.
 //
 // Parity: built with --fmad=false (the oracle goldens were made without FMA
 // contraction; contraction in the triangle test flips equal-t ties between

@@ -1,4 +1,5 @@
-// Ray query on the wide-BVH mega-table: one thread per ray.
+// Ray query on the wide-BVH mega-table: persistent warps over an active-ray
+// queue (ray_common.cuh::run_ray_queue), one ray per thread at a time.
 //
 // Replaces the JAX package's XLA while-loop walk
 // pathtracing_tpu/ops/wide_traversal.py::wide_ray_query (_wide_init,
@@ -7,11 +8,11 @@
 // stackless walk that reads ONE row of the (M, W) table per step and branches
 // on the cursor's kind (bits 30-31):
 //   WIDE  S child slots, each a bf16 outward-rounded AABB packed in three
-//         words [minx|miny] [minz|maxx] [maxy|maxz]; slab-test all, descend
-//         to the first accepted slot >= the cursor's start slot whose link is
-//         not 0xFFFFFFFF, else follow the row's exit link.  A descent to a
-//         LEAF or INST row stores "this row at slot j+1" (or the exit link
-//         after the last slot) as the resume cursor of that kind.
+//         words [minx|miny] [minz|maxx] [maxy|maxz]; descend to the first
+//         slot >= the cursor's start slot that passes its slab test and whose
+//         link is not 0xFFFFFFFF, else follow the row's exit link.  A descent
+//         to a LEAF or INST row stores "this row at slot j+1" (or the exit
+//         link after the last slot) as the resume cursor of that kind.
 //   LEAF  L triangles inline (or, in the stub layout, L prim ids whose
 //         vertices are read from tri_pos): watertight test in row order, each
 //         passing candidate shrinks tmax before the next is judged; closest
@@ -23,19 +24,28 @@
 //   a row is read.
 // then _finalize_hit as in ray_query.cu.
 //
-// What bounds it on an H100: latency and bytes, not arithmetic.  A WIDE row
-// of the w8 layout is 132 B read for ~220 flops, and every row address
-// depends on the row before it.  What the design does about it:
-//   * The XLA loop stepped all lanes together, so it masked three row kinds
-//     per step, parked leaf rows and compacted lanes to fight batch-wide
-//     skew.  Here a thread branches on its own row kind and leaves its own
-//     loop: the state (cursor, two resume cursors, the BLAS-space ray) lives
-//     in registers, and those schedules have nothing left to do, so the
-//     wrapper takes neither knob.
-//   * Rows are 16-byte aligned multiples of 16 bytes and are read through
-//     the read-only path as float4 (a w8 WIDE row: 8 loads + the exit word).
-//     A table of a few hundred KB stays in L2; a larger one is served from
-//     device memory, no table size is refused.
+// What bounds it on an H100: instruction issue and latency, not device
+// memory.  The golden scene's tables (~1 MB) sit in the 50 MB L2; a WIDE row
+// is ~220 flops of slab tests, every row address depends on the row before
+// it, and a warp runs as long as its longest ray.  What the design does:
+//   * Only the slab tests the walk needs: slots are tested four at a time
+//     from the start slot's group on, no group is read after one that holds
+//     the winner, a link word is read only for a slot that passed its test,
+//     and the exit word only when the walk follows it.  The state (cursor,
+//     two resume cursors, the BLAS-space ray) lives in registers; the 8-slot
+//     layouts are held to 64 registers (Layout::kMinBlocks).
+//   * Persistent warps: inactive lanes (most of a bounce batch) cost one
+//     coalesced miss write and no warp slot, and a thread whose ray ends
+//     takes a new one, so warps stay full until the queue runs dry.  The XLA
+//     loop's own answer to skew (leaf-row parking, lane compaction) has
+//     nothing left to do, so the wrapper takes neither knob.
+//   * Rows are 16-byte aligned multiples of 16 bytes, read through the
+//     read-only path as float4.  A larger table is served from device
+//     memory; no table size is refused.
+//   * Of Hopper's additions only shared memory is used, for the ray queue.
+//     Tensor cores have no matrix product to do in a walk, and TMA has no
+//     tile to fetch ahead: each row's address depends on the slab test of
+//     the row before it.
 //   * One template over (slots, leaf triangles, stub) serves the three
 //     shipped layouts; the wrapper picks by row width.
 //

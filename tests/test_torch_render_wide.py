@@ -43,20 +43,35 @@ def binary_frame():
     return trender.render_frame(CFG, tscene, device="cpu")
 
 
+_WIDE_FRAMES = {}  # layout -> (colors, image, ray queries that saw wide tables)
+
+
+def _wide_frame(layout):
+    """The port's frame on the scene packed in ``layout``, rendered once per
+    module (the JAX comparison below reuses the w8 one)."""
+    if layout not in _WIDE_FRAMES:
+        calls = []
+        orig = tinteg.ray_query
+
+        def spy(scene, *a, **k):
+            calls.append(scene.wide_rows is not None)
+            return orig(scene, *a, **k)
+
+        wscene = scene_device_from_golden(
+            golden("scene.gold"), CFG, wide=True, wide_layout=layout, device="cpu"
+        )
+        tinteg.ray_query = spy
+        try:
+            colors, image = trender.render_frame(CFG, wscene, device="cpu")
+        finally:
+            tinteg.ray_query = orig
+        _WIDE_FRAMES[layout] = colors, image, calls
+    return _WIDE_FRAMES[layout]
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
-def test_wide_frame_bit_equal_to_binary_frame(binary_frame, layout, monkeypatch):
-    calls = []
-    orig = tinteg.ray_query
-
-    def spy(scene, *a, **k):
-        calls.append(scene.wide_rows is not None)
-        return orig(scene, *a, **k)
-
-    monkeypatch.setattr(tinteg, "ray_query", spy)
-    wscene = scene_device_from_golden(
-        golden("scene.gold"), CFG, wide=True, wide_layout=layout, device="cpu"
-    )
-    colors, image = trender.render_frame(CFG, wscene, device="cpu")
+def test_wide_frame_bit_equal_to_binary_frame(binary_frame, layout):
+    colors, image, calls = _wide_frame(layout)
     assert calls and all(calls)  # every query saw the wide tables
     assert len(calls) == CFG.samples_per_pixel * (1 + CFG.max_bounces)
     bcolors, bimage = binary_frame
@@ -64,15 +79,15 @@ def test_wide_frame_bit_equal_to_binary_frame(binary_frame, layout, monkeypatch)
     assert image.tobytes() == bimage.tobytes()
 
 
-def test_wide_frame_matches_jax_wide_frame(binary_frame):
+def test_wide_frame_matches_jax_wide_frame():
     g = golden("scene.gold")
     jcfg = JRenderConfig(**dataclasses.asdict(CFG))
     jscene = jgolden.scene_device_from_golden(g, jcfg, wide=True)
     assert jscene.wide_rows is not None
     jcolors, jimage = jrender.render_frame(jcfg, jscene, tile_pixels=64 * 36)
     jcolors, jimage = np.asarray(jcolors), np.asarray(jimage)
-    wscene = scene_device_from_golden(g, CFG, wide=True, device="cpu")
-    tcolors, timage = trender.render_frame(CFG, wscene, device="cpu")
+    # the port's frame on the same packing (w8, pack_scene's default)
+    tcolors, timage, _ = _wide_frame("w8")
     assert tcolors.shape == jcolors.shape == (36, 64, 3) and np.isfinite(tcolors).all()
     rel = rel_err(tcolors, jcolors, 1e-3)
     assert np.quantile(rel, 0.98) < 1e-3, np.quantile(rel, 0.98)
