@@ -116,7 +116,7 @@ struct RayWalk {
 
     // The link a visit follows: accept on a hit of an inner node, else
     // cancel (reference: ray_query.hh:209-222).
-    __device__ __forceinline__ static int next_node(bool hit, int accept, int cancel) {
+    static __device__ __forceinline__ int next_node(bool hit, int accept, int cancel) {
         return (hit && accept >= 0) ? accept : cancel;
     }
 

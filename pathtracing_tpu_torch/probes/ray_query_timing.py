@@ -77,7 +77,9 @@ def main(argv=None) -> int:
     for lib in (CT.LIBRARY, CW.LIBRARY):
         lib.build()
     build_s = time.perf_counter() - t0
-    regs = {lib.name: [k["registers"] for k in lib.resources()]
+    # per kernel entry: registers and spill bytes (stores + loads)
+    regs = {lib.name: [[k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"]]
+                       for k in lib.resources()]
             for lib in (CT.LIBRARY, CW.LIBRARY)}
 
     scene_g = load_golden(str(root / "tests" / "golden" / "scene.gold"))
@@ -139,7 +141,7 @@ def main(argv=None) -> int:
             ms[key].append(e0.elapsed_time(e1))
     result = {
         "label": args.label, "root": str(root), "card": smi, "reps": args.reps,
-        "build_seconds": build_s, "registers": regs, "bit_equal_to_plain": True,
+        "build_seconds": build_s, "registers_spills": regs, "bit_equal_to_plain": True,
         "median_ms": {key: float(np.median(v)) for key, v in ms.items()},
         "ms_all": ms,
     }
