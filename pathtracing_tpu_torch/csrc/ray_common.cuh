@@ -1,8 +1,7 @@
 // Device functions shared by the ray-query kernels (ray_query.cu: the binary
 // two-level walk; wide_ray_query.cu: the wide mega-table walk): reciprocal
 // direction, octant, the watertight triangle test, the instance transform,
-// the result record both kernels write, and the persistent-warp ray queue
-// both run on.
+// and the result record both kernels write.
 //
 // Both kernels must agree bit for bit with their plain PyTorch versions and
 // with each other, so every expression here keeps the evaluation order of
@@ -159,92 +158,8 @@ __device__ __forceinline__ void finalize_hit(
     out.occ[r] = occluded ? 1 : 0;
 }
 
-// ---------------------------------------------------------------------------
-// Persistent warps with an active-ray queue, shared by both kernels.
-//
-// The grid is one wave: as many blocks as the SMs hold at once (the wrapper
-// sizes it from pt_*_occupancy and the SM count).  A warp takes chunks of
-// kChunk consecutive lanes from a global counter (zeroed on the stream before
-// every launch).  It writes a miss for every inactive lane of a chunk at once,
-// coalesced, and appends the ids of the active ones to a ring in shared
-// memory that is the warp's own.  Each thread walks one ray.  Once kFetchIdle
-// threads of the warp have finished theirs, those write their outputs and
-// take the next ids from the ring, and the warp refills the ring from the
-// counter first if it holds too few: persistent threads with dynamic fetch
-// (Aila & Laine, "Understanding the efficiency of ray traversal on GPUs").
-// A ray's walk does not depend on which thread runs it or when, and its
-// outputs go to its own index, so the results do not depend on the schedule.
-//
-// A Walk holds one ray's state and has
-//   bool start(int r)   load ray r; false if its walk is already over
-//   bool step()         one row visit; false once the walk is over
-//   void finish(r)      write ray r's outputs
-
-constexpr int kWarp = 32;
-constexpr int kChunk = kWarp;      // lanes per counter increment
-constexpr int kRing = 2 * kChunk;  // fewer than kWarp ids left + one chunk
-constexpr int kFetchIdle = 8;      // finished threads that make a warp fetch
-
-template <class Walk>
-__device__ __forceinline__ void run_ray_queue(
-    Walk& walk, int* __restrict__ ring, int* __restrict__ next_chunk,
-    const uint8_t* __restrict__ active, const HitOut& out, int R) {
-    const unsigned full = 0xFFFFFFFFu;
-    const int lane = threadIdx.x & (kWarp - 1);
-    const unsigned below = (1u << lane) - 1u;
-    int head = 0, count = 0;  // the ring's state: the same in every thread
-    bool drained = false;     // the counter has passed R
-    int r = -1;               // this thread's ray, -1 for none
-    bool alive = false;       // its walk goes on
-    for (;;) {
-        // ---- fetch: every idle thread takes a ray while there are any ----
-        const unsigned idle = __ballot_sync(full, r < 0);
-        const int n_idle = __popc(idle);
-        while (!drained && count < n_idle) {
-            int chunk = 0;
-            if (lane == 0) chunk = atomicAdd(next_chunk, 1);
-            const int base = __shfl_sync(full, chunk, 0) * kChunk;
-            if (base >= R) {
-                drained = true;
-                break;
-            }
-            const int id = base + lane;
-            const bool in = id < R;
-            const bool act = in && active[id] != 0;
-            if (in && !act) write_miss(out, id);
-            const unsigned m = __ballot_sync(full, act);
-            if (act) ring[(head + count + __popc(m & below)) % kRing] = id;
-            count += __popc(m);
-        }
-        __syncwarp();
-        if (r < 0) {
-            const int k = __popc(idle & below);
-            if (k < count) {
-                r = ring[(head + k) % kRing];
-                alive = walk.start(r);
-            }
-        }
-        const int took = min(n_idle, count);
-        head = (head + took) % kRing;
-        count -= took;
-        __syncwarp();  // the ring is read before a refill writes it again
-        if (!__any_sync(full, r >= 0)) return;  // drained, every ray written
-
-        // ---- walk until enough threads are idle to fetch again ----
-        const bool more = !drained || count > 0;
-        for (;;) {
-            const unsigned busy = __ballot_sync(full, alive);
-            if (busy == 0u || (more && kWarp - __popc(busy) >= kFetchIdle)) break;
-            if (alive) alive = walk.step();
-        }
-        if (r >= 0 && !alive) {
-            walk.finish(out, r);
-            r = -1;
-        }
-    }
-}
-
-// The grid that run_ray_queue wants: the blocks the device holds at once.
+// Blocks of `kernel` one SM holds at once (negative: minus the CUDA error);
+// the kernels export it for the report of resident warps.
 template <class Kernel>
 inline int resident_blocks_per_sm(Kernel kernel, int block) {
     int blocks = 0;

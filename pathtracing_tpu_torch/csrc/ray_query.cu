@@ -1,5 +1,4 @@
-// Ray query on the two-level binary BVH: persistent warps over an active-ray
-// queue (ray_common.cuh::run_ray_queue), one ray per thread at a time.
+// Ray query on the two-level binary BVH: one thread per ray.
 //
 // Replaces the TPU kernel pathtracing_tpu/ops/pallas_traversal.py::_kernel
 // (launched by ray_query_pallas).  It computes the same function: for each
@@ -11,30 +10,32 @@
 // and stop), then _finalize_hit (thit = tmax; u, v, back re-derived from the
 // hit ids by one more triangle test; miss -> thit -1, inst -1, prim 0).
 //
-// What bounds it on an H100: instruction issue and latency, not device
-// memory.  The golden scene's tables (1.5 MB) sit in the 50 MB L2; a node
-// visit reads one dependent 32 B row and does ~30 flops, a triangle test one
-// 48 B row and ~50 flops, and a warp runs as long as its longest ray.  What
-// the design does about it:
-//   * Persistent warps: inactive lanes (most of a bounce batch) cost one
-//     coalesced miss write and no warp slot, and a thread whose ray ends
-//     takes a new one from its warp's queue, so warps stay full until the
-//     queue runs dry.  The Pallas kernel's per-block loop, its `block` and
-//     `leaf_every` knobs and the `vmem_fits` fallback have nothing left to
-//     do; the wrapper takes none of them.
-//   * The walk is a TLAS loop with an inner BLAS loop from entry to pop: the
-//     BLAS state lives only inside it, and no visit selects between the two
-//     levels' state.  Visit order, the accept/cancel links and the confirm
-//     rule are those of _full_step.
-//   * Rows are read through the read-only path as 16 B vectors (an nl8 row
-//     is 2 x float4, a tri_pos row 3 x float4); inst_f rows are 84 B and
-//     only 4 B aligned: scalar loads, once per BLAS entry.  Tables of a few
-//     MB stay in L2, larger ones are served from device memory; no table
-//     size is refused.
-//   * Of Hopper's additions only shared memory is used, for the ray queue.
-//     Tensor cores have no matrix product to do in a walk, and TMA has no
-//     tile to fetch ahead: each row's address depends on the slab test of
-//     the row before it.
+// What bounds it on an H100: issue and latency, not device memory.  The
+// golden scene's tables (1.5 MB) sit in the 50 MB L2; a node visit reads
+// one dependent 32 B row and does ~30 flops, a triangle test one 48 B row
+// and ~50 flops, and neighbouring rays of a warp leave the loop at different
+// times.  What the design does about it:
+//   * The Pallas kernel kept the four tables in on-chip memory per block and
+//     ended each block's loop on its own.  Here the loop's exit is per thread,
+//     the state (~25 words) lives in registers, and the tables are read
+//     through the read-only path as 16 B vectors (an nl8 row is 2 x float4,
+//     a tri_pos row 3 x float4): tables of a few MB stay resident in the
+//     50 MB L2 across the batch, larger ones are served from device memory,
+//     so no table size is refused.  inst_f rows are 84 B and only 4 B
+//     aligned: scalar loads, once per BLAS entry.
+//   * Blocks are small (128 threads) so that a block's slowest ray holds few
+//     others' registers; the per-thread `while` needs no batch-wide step
+//     count and no lane compaction.
+//   * The block size and the TPU kernel's `leaf_every` were schedule knobs
+//     whose results are identical by construction; the wrapper takes neither.
+//     `vmem_fits` gated a fallback that does not exist here; the wrapper
+//     keeps only a helper that reports the tables' bytes.
+//   * Tried on the card and taken out again (PERF.md): persistent
+//     warps over an active-ray queue in shared memory, and a TLAS loop with
+//     an inner BLAS loop; neither was faster on either main-path batch.  Of
+//     Hopper's additions none fits: tensor cores have no matrix product to
+//     do in a walk, and TMA has no tile to fetch ahead, since each row's
+//     address depends on the slab test of the row before it.
 //
 // Parity: built with --fmad=false (the oracle goldens were made without FMA
 // contraction; contraction in the triangle test flips equal-t ties between
@@ -52,144 +53,130 @@ using namespace ptq;
 
 constexpr int kBlock = 128;
 
-// The kernel's arguments, passed as one __grid_constant__ struct.
-struct RayParams {
-    const float4* nl8;      // (8N, 8) f32 as 2 x float4 per row
-    const float4* tri_pos;  // (T, 12) f32 as 3 x float4 per row
-    const float* inst_f;    // (I, 21) f32
-    const int* inst_u;      // (I, 6) i32
-    const int *tlas_count, *tlas_offset;
-    const float *ox, *oy, *oz, *dx, *dy, *dz;
-    const float* tmax_lane;       // per-lane tmax0, or null
-    const uint8_t* active;        // bool per lane
-    const uint8_t* anyhit_lane;   // bool per lane, or null
-    float tmin, tmax_all;
-    int anyhit_all;
-    HitOut out;
-    int R;
-    int* next_chunk;              // the queue's counter, 0 at launch
-};
+__global__ void __launch_bounds__(kBlock) ray_query_kernel(
+    const float4* __restrict__ nl8,      // (8N, 8) f32 as 2 x float4 per row
+    const float4* __restrict__ tri_pos,  // (T, 12) f32 as 3 x float4 per row
+    const float* __restrict__ inst_f,    // (I, 21) f32
+    const int* __restrict__ inst_u,      // (I, 6) i32
+    const int* __restrict__ tlas_count, const int* __restrict__ tlas_offset,
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ tmax_lane,       // per-lane tmax0, or null
+    const uint8_t* __restrict__ active,        // bool per lane
+    const uint8_t* __restrict__ anyhit_lane,   // bool per lane, or null
+    float tmin, float tmax_all, int anyhit_all,
+    HitOut out, int R) {
+    const int r = blockIdx.x * kBlock + threadIdx.x;
+    if (r >= R) return;
 
-// The slab test of one nl8 row with C fmin/fmax NaN semantics (reference:
-// ray_query.hh:197-207): nmin = n0.xyz, nmax = (n0.w, n1.x, n1.y).
-__device__ __forceinline__ bool slab_hit(float4 n0, float4 n1, V3 o, V3 inv,
-                                         float tmin, float tmax) {
-    const float t0x = (n0.x - o.x) * inv.x;
-    const float t0y = (n0.y - o.y) * inv.y;
-    const float t0z = (n0.z - o.z) * inv.z;
-    const float t1x = (n0.w - o.x) * inv.x;
-    const float t1y = (n1.x - o.y) * inv.y;
-    const float t1z = (n1.y - o.z) * inv.z;
-    const float tnear = fmaxf(fminf(t0x, t1x),
-                              fmaxf(fminf(t0y, t1y), fminf(t0z, t1z)));
-    const float tfar = fminf(fmaxf(t0x, t1x),
-                             fminf(fmaxf(t0y, t1y), fmaxf(t0z, t1z)));
-    return tnear <= tfar && tfar > tmin && tnear < tmax;
-}
-
-// One ray's walk of the two-level BVH (the Walk of run_ray_queue).  A step
-// is one TLAS node visit; a TLAS leaf that passes walks its instance's BLAS
-// to the end in an inner loop, so the BLAS state lives only there and no
-// visit selects between the two levels' state.
-struct RayWalk {
-    const RayParams& p;
-    V3 org, dir, t_inv;
-    int t_count, t_link_off, t_node;
-    bool any, occluded;
-    float tmax;
-    int c_inst, c_prim;
-
-    __device__ __forceinline__ bool start(int r) {
-        org = {p.ox[r], p.oy[r], p.oz[r]};
-        dir = {p.dx[r], p.dy[r], p.dz[r]};
-        t_count = p.tlas_count[r];
-        t_link_off = p.tlas_offset[r] * 8 + octant(dir) * t_count;
-        t_inv = safe_inv(dir);
-        any = p.anyhit_lane ? p.anyhit_lane[r] != 0 : p.anyhit_all != 0;
-        tmax = p.tmax_lane ? p.tmax_lane[r] : p.tmax_all;
-        occluded = false;
-        c_inst = -1;
-        c_prim = 0;
-        t_node = 0;
-        return t_node < t_count;  // TLAS exhausted => the walk is over
+    // An inactive lane reads its `active` byte and nothing else, and writes
+    // a miss: the batches of a bounce hold many such lanes.
+    if (active[r] == 0) {
+        write_miss(out, r);
+        return;
     }
 
-    // The link a visit follows: accept on a hit of an inner node, else
-    // cancel (reference: ray_query.hh:209-222).
-    static __device__ __forceinline__ int next_node(bool hit, int accept, int cancel) {
-        return (hit && accept >= 0) ? accept : cancel;
-    }
+    const V3 org = {ox[r], oy[r], oz[r]};
+    const V3 dir = {dx[r], dy[r], dz[r]};
+    const int t_count = tlas_count[r];
+    const int t_link_off = tlas_offset[r] * 8 + octant(dir) * t_count;
+    const V3 t_inv = safe_inv(dir);
+    const bool any = anyhit_lane ? anyhit_lane[r] != 0 : anyhit_all != 0;
 
-    __device__ __forceinline__ bool step() {
-        const size_t lidx = (size_t)(t_link_off + t_node);
-        const float4 n0 = __ldg(p.nl8 + 2 * lidx);
-        const float4 n1 = __ldg(p.nl8 + 2 * lidx + 1);
+    float tmax = tmax_lane ? tmax_lane[r] : tmax_all;
+    bool done = false;
+    bool occluded = false;
+    int c_inst = -1, c_prim = 0;
+
+    // TLAS cursor, and the BLAS context of the instance being walked
+    int t_node = 0;
+    bool in_blas = false;
+    int b_node = 0, b_count = 0, b_link_off = 0, b_axis = 2;
+    int tri_offset = 0, cand_inst = -1;
+    V3 b_org = {0.f, 0.f, 0.f}, b_inv = {0.f, 0.f, 0.f}, b_S = {0.f, 0.f, 0.f};
+
+    while (!done) {
+        const int count = in_blas ? b_count : t_count;
+        const int node = in_blas ? b_node : t_node;
+        if (!(node >= 0 && node < count)) {
+            // BLAS exhausted => pop to the TLAS; TLAS exhausted => done
+            // (reference: ray_query.hh:271-275)
+            if (!in_blas) break;
+            in_blas = false;
+            continue;
+        }
+        const size_t lidx = (size_t)((in_blas ? b_link_off : t_link_off) + node);
+        const float4 n0 = __ldg(nl8 + 2 * lidx);
+        const float4 n1 = __ldg(nl8 + 2 * lidx + 1);
         const int accept = __float_as_int(n1.z);
-        const bool hit = slab_hit(n0, n1, org, t_inv, p.tmin, tmax);
-        t_node = next_node(hit, accept, __float_as_int(n1.w));
-        if (hit && accept < 0) {  // leaf: top bit (reference: bvh.hh:57-63)
+        const int cancel = __float_as_int(n1.w);
+
+        const V3 o = in_blas ? b_org : org;
+        const V3 inv = in_blas ? b_inv : t_inv;
+        // slab test with C fmin/fmax NaN semantics (reference:
+        // ray_query.hh:197-207); nmin = n0.xyz, nmax = (n0.w, n1.x, n1.y)
+        const float t0x = (n0.x - o.x) * inv.x;
+        const float t0y = (n0.y - o.y) * inv.y;
+        const float t0z = (n0.z - o.z) * inv.z;
+        const float t1x = (n0.w - o.x) * inv.x;
+        const float t1y = (n1.x - o.y) * inv.y;
+        const float t1z = (n1.y - o.z) * inv.z;
+        const float tnear = fmaxf(fminf(t0x, t1x),
+                                  fmaxf(fminf(t0y, t1y), fminf(t0z, t1z)));
+        const float tfar = fminf(fmaxf(t0x, t1x),
+                                 fminf(fmaxf(t0y, t1y), fmaxf(t0z, t1z)));
+        const bool hit = tnear <= tfar && tfar > tmin && tnear < tmax;
+        const bool is_leaf = accept < 0;  // top bit (reference: bvh.hh:57-63)
+        const int payload = accept & 0x7FFFFFFF;
+        const int next = (hit && !is_leaf) ? accept : cancel;
+        if (in_blas) b_node = next; else t_node = next;
+        if (!(hit && is_leaf)) continue;
+
+        if (!in_blas) {
             // ---- enter BLAS (reference: ray_query.hh:153-182) ----
-            const int inst = accept & 0x7FFFFFFF;
-            const int* iu = p.inst_u + 6 * (size_t)inst;
-            V3 b_org, bd, b_S;
-            int b_axis;
-            instance_ray(p.inst_f + 21 * (size_t)inst, org, dir, b_org, bd);
-            const int b_count = __ldg(iu + 0);
-            const int b_link_off = __ldg(iu + 1) * 8 + octant(bd) * b_count;
-            const int tri_offset = __ldg(iu + 4);
-            const V3 b_inv = safe_inv(bd);
+            const int* iu = inst_u + 6 * (size_t)payload;
+            V3 bd;
+            instance_ray(inst_f + 21 * (size_t)payload, org, dir, b_org, bd);
+            b_count = __ldg(iu + 0);
+            b_link_off = __ldg(iu + 1) * 8 + octant(bd) * b_count;
+            tri_offset = __ldg(iu + 4);
+            b_inv = safe_inv(bd);
             tri_preprocess(bd, b_axis, b_S);
-            // BLAS walk from entry to pop (reference: ray_query.hh:271-275)
-            for (int b_node = 0; b_node >= 0 && b_node < b_count;) {
-                const size_t bidx = (size_t)(b_link_off + b_node);
-                const float4 m0 = __ldg(p.nl8 + 2 * bidx);
-                const float4 m1 = __ldg(p.nl8 + 2 * bidx + 1);
-                const int b_accept = __float_as_int(m1.z);
-                const bool b_hit = slab_hit(m0, m1, b_org, b_inv, p.tmin, tmax);
-                b_node = next_node(b_hit, b_accept, __float_as_int(m1.w));
-                if (!(b_hit && b_accept < 0)) continue;
-                // ---- triangle test (reference: ray_query.hh:225-246) ----
-                const int prim = b_accept & 0x7FFFFFFF;
-                V3 p0, p1, p2;
-                load_tri(p.tri_pos, tri_offset + prim, p0, p1, p2);
-                float u, v, t;
-                bool back;
-                const bool ok = tri_intersect(b_org, b_axis, b_S, p0, p1, p2, u, v, t, back);
-                if (ok && t < tmax && t > p.tmin) {
-                    if (any) {
-                        // first passing candidate ends an any-hit ray
-                        // (reference: path_tracer.hh:415-427)
-                        occluded = true;
-                        return false;
-                    }
+            b_node = 0;
+            cand_inst = payload;
+            in_blas = true;
+        } else {
+            // ---- triangle test (reference: ray_query.hh:225-246) ----
+            V3 p0, p1, p2;
+            load_tri(tri_pos, tri_offset + payload, p0, p1, p2);
+            float u, v, t;
+            bool back;
+            const bool ok = tri_intersect(b_org, b_axis, b_S, p0, p1, p2, u, v, t, back);
+            if (ok && t < tmax && t > tmin) {
+                if (any) {
+                    // first passing candidate ends an any-hit ray
+                    // (reference: path_tracer.hh:415-427)
+                    occluded = true;
+                    done = true;
+                } else {
                     // closest-hit confirms every candidate
                     // (reference: ray_query.hh:280-290)
-                    c_inst = inst;
-                    c_prim = prim;
+                    c_inst = cand_inst;
+                    c_prim = payload;
                     tmax = t;
                 }
             }
         }
-        return t_node >= 0 && t_node < t_count;
     }
 
-    __device__ __forceinline__ void finish(const HitOut& out, int r) {
-        finalize_hit(p.tri_pos, p.inst_f, p.inst_u, org, dir, c_inst, c_prim,
-                     tmax, occluded, out, r);
-    }
-};
-
-__global__ void __launch_bounds__(kBlock) ray_query_kernel(
-    const __grid_constant__ RayParams p) {
-    __shared__ int ring[kBlock / kWarp][kRing];
-    RayWalk walk{p};
-    run_ray_queue(walk, ring[threadIdx.x / kWarp], p.next_chunk, p.active, p.out, p.R);
+    finalize_hit(tri_pos, inst_f, inst_u, org, dir, c_inst, c_prim, tmax,
+                 occluded, out, r);
 }
 
 }  // namespace
 
-// Plain C interface for ctypes.  Zeroes the queue's counter and launches on
-// `stream` with `grid` blocks of kBlock threads; does not synchronise,
+// Plain C interface for ctypes.  Launches on `stream`, does not synchronise,
 // allocates nothing.  Returns the launch's cudaError_t (0 = accepted).
 extern "C" int pt_ray_query(
     const void* nl8, const void* tri_pos, const void* inst_f, const void* inst_u,
@@ -199,10 +186,11 @@ extern "C" int pt_ray_query(
     const void* tmax_lane, const void* active, const void* anyhit_lane,
     float tmin, float tmax_all, int anyhit_all,
     void* thit, void* bu, void* bv, void* out_inst, void* out_prim,
-    void* out_back, void* out_occ, int R, void* next_chunk, int grid,
-    void* stream) {
+    void* out_back, void* out_occ, int R, void* stream) {
     if (R <= 0) return 0;
-    const RayParams p = {
+    const dim3 grid((unsigned)((R + kBlock - 1) / kBlock)), block(kBlock);
+    cudaStream_t s = (cudaStream_t)stream;
+    ray_query_kernel<<<grid, block, 0, s>>>(
         (const float4*)nl8, (const float4*)tri_pos, (const float*)inst_f,
         (const int*)inst_u, (const int*)tlas_count, (const int*)tlas_offset,
         (const float*)ox, (const float*)oy, (const float*)oz, (const float*)dx,
@@ -211,11 +199,7 @@ extern "C" int pt_ray_query(
         anyhit_all,
         HitOut{(float*)thit, (float*)bu, (float*)bv, (int*)out_inst,
                (int*)out_prim, (uint8_t*)out_back, (uint8_t*)out_occ},
-        R, (int*)next_chunk};
-    cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t e = cudaMemsetAsync(next_chunk, 0, sizeof(int), s);
-    if (e != cudaSuccess) return (int)e;
-    ray_query_kernel<<<grid, kBlock, 0, s>>>(p);
+        R);
     return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,4 @@
-// Ray query on the wide-BVH mega-table: persistent warps over an active-ray
-// queue (ray_common.cuh::run_ray_queue), one ray per thread at a time.
+// Ray query on the wide-BVH mega-table: one thread per ray.
 //
 // Replaces the JAX package's XLA while-loop walk
 // pathtracing_tpu/ops/wide_traversal.py::wide_ray_query (_wide_init,
@@ -8,11 +7,11 @@
 // stackless walk that reads ONE row of the (M, W) table per step and branches
 // on the cursor's kind (bits 30-31):
 //   WIDE  S child slots, each a bf16 outward-rounded AABB packed in three
-//         words [minx|miny] [minz|maxx] [maxy|maxz]; descend to the first
-//         slot >= the cursor's start slot that passes its slab test and whose
-//         link is not 0xFFFFFFFF, else follow the row's exit link.  A descent
-//         to a LEAF or INST row stores "this row at slot j+1" (or the exit
-//         link after the last slot) as the resume cursor of that kind.
+//         words [minx|miny] [minz|maxx] [maxy|maxz]; slab-test all, descend
+//         to the first accepted slot >= the cursor's start slot whose link is
+//         not 0xFFFFFFFF, else follow the row's exit link.  A descent to a
+//         LEAF or INST row stores "this row at slot j+1" (or the exit link
+//         after the last slot) as the resume cursor of that kind.
 //   LEAF  L triangles inline (or, in the stub layout, L prim ids whose
 //         vertices are read from tri_pos): watertight test in row order, each
 //         passing candidate shrinks tmax before the next is judged; closest
@@ -24,30 +23,35 @@
 //   a row is read.
 // then _finalize_hit as in ray_query.cu.
 //
-// What bounds it on an H100: instruction issue and latency, not device
-// memory.  The golden scene's tables (~1 MB) sit in the 50 MB L2; a WIDE row
-// is ~220 flops of slab tests, every row address depends on the row before
-// it, and a warp runs as long as its longest ray.  What the design does:
-//   * Only the slab tests the walk needs: slots are tested four at a time
-//     from the start slot's group on, no group is read after one that holds
-//     the winner, a link word is read only for a slot that passed its test,
-//     and the exit word only when the walk follows it.  The state (cursor,
-//     two resume cursors, the BLAS-space ray) lives in registers; the 8-slot
-//     layouts are held to 64 registers (Layout::kMinBlocks).
-//   * Persistent warps: inactive lanes (most of a bounce batch) cost one
-//     coalesced miss write and no warp slot, and a thread whose ray ends
-//     takes a new one, so warps stay full until the queue runs dry.  The XLA
-//     loop's own answer to skew (leaf-row parking, lane compaction) has
-//     nothing left to do, so the wrapper takes neither knob.
-//   * Rows are 16-byte aligned multiples of 16 bytes, read through the
-//     read-only path as float4.  A larger table is served from device
-//     memory; no table size is refused.
-//   * Of Hopper's additions only shared memory is used, for the ray queue.
-//     Tensor cores have no matrix product to do in a walk, and TMA has no
-//     tile to fetch ahead: each row's address depends on the slab test of
-//     the row before it.
+// What bounds it on an H100: issue and latency, not device memory.  The
+// golden scene's tables (~1 MB) sit in the 50 MB L2; a WIDE row is up to
+// ~220 flops of slab tests, every row address depends on the row before it,
+// and a warp runs as long as its longest ray.  What the design does:
+//   * The XLA loop stepped all lanes together, so it masked three row kinds
+//     per step, parked leaf rows and compacted lanes to fight batch-wide
+//     skew.  Here a thread branches on its own row kind and leaves its own
+//     loop: the state (cursor, two resume cursors, the BLAS-space ray) lives
+//     in registers, and those schedules have nothing left to do, so the
+//     wrapper takes neither knob.
+//   * A WIDE visit tests only the slots the walk needs: four at a time (three
+//     float4 loads) from the start slot's group on, no group after the one
+//     that holds the winner, and it reads a link word only for a slot that
+//     passed its test, the exit word only when the walk follows it.
+//   * Rows are 16-byte aligned multiples of 16 bytes and are read through
+//     the read-only path as float4.  A table of a few hundred KB stays in
+//     L2; a larger one is served from device memory, no table size is
+//     refused.
 //   * One template over (slots, leaf triangles, stub) serves the three
 //     shipped layouts; the wrapper picks by row width.
+//   * Tried on the card and taken out again (PERF.md): persistent warps
+//     over an active-ray queue in shared memory (1.2-2.1x slower on both
+//     main-path batches at every refill threshold tried: the batches' lanes
+//     already fill a warp to 87 % / 58 %, and inactive lanes come in whole
+//     warps), a 64-register cap for w8 (232 B of spills, no gain), and the
+//     walk as a per-step function (1.4-1.8x slower even without the queue).
+//     Of Hopper's additions none fits: tensor cores have no matrix product
+//     to do in a walk, and TMA has no tile to fetch ahead, since each row's
+//     address depends on the slab test of the row before it.
 //
 // Parity: built with --fmad=false, IEEE division, no fast-math, no
 // flush-to-zero (ops/cuda_build.py).  Links, prim ids and the instance id are
@@ -87,9 +91,6 @@ struct Layout {
     static constexpr int kExitCol = 4 * S;
     static constexpr int kPrimsCol = STUB ? 0 : 9 * L;
     static constexpr int kNextCol = STUB ? L : 10 * L;
-    // Blocks of kBlock threads an SM must hold: 8 caps the 8-slot layouts at
-    // 64 registers (32 resident warps); w16 takes what it needs.
-    static constexpr int kMinBlocks = S == 8 ? 8 : 1;
 };
 
 __device__ __forceinline__ float bf16_hi(uint32_t w) {
@@ -113,84 +114,64 @@ __device__ __forceinline__ void load_words(
     }
 }
 
-// The kernel's arguments, passed as one __grid_constant__ struct.
-struct WideParams {
-    const float4* rows;        // (M, W) f32 as W/4 float4 per row
-    const uint32_t* wide_root; // (K, 8) root cursors
-    const int* root_base;      // one int32, or null
-    const float4* tri_pos;     // (T, 12) f32 as 3 x float4 per row
-    const float* inst_f;       // (I, 21) f32
-    const int* inst_u;         // (I, 6) i32
-    const int* tlas_offset;
-    const float *ox, *oy, *oz, *dx, *dy, *dz;
-    const float* tmin_lane;    // per-lane tmin, or null
-    const float* tmax_lane;    // per-lane tmax0, or null
-    const uint8_t* active;     // bool per lane
-    const uint8_t* anyhit_lane;  // bool per lane, or null
-    float tmin_all, tmax_all;
-    int anyhit_all;
-    HitOut out;
-    int R;
-    int* next_chunk;           // the queue's counter, 0 at launch
-};
-
-// One ray's walk of the mega-table (the Walk of run_ray_queue).
 template <int S, int L, bool STUB>
-struct WideWalk {
+__global__ void __launch_bounds__(kBlock) wide_ray_query_kernel(
+    const float4* __restrict__ rows,     // (M, W) f32 as W/4 float4 per row
+    const uint32_t* __restrict__ wide_root,  // (K, 8) root cursors
+    const int* __restrict__ root_base,   // one int32, or null
+    const float4* __restrict__ tri_pos,  // (T, 12) f32 as 3 x float4 per row
+    const float* __restrict__ inst_f,    // (I, 21) f32
+    const int* __restrict__ inst_u,      // (I, 6) i32
+    const int* __restrict__ tlas_offset,
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ tmin_lane,       // per-lane tmin, or null
+    const float* __restrict__ tmax_lane,       // per-lane tmax0, or null
+    const uint8_t* __restrict__ active,        // bool per lane
+    const uint8_t* __restrict__ anyhit_lane,   // bool per lane, or null
+    float tmin_all, float tmax_all, int anyhit_all,
+    HitOut out, int R) {
     using Lay = Layout<S, L, STUB>;
-    const WideParams& p;
-    V3 org, dir, t_inv;
-    bool any, in_blas, occluded;
-    float tmin, tmax;
-    uint32_t cursor, inst_resume, leaf_resume;
-    int c_inst, c_prim, cand_inst, tri_base, b_axis;
-    V3 b_org, b_inv, b_S;
+    const int r = blockIdx.x * kBlock + threadIdx.x;
+    if (r >= R) return;
 
-    __device__ __forceinline__ bool start(int r) {
-        org = {p.ox[r], p.oy[r], p.oz[r]};
-        dir = {p.dx[r], p.dy[r], p.dz[r]};
-        t_inv = safe_inv(dir);
-        any = p.anyhit_lane ? p.anyhit_lane[r] != 0 : p.anyhit_all != 0;
-        tmin = p.tmin_lane ? p.tmin_lane[r] : p.tmin_all;
-        tmax = p.tmax_lane ? p.tmax_lane[r] : p.tmax_all;
-        const int root_row =
-            p.tlas_offset[r] - (p.root_base ? __ldg(p.root_base) : 0);
-        cursor = __ldg(p.wide_root + 8 * (size_t)root_row + octant(dir));
-        inst_resume = leaf_resume = kEndTlas;
-        in_blas = occluded = false;
-        c_inst = -1;
-        c_prim = 0;
-        cand_inst = -1;
-        tri_base = 0;
-        b_axis = 2;
-        b_org = b_inv = b_S = {0.f, 0.f, 0.f};
-        return resolve();
+    // An inactive lane reads its `active` byte and nothing else, and writes
+    // a miss: the batches of a bounce hold many such lanes.
+    if (active[r] == 0) {
+        write_miss(out, r);
+        return;
     }
 
-    // END_BLAS pops to inst_resume; END_TLAS (or any other sentinel) ends
-    // the walk.  Both resolve before a row is read.
-    __device__ __forceinline__ bool resolve() {
+    const V3 org = {ox[r], oy[r], oz[r]};
+    const V3 dir = {dx[r], dy[r], dz[r]};
+    const V3 t_inv = safe_inv(dir);
+    const bool any = anyhit_lane ? anyhit_lane[r] != 0 : anyhit_all != 0;
+    const float tmin = tmin_lane ? tmin_lane[r] : tmin_all;
+    float tmax = tmax_lane ? tmax_lane[r] : tmax_all;
+
+    const int root_row = tlas_offset[r] - (root_base ? __ldg(root_base) : 0);
+    uint32_t cursor = __ldg(wide_root + 8 * (size_t)root_row + octant(dir));
+    uint32_t inst_resume = kEndTlas, leaf_resume = kEndTlas;
+    bool in_blas = false, occluded = false;
+    int c_inst = -1, c_prim = 0, cand_inst = -1, tri_base = 0, b_axis = 2;
+    V3 b_org = {0.f, 0.f, 0.f}, b_inv = {0.f, 0.f, 0.f}, b_S = {0.f, 0.f, 0.f};
+
+    while (cursor != kEndTlas) {
         if (cursor == kEndBlas) {  // BLAS exhausted: back to the TLAS walk
             cursor = inst_resume;
             in_blas = false;
+            continue;
         }
-        return (cursor >> 30) != 3u;
-    }
-
-    __device__ __forceinline__ bool step() {
         const uint32_t kind = cursor >> 30;
+        if (kind == 3u) break;  // no other sentinel is ever a cursor
         const uint32_t row_id = (cursor >> Lay::kSlotBits) & Lay::kRowMask;
-        const float4* __restrict__ row = p.rows + (size_t)row_id * Lay::kVec;
+        const float4* __restrict__ row = rows + (size_t)row_id * Lay::kVec;
         const uint32_t* __restrict__ roww = (const uint32_t*)row;
 
         if (kind == 0u) {
             // =============== WIDE: slab tests from the start slot on =====
-            // The first slot >= the cursor's start slot that passes its slab
-            // test and whose link is not empty wins.  Slots are tested four
-            // at a time (twelve words: three float4 loads), from the start
-            // slot's group on, and no later group is read once one wins; a
-            // link word is read only for a slot that passed, the exit word
-            // only when the walk needs it.
+            // four slots are twelve words: three float4 loads per group
             const V3 o = in_blas ? b_org : org;
             const V3 inv = in_blas ? b_inv : t_inv;
             const uint32_t start = cursor & (uint32_t)(S - 1);
@@ -232,7 +213,7 @@ struct WideWalk {
             }
             if (j < 0) {
                 cursor = __ldg(roww + Lay::kExitCol);
-                return resolve();
+                continue;
             }
             const uint32_t tkind = target >> 30;
             if (tkind == 1u || tkind == 2u) {
@@ -259,7 +240,7 @@ struct WideWalk {
             tri_preprocess(bd, b_axis, b_S);
             cursor = __ldg(roww + 12 + octant(bd));
             cand_inst = (int)__ldg(roww + 20);
-            if (STUB) tri_base = __ldg(p.inst_u + 6 * (size_t)cand_inst + 4);
+            if (STUB) tri_base = __ldg(inst_u + 6 * (size_t)cand_inst + 4);
             in_blas = true;
         } else {
             // =============== LEAF: L exact triangle tests ================
@@ -282,7 +263,7 @@ struct WideWalk {
                     if (pk < 0) continue;  // an empty candidate never passes
                     V3 p0, p1, p2;
                     if (STUB) {
-                        load_tri(p.tri_pos, tri_base + pk, p0, p1, p2);
+                        load_tri(tri_pos, tri_base + pk, p0, p1, p2);
                     } else {
                         const uint32_t* v = w + 9 * k;
                         p0 = {__uint_as_float(v[0]), __uint_as_float(v[1]),
@@ -312,7 +293,7 @@ struct WideWalk {
                     // first passing candidate ends an any-hit ray
                     // (reference: path_tracer.hh:415-427)
                     occluded = true;
-                    return false;
+                    break;
                 }
                 tmax = new_tmax;
                 c_inst = cand_inst;
@@ -320,35 +301,35 @@ struct WideWalk {
             }
             cursor = nxt == kReturn ? leaf_resume : nxt;
         }
-        return resolve();
     }
 
-    __device__ __forceinline__ void finish(const HitOut& out, int r) {
-        finalize_hit(p.tri_pos, p.inst_f, p.inst_u, org, dir, c_inst, c_prim,
-                     tmax, occluded, out, r);
-    }
-};
-
-template <int S, int L, bool STUB>
-__global__ void __launch_bounds__(kBlock, Layout<S, L, STUB>::kMinBlocks)
-wide_ray_query_kernel(const __grid_constant__ WideParams p) {
-    __shared__ int ring[kBlock / kWarp][kRing];
-    WideWalk<S, L, STUB> walk{p};
-    run_ray_queue(walk, ring[threadIdx.x / kWarp], p.next_chunk, p.active, p.out, p.R);
+    finalize_hit(tri_pos, inst_f, inst_u, org, dir, c_inst, c_prim, tmax,
+                 occluded, out, r);
 }
 
 template <int S, int L, bool STUB>
-int launch(const WideParams& p, int grid, cudaStream_t s) {
-    cudaError_t e = cudaMemsetAsync(p.next_chunk, 0, sizeof(int), s);
-    if (e != cudaSuccess) return (int)e;
-    wide_ray_query_kernel<S, L, STUB><<<grid, kBlock, 0, s>>>(p);
+int launch(const void* rows, const void* wide_root, const void* root_base,
+           const void* tri_pos, const void* inst_f, const void* inst_u,
+           const void* tlas_offset, const void* ox, const void* oy,
+           const void* oz, const void* dx, const void* dy, const void* dz,
+           const void* tmin_lane, const void* tmax_lane, const void* active,
+           const void* anyhit_lane, float tmin_all, float tmax_all,
+           int anyhit_all, HitOut out, int R, cudaStream_t s) {
+    const dim3 grid((unsigned)((R + kBlock - 1) / kBlock)), block(kBlock);
+    wide_ray_query_kernel<S, L, STUB><<<grid, block, 0, s>>>(
+        (const float4*)rows, (const uint32_t*)wide_root, (const int*)root_base,
+        (const float4*)tri_pos, (const float*)inst_f, (const int*)inst_u,
+        (const int*)tlas_offset, (const float*)ox, (const float*)oy,
+        (const float*)oz, (const float*)dx, (const float*)dy, (const float*)dz,
+        (const float*)tmin_lane, (const float*)tmax_lane,
+        (const uint8_t*)active, (const uint8_t*)anyhit_lane, tmin_all,
+        tmax_all, anyhit_all, out, R);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface for ctypes.  Zeroes the queue's counter and launches on
-// `stream` with `grid` blocks of kBlock threads; does not synchronise,
+// Plain C interface for ctypes.  Launches on `stream`, does not synchronise,
 // allocates nothing.  `width` (f32 per row) selects the layout.  Returns the
 // launch's cudaError_t (0 = accepted), or -1 for a width no layout has.
 extern "C" int pt_wide_ray_query(
@@ -360,24 +341,18 @@ extern "C" int pt_wide_ray_query(
     const void* tmin_lane, const void* tmax_lane, const void* active,
     const void* anyhit_lane, float tmin_all, float tmax_all, int anyhit_all,
     void* thit, void* bu, void* bv, void* out_inst, void* out_prim,
-    void* out_back, void* out_occ, int R, void* next_chunk, int grid,
-    void* stream) {
+    void* out_back, void* out_occ, int R, void* stream) {
     if (R <= 0) return 0;
-    const WideParams p = {
-        (const float4*)rows, (const uint32_t*)wide_root, (const int*)root_base,
-        (const float4*)tri_pos, (const float*)inst_f, (const int*)inst_u,
-        (const int*)tlas_offset, (const float*)ox, (const float*)oy,
-        (const float*)oz, (const float*)dx, (const float*)dy, (const float*)dz,
-        (const float*)tmin_lane, (const float*)tmax_lane,
-        (const uint8_t*)active, (const uint8_t*)anyhit_lane, tmin_all,
-        tmax_all, anyhit_all,
-        HitOut{(float*)thit, (float*)bu, (float*)bv, (int*)out_inst,
-               (int*)out_prim, (uint8_t*)out_back, (uint8_t*)out_occ},
-        R, (int*)next_chunk};
+    const HitOut out = {(float*)thit, (float*)bu, (float*)bv, (int*)out_inst,
+                        (int*)out_prim, (uint8_t*)out_back, (uint8_t*)out_occ};
     cudaStream_t s = (cudaStream_t)stream;
-#define PT_WIDE_LAUNCH(S, L, STUB)                  \
-    if (width == Layout<S, L, STUB>::kWidth)        \
-        return launch<S, L, STUB>(p, grid, s);
+#define PT_WIDE_LAUNCH(S, L, STUB)                                            \
+    if (width == Layout<S, L, STUB>::kWidth)                                  \
+        return launch<S, L, STUB>(rows, wide_root, root_base, tri_pos,        \
+                                  inst_f, inst_u, tlas_offset, ox, oy, oz,    \
+                                  dx, dy, dz, tmin_lane, tmax_lane, active,   \
+                                  anyhit_lane, tmin_all, tmax_all,            \
+                                  anyhit_all, out, R, s);
     PT_WIDE_LAUNCH(8, 4, false)   // w8: 48 columns
     PT_WIDE_LAUNCH(16, 8, false)  // w16: 88 columns
     PT_WIDE_LAUNCH(8, 8, true)    // s8: 40 columns

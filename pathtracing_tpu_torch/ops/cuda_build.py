@@ -134,32 +134,6 @@ class KernelLibrary:
         return out
 
 
-# Lanes a warp of the ray-query kernels takes from the queue's counter at a
-# time (kChunk of csrc/ray_common.cuh).
-QUEUE_CHUNK = 32
-
-
-def persistent_grid(resident_blocks: int, rays: int, block: int) -> int:
-    """Blocks of a persistent ray-query launch: the blocks the device holds
-    at once (``resident_blocks``: blocks per SM x SMs), but no more than the
-    batch's chunks of ``QUEUE_CHUNK`` lanes can keep busy (one chunk per warp
-    of ``block`` threads), and at least one."""
-    chunks = -(-rays // QUEUE_CHUNK)
-    warps = block // 32
-    return max(1, min(resident_blocks, -(-chunks // warps)))
-
-
-def resident_blocks(occupancy, device) -> int:
-    """Blocks of a kernel the whole device holds at once: ``occupancy`` is
-    the library's ``pt_*_occupancy`` result (blocks per SM, or minus a CUDA
-    error), times the device's SM count. Raises if the query failed."""
-    import torch
-
-    if occupancy <= 0:
-        raise RuntimeError(f"occupancy query failed: {occupancy}")
-    return occupancy * torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def check_tensor(name, t, dtype, shape, device):
     """Raise unless ``t`` is a contiguous tensor of this dtype, shape and
     device (``shape=None``: any)."""

@@ -3,9 +3,8 @@
 ``ray_query_cuda`` is the counterpart of the JAX package's
 ``ray_query_pallas`` (pathtracing_tpu/ops/pallas_traversal.py): same
 contract as ``ops/traversal.ray_query``, served by the hand-written kernel
-in ``csrc/ray_query.cu`` (persistent warps over an active-ray queue; see
-the note at the top of that file for what bounds it and what its design does
-about it).
+in ``csrc/ray_query.cu`` (one thread per ray; see the note at the top of
+that file for what bounds it and what its design does about it).
 
 Differences from the TPU wrapper's interface, on purpose:
   * no ``block`` / ``leaf_every`` arguments — they were schedule knobs of a
@@ -31,8 +30,6 @@ from pathtracing_tpu_torch.ops.cuda_build import (
     CSRC,
     KernelLibrary,
     check_tensor as _check,
-    persistent_grid,
-    resident_blocks,
 )
 from pathtracing_tpu_torch.ops.traversal import RayHit
 from pathtracing_tpu_torch.utils.vec import Vec3
@@ -45,7 +42,7 @@ LIBRARY = KernelLibrary(
     SOURCE,
     headers=(HEADER,),
     symbols={
-        "pt_ray_query": ([_p] * 15 + [_f, _f, _i] + [_p] * 7 + [_i, _p, _i, _p], _i),
+        "pt_ray_query": ([_p] * 15 + [_f, _f, _i] + [_p] * 7 + [_i, _p], _i),
         "pt_ray_query_block_size": ([], _i),
         "pt_ray_query_occupancy": ([], _i),
     },
@@ -70,20 +67,9 @@ def table_bytes(scene) -> int:
     )
 
 
-_resident = {}  # device index -> blocks the device holds at once
-
-
 def block_size() -> int:
     """Threads per block of the built kernel."""
     return int(LIBRARY.load().pt_ray_query_block_size())
-
-
-def grid_size(rays: int, device) -> int:
-    """Blocks of the persistent launch for a batch of ``rays`` lanes."""
-    lib = LIBRARY.load()
-    if device.index not in _resident:
-        _resident[device.index] = resident_blocks(lib.pt_ray_query_occupancy(), device)
-    return persistent_grid(_resident[device.index], rays, block_size())
 
 
 def ray_query_cuda(
@@ -155,7 +141,6 @@ def ray_query_cuda(
     prim = torch.empty(R, dtype=i32, device=device)
     back = torch.empty(R, dtype=b8, device=device)
     occ = torch.empty(R, dtype=b8, device=device)
-    next_chunk = torch.empty(1, dtype=i32, device=device)  # zeroed by the launch
 
     # The launch is asynchronous. Inputs and outputs need no reference kept
     # past this call: PyTorch's allocator hands a freed block out again only
@@ -170,7 +155,7 @@ def ray_query_cuda(
             ptr(tmax_lane), ptr(active), ptr(anyhit_lane),
             float(tmin), tmax_all, anyhit_all,
             ptr(thit), ptr(bu), ptr(bv), ptr(inst), ptr(prim), ptr(back), ptr(occ),
-            R, ptr(next_chunk), grid_size(R, device), stream,
+            R, stream,
         )
     if err != 0:
         raise RuntimeError(f"ray_query kernel launch refused: cudaError {err}")

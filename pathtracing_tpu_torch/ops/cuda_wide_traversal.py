@@ -3,9 +3,9 @@
 ``wide_ray_query_cuda`` is the counterpart of the JAX package's
 ``wide_ray_query`` (pathtracing_tpu/ops/wide_traversal.py, an XLA while-loop
 there): same contract as ``ops/wide_traversal.wide_ray_query``, served by the
-hand-written kernel in ``csrc/wide_ray_query.cu`` (persistent warps over an
-active-ray queue; see the note at the top of that file for what bounds it and
-what its design does about it).
+hand-written kernel in ``csrc/wide_ray_query.cu`` (one thread per ray; see the
+note at the top of that file for what bounds it and what its design does
+about it).
 
 Differences from the JAX function's interface, on purpose: no
 ``leaf_every`` / ``compact_schedule`` arguments — both are schedules of a
@@ -27,8 +27,6 @@ from pathtracing_tpu_torch.ops.cuda_build import (
     CSRC,
     KernelLibrary,
     check_tensor as _check,
-    persistent_grid,
-    resident_blocks,
 )
 from pathtracing_tpu_torch.ops.traversal import RayHit
 from pathtracing_tpu_torch.ops.wide_traversal import _layout_of
@@ -43,7 +41,7 @@ LIBRARY = KernelLibrary(
     headers=(HEADER,),
     symbols={
         "pt_wide_ray_query": (
-            [_p, _i] + [_p] * 16 + [_f, _f, _i] + [_p] * 7 + [_i, _p, _i, _p], _i,
+            [_p, _i] + [_p] * 16 + [_f, _f, _i] + [_p] * 7 + [_i, _p], _i,
         ),
         "pt_wide_ray_query_block_size": ([], _i),
         "pt_wide_ray_query_occupancy": ([_i], _i),
@@ -72,22 +70,9 @@ def table_bytes(scene) -> int:
     )
 
 
-_resident = {}  # (device index, row width) -> blocks the device holds at once
-
-
 def block_size() -> int:
     """Threads per block of the built kernel."""
     return int(LIBRARY.load().pt_wide_ray_query_block_size())
-
-
-def grid_size(rays: int, width: int, device) -> int:
-    """Blocks of the persistent launch of the layout of row ``width`` for a
-    batch of ``rays`` lanes."""
-    lib = LIBRARY.load()
-    key = (device.index, width)
-    if key not in _resident:
-        _resident[key] = resident_blocks(lib.pt_wide_ray_query_occupancy(width), device)
-    return persistent_grid(_resident[key], rays, block_size())
 
 
 def _lane_or_scalar(name, v, R, device):
@@ -189,7 +174,6 @@ def wide_ray_query_cuda(
     prim = torch.empty(R, dtype=i32, device=device)
     back = torch.empty(R, dtype=b8, device=device)
     occ = torch.empty(R, dtype=b8, device=device)
-    next_chunk = torch.empty(1, dtype=i32, device=device)  # zeroed by the launch
 
     # The launch is asynchronous. Inputs and outputs need no reference kept
     # past this call: PyTorch's allocator hands a freed block out again only
@@ -205,7 +189,7 @@ def wide_ray_query_cuda(
             ptr(tmin_lane), ptr(tmax_lane), ptr(active), ptr(anyhit_lane),
             tmin_all, tmax_all, anyhit_all,
             ptr(thit), ptr(bu), ptr(bv), ptr(inst), ptr(prim), ptr(back), ptr(occ),
-            R, ptr(next_chunk), grid_size(R, lay.w_row, device), stream,
+            R, stream,
         )
     if err != 0:
         raise RuntimeError(f"wide_ray_query kernel launch refused: cudaError {err}")

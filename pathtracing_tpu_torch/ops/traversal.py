@@ -221,8 +221,8 @@ def simd_efficiency(lane_steps, width: int = 32) -> tuple[float, float]:
     ``width`` lanes runs as long as its longest lane: sum of steps / (width x
     sum over groups of the group's most steps). Returns (groups in launch
     order, groups with the lanes that walked packed first, in order). An
-    inactive lane walks no step, so the second is the share an active-ray
-    queue could reach without reordering rays."""
+    inactive lane walks no step, so the second is the share a launch that
+    packed the active rays could reach without reordering them."""
     steps = torch.as_tensor(lane_steps).to(torch.int64).flatten()
 
     def eff(x):

@@ -153,21 +153,6 @@ def test_kernel_library_sources_and_hash(library, tmp_path):
         assert same.path() == library.path() != edited.path()
 
 
-@pytest.mark.parametrize("resident", [1, 4, 1056])
-def test_persistent_grid(resident):
-    """The ray-query launches' grid: the blocks the device holds at once,
-    never more blocks than the batch has chunks of 32 lanes for their warps
-    (nor more than it has chunks), and at least one."""
-    block = 128
-    for rays in (0, 1, 31, 32, 33, 4097, 2_073_600, 4_147_200):
-        chunks = -(-rays // cuda_build.QUEUE_CHUNK)
-        grid = cuda_build.persistent_grid(resident, rays, block)
-        assert 1 <= grid <= max(1, resident)
-        assert grid <= max(1, chunks) and (grid - 1) * (block // 32) < max(1, chunks)
-        if chunks >= resident * (block // 32):
-            assert grid == resident
-
-
 def test_both_ray_query_kernels_share_the_header():
     assert CT.HEADER == CW.HEADER and CT.HEADER in CT.LIBRARY.headers
     assert CW.HEADER in CW.LIBRARY.headers and GP.LIBRARY.headers == ()
