@@ -44,6 +44,14 @@ def _jax_radiance(jscene, keys):
     return stack(out)
 
 
+def _with_keys(rows):
+    """trace.gold's keys with the first rows replaced: the JAX function,
+    compiled once for that many lanes, is reused."""
+    keys = golden("trace.gold")["keys"].astype(np.int32)
+    keys[: len(rows)] = rows
+    return keys
+
+
 def _bars(got, ref):
     rel = rel_err(got, ref, 1e-3)
     assert np.quantile(rel, 0.995) < 5e-4, np.quantile(rel, 0.995)
@@ -115,7 +123,7 @@ def test_tonemap_bytes_match_oracle_and_jax():
 def test_negative_sample_index_uses_subframe0(scenes):
     """sample_index < 0 => subframe 0 (reference: path_tracer.hh:655-657):
     equal to the JAX package's sample, and finite."""
-    keys = np.array([[320, 180, -1], [100, 50, -7]], np.int32)
+    keys = _with_keys([[320, 180, -1], [100, 50, -7]])
     got = _torch_radiance(scenes[0], keys)
     assert np.isfinite(got).all()
     _bars(got, _jax_radiance(scenes[1], keys))
@@ -134,7 +142,8 @@ def test_production_config_runs_and_subframe_rows_bound(scenes):
     assert np.isfinite(_torch_radiance(scenes[0], keys, cfg)).all()
     past = np.array([[1, 1, 256], [320, 180, 300]], np.int32)
     assert np.isfinite(_torch_radiance(scenes[0], past, cfg)).all()
-    _bars(_torch_radiance(scenes[0], past), _jax_radiance(scenes[1], past))
+    keys = _with_keys(past)
+    _bars(_torch_radiance(scenes[0], keys), _jax_radiance(scenes[1], keys))
 
 
 @pytest.mark.parametrize(
