@@ -33,25 +33,24 @@
 //     loop: the state (cursor, two resume cursors, the BLAS-space ray) lives
 //     in registers, and those schedules have nothing left to do, so the
 //     wrapper takes neither knob.
-//   * A WIDE visit tests only the slots the walk needs: four at a time (three
-//     float4 loads) from the start slot's group on, no group after the one
-//     that holds the winner, and it reads a link word only for a slot that
-//     passed its test, the exit word only when the walk follows it.
 //   * Rows are 16-byte aligned multiples of 16 bytes and are read through
-//     the read-only path as float4.  A table of a few hundred KB stays in
-//     L2; a larger one is served from device memory, no table size is
-//     refused.
+//     the read-only path as float4 (a w8 WIDE row: 8 loads + the exit word).
+//     A table of a few hundred KB stays in L2; a larger one is served from
+//     device memory, no table size is refused.
 //   * One template over (slots, leaf triangles, stub) serves the three
 //     shipped layouts; the wrapper picks by row width.
 //   * Tried on the card and taken out again (PERF.md): persistent warps
 //     over an active-ray queue in shared memory (1.2-2.1x slower on both
 //     main-path batches at every refill threshold tried: the batches' lanes
 //     already fill a warp to 87 % / 58 %, and inactive lanes come in whole
-//     warps), a 64-register cap for w8 (232 B of spills, no gain), and the
-//     walk as a per-step function (1.4-1.8x slower even without the queue).
-//     Of Hopper's additions none fits: tensor cores have no matrix product
-//     to do in a walk, and TMA has no tile to fetch ahead, since each row's
-//     address depends on the slab test of the row before it.
+//     warps), a WIDE visit that tests only the slots from the start slot's
+//     group on and reads a link word only for a slot that passed (no gain
+//     resolved from the noise), a 64-register cap for w8 (232 B of spills,
+//     no gain), and the walk as a per-step function (1.4-1.8x slower even
+//     without the queue).  Of Hopper's additions none fits: tensor cores
+//     have no matrix product to do in a walk, and TMA has no tile to fetch
+//     ahead, since each row's address depends on the slab test of the row
+//     before it.
 //
 // Parity: built with --fmad=false, IEEE division, no fast-math, no
 // flush-to-zero (ops/cuda_build.py).  Links, prim ids and the instance id are
@@ -170,19 +169,18 @@ __global__ void __launch_bounds__(kBlock) wide_ray_query_kernel(
         const uint32_t* __restrict__ roww = (const uint32_t*)row;
 
         if (kind == 0u) {
-            // =============== WIDE: slab tests from the start slot on =====
-            // four slots are twelve words: three float4 loads per group
+            // =============== WIDE: S-slot slab test ======================
             const V3 o = in_blas ? b_org : org;
             const V3 inv = in_blas ? b_inv : t_inv;
-            const uint32_t start = cursor & (uint32_t)(S - 1);
-            int j = -1;
-            uint32_t target = kInvalid;
+            const uint32_t exit_link = __ldg(roww + Lay::kExitCol);
+            uint32_t links[S];
+            load_words<S / 4>(row, Lay::kLinksCol / 4, links);
+            uint32_t hits = 0;
+            // four slots are twelve words: three float4 loads
 #pragma unroll
             for (int g = 0; g < S / 4; ++g) {
-                if (g < (int)(start >> 2) || j >= 0) continue;
                 uint32_t w[12];
                 load_words<3>(row, 3 * g, w);
-                uint32_t hits = 0;
 #pragma unroll
                 for (int k = 0; k < 4; ++k) {
                     const uint32_t c0 = w[3 * k], c1 = w[3 * k + 1], c2 = w[3 * k + 2];
@@ -196,35 +194,29 @@ __global__ void __launch_bounds__(kBlock) wide_ray_query_kernel(
                         fminf(t0x, t1x), fmaxf(fminf(t0y, t1y), fminf(t0z, t1z)));
                     const float tfar = fminf(
                         fmaxf(t0x, t1x), fminf(fmaxf(t0y, t1y), fmaxf(t0z, t1z)));
-                    const bool ok = tnear <= tfar && tfar > tmin && tnear < tmax;
-                    hits |= (ok ? 1u : 0u) << k;
-                }
-                if (g == (int)(start >> 2)) hits &= ~((1u << (start & 3u)) - 1u);
-                while (hits != 0u) {
-                    const int k = __ffs((int)hits) - 1;
-                    const uint32_t link = __ldg(roww + Lay::kLinksCol + 4 * g + k);
-                    if (link != kInvalid) {
-                        j = 4 * g + k;
-                        target = link;
-                        break;
-                    }
-                    hits &= hits - 1u;  // an empty slot passes any slab test
+                    const bool ok = tnear <= tfar && tfar > tmin && tnear < tmax &&
+                                    links[4 * g + k] != kInvalid;
+                    hits |= (ok ? 1u : 0u) << (4 * g + k);
                 }
             }
-            if (j < 0) {
-                cursor = __ldg(roww + Lay::kExitCol);
+            const uint32_t start = cursor & (uint32_t)(S - 1);
+            hits &= ~((1u << start) - 1u);
+            if (hits == 0u) {
+                cursor = exit_link;
                 continue;
             }
+            const int j = __ffs((int)hits) - 1;
+            uint32_t target = links[0];
+#pragma unroll
+            for (int k = 1; k < S; ++k) target = (k == j) ? links[k] : target;
+            // where the walk goes on after a LEAF chain or an instance:
+            // this row at slot j+1, or the row's exit after the last slot
+            const uint32_t resume =
+                j < S - 1 ? (cursor & ~(uint32_t)(S - 1)) + (uint32_t)(j + 1)
+                          : exit_link;
             const uint32_t tkind = target >> 30;
-            if (tkind == 1u || tkind == 2u) {
-                // where the walk goes on after a LEAF chain or an instance:
-                // this row at slot j+1, or the row's exit after the last slot
-                const uint32_t resume =
-                    j < S - 1 ? (cursor & ~(uint32_t)(S - 1)) + (uint32_t)(j + 1)
-                              : __ldg(roww + Lay::kExitCol);
-                if (tkind == 2u) inst_resume = resume;
-                else leaf_resume = resume;
-            }
+            if (tkind == 2u) inst_resume = resume;
+            else if (tkind == 1u) leaf_resume = resume;
             cursor = target;
         } else if (kind == 2u) {
             // =============== INST: enter BLAS ============================

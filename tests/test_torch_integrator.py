@@ -44,12 +44,18 @@ def _jax_radiance(jscene, keys):
     return stack(out)
 
 
-def _with_keys(rows):
-    """trace.gold's keys with the first rows replaced: the JAX function,
-    compiled once for that many lanes, is reused."""
-    keys = golden("trace.gold")["keys"].astype(np.int32)
+def _held_to_jax(scenes, rows, keys):
+    """The port's radiance on ``rows`` against JAX's, every value within the
+    bars' rtol: ``rows`` go into the first lanes of ``keys``, so the JAX
+    function compiled for that many lanes is reused, and only those lanes are
+    judged."""
+    keys = keys.astype(np.int32)
     keys[: len(rows)] = rows
-    return keys
+    got = _torch_radiance(scenes[0], keys)[: len(rows)]
+    ref = _jax_radiance(scenes[1], keys)[: len(rows)]
+    assert np.isfinite(got).all()
+    rel = rel_err(got, ref, 1e-3)
+    assert rel.max() < 5e-4, rel
 
 
 def _bars(got, ref):
@@ -62,6 +68,18 @@ def _bars(got, ref):
 def scenes():
     g = golden("scene.gold")
     return scene_device_from_golden(g, device="cpu"), jgolden.scene_device_from_golden(g)
+
+
+@pytest.fixture(scope="module")
+def motion():
+    """motion.gold's scene: 4 subframe rows whose light and TLAS rows differ
+    (the golden scene's 32 rows are all equal), 8 samples per subframe."""
+    g = golden("motion.gold")
+    return (
+        scene_device_from_motion_golden(g, device="cpu"),
+        jgolden.scene_device_from_motion_golden(g),
+        g,
+    )
 
 
 def _bokeh(sf_cam: np.ndarray) -> np.ndarray:
@@ -96,11 +114,11 @@ def test_bokeh_aperture_matches_jax(scenes):
     _bars(got, ref)
 
 
-def test_motion_blur_subframes_match_oracle_and_jax():
-    g = golden("motion.gold")
-    got = _torch_radiance(scene_device_from_motion_golden(g, device="cpu"), g["keys"])
+def test_motion_blur_subframes_match_oracle_and_jax(motion):
+    g = motion[2]
+    got = _torch_radiance(motion[0], g["keys"])
     _bars(got, g["radiance"])
-    _bars(got, _jax_radiance(jgolden.scene_device_from_motion_golden(g), g["keys"]))
+    _bars(got, _jax_radiance(motion[1], g["keys"]))
 
 
 def test_tonemap_bytes_match_oracle_and_jax():
@@ -120,30 +138,26 @@ def test_tonemap_bytes_match_oracle_and_jax():
     assert (got[:, 3] == 255).all()
 
 
-def test_negative_sample_index_uses_subframe0(scenes):
+def test_negative_sample_index_uses_subframe0(motion):
     """sample_index < 0 => subframe 0 (reference: path_tracer.hh:655-657):
-    equal to the JAX package's sample, and finite."""
-    keys = _with_keys([[320, 180, -1], [100, 50, -7]])
-    got = _torch_radiance(scenes[0], keys)
-    assert np.isfinite(got).all()
-    _bars(got, _jax_radiance(scenes[1], keys))
+    equal to the JAX package's sample on a scene whose subframe rows differ,
+    and finite."""
+    _held_to_jax(motion, [[320, 180, -1], [100, 50, -7], [200, 90, -9]], motion[2]["keys"])
 
 
-def test_production_config_runs_and_subframe_rows_bound(scenes):
+def test_production_config_runs_and_subframe_rows_bound(scenes, motion):
     """PRODUCTION preset (5 bounces) on a tiny batch; the golden scene has 32
-    subframe rows, so sample_index < 256 stays in range — and a sample past
-    the rows reads the last one, as XLA's gather clamps: equal to the JAX
-    package's sample (TESTING preset, same 8 samples per subframe), and
-    finite under PRODUCTION."""
+    subframe rows, so sample_index < 256 stays in range, and one past them
+    stays finite. A sample past the rows reads the last one, as XLA's gather
+    clamps: equal to the JAX package's sample on motion.gold's 4 differing
+    rows (sample 32 is the first past them)."""
     import dataclasses
 
     cfg = dataclasses.replace(PRODUCTION, image_width=640, image_height=360)
-    keys = np.array([[100, 100, 0], [200, 200, 255]], np.int32)
+    keys = np.array([[100, 100, 0], [200, 200, 255], [1, 1, 256]], np.int32)
     assert np.isfinite(_torch_radiance(scenes[0], keys, cfg)).all()
-    past = np.array([[1, 1, 256], [320, 180, 300]], np.int32)
-    assert np.isfinite(_torch_radiance(scenes[0], past, cfg)).all()
-    keys = _with_keys(past)
-    _bars(_torch_radiance(scenes[0], keys), _jax_radiance(scenes[1], keys))
+    past = [[1, 1, 32], [320, 180, 40], [100, 100, 256], [500, 300, 300]]
+    _held_to_jax(motion, past, motion[2]["keys"])
 
 
 @pytest.mark.parametrize(
