@@ -3,19 +3,24 @@
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
 
-Drives the port's main paths — golden scene -> pack -> ``render_frame`` ->
-BGRA -> BMP, once on the binary BVH tables (every ray query served by the
-``ray_query`` kernel) and once on a scene packed with the wide-BVH mega-table
-(every ray query served by the ``wide_ray_query`` kernel) — at the PRODUCTION
-preset's geometry (1920x1080, 5 bounces) with spp cut from 1024 to 8 (one
-motion-blur step), and the row-gather probe (``gather_rows`` kernel). Every
-kernel is held against its plain PyTorch version and, where there is one,
-against the C++ oracle's goldens on the way. Phases, one JSON object per line:
+Drives the port's main paths — golden scene -> pack -> render -> BGRA ->
+BMP: the scan on the binary BVH tables (every ray query served by the
+``ray_query`` kernel), the scan on a scene packed with the wide-BVH
+mega-table (every ray query served by the ``wide_ray_query`` kernel, pinned
+with ``megakernel=False``), and ``render_frame`` on that wide scene, which on
+the card renders through the ``megakernel`` kernel (whole paths, one launch
+per spp chunk) — at the PRODUCTION preset's geometry (1920x1080, 5 bounces)
+with spp cut from 1024 to 8 (one motion-blur step), and the row-gather probe
+(``gather_rows`` kernel). Every kernel is held against its plain PyTorch
+version and, where there is one, against the C++ oracle's goldens on the way.
+Phases, one JSON object per line:
 
   device            card name + power limit (nvidia-smi), torch / CUDA versions
-  build             the three libraries of csrc/, built side by side: seconds,
+  build             the four libraries of csrc/, built side by side: seconds,
                     ptxas' registers and spills per kernel, resident blocks
-                    per SM of the two ray-query kernels
+                    per SM of the ray-query kernels and the megakernel;
+                    wide_ray_query's registers and spills as they were
+                    before its walk moved into wide_walk.cuh
   scene, wide_scene table sizes; rows and bytes of the wide tables per layout
   kernel_check      ray_query kernel vs plain version: the 4096 rays of
                     rays.gold in five modes, and the two batches the main path
@@ -36,16 +41,35 @@ against the C++ oracle's goldens on the way. Phases, one JSON object per line:
                     then for w8 the two main-path batches: vs plain, and its
                     time beside the ray_query kernel's on the same batch in
                     the same call, row counts, the bound, lane fill and the
-                    share of row visits on the hottest rows of 160 KB; w16
+                    share of row visits on the hottest rows of 160 KB, the
+                    longest walk beside the megakernel's step cap; w16
                     and s8 on the primary batch, timed beside w8.
   breakdown         one tile x one sample: time inside the kernel vs the rest
   gather_probe      gather_rows kernel bit-equal to index_select; the probe's
                     harness times; one gather's time beside index_select's
-  oracle_frame, oracle_frame_wide
-                    TESTING preset 640x360, spp 8, 4 bounces vs render8.gold
-  main_path, main_path_wide
+  oracle_frame, oracle_frame_wide, oracle_frame_megakernel
+                    TESTING preset 640x360, spp 8, 4 bounces vs render8.gold:
+                    the scan on the binary and the wide scene, and the
+                    megakernel on the wide one
+  megakernel_check  the megakernel vs its plain version (path_trace_megakernel_plain)
+                    on the golden 640x360 frame: spp 1, spp 4 from sample 5,
+                    a pixel base with a ragged slot count, a Morton pixel
+                    order, the luminance-squared plane, and on motion.gold's
+                    scene (four distinct subframe rows) a negative sample
+                    base and one past the rows; finite share, share within
+                    the JAX bar, bit-equal share, worst lanes; two launches
+                    byte-equal; no sample abandoned, and at a step cap of 8
+                    rows samples abandoned, counted, and only their pixels
+                    changed
+  main_path, main_path_wide, main_path_megakernel
                     the frame above; finite radiance, launch counts, BMP
-                    written; the wide frame against the binary frame
+                    written; the wide frame against the binary frame, the
+                    megakernel's against the wide scan frame (and a second
+                    megakernel frame byte-equal to the first; its host
+                    steps one by one)
+  megakernel_timing one megakernel launch at the main path's shape (L2
+                    flushed) and its bound from the counting build's
+                    counters of the same work
   kernels           the per-kernel summary line
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises: the
 script exits non-zero and prints no result line. There is no CPU fallback:
@@ -74,15 +98,32 @@ from pathtracing_tpu_torch.accel.wide import (
 from pathtracing_tpu_torch.config import PRODUCTION, TESTING
 from pathtracing_tpu_torch.io.bmp import read_bmp, write_bmp
 from pathtracing_tpu_torch.ops import cuda_build
+from pathtracing_tpu_torch.ops import cuda_megakernel as CM
 from pathtracing_tpu_torch.ops import cuda_traversal as CT
 from pathtracing_tpu_torch.ops import cuda_wide_traversal as CW
 from pathtracing_tpu_torch.ops import integrator
+from pathtracing_tpu_torch.ops.megakernel import (
+    morton_pixel_order,
+    path_trace_megakernel,
+    path_trace_megakernel_plain,
+)
 from pathtracing_tpu_torch.ops.tonemap import tonemap
 from pathtracing_tpu_torch.ops.traversal import ray_query, ray_query_plain, simd_efficiency
 from pathtracing_tpu_torch.ops.wide_traversal import wide_ray_query_plain
 from pathtracing_tpu_torch.probes import gather_probe as GP
-from pathtracing_tpu_torch.render import CUDA_TILE_PIXELS, render_frame
-from pathtracing_tpu_torch.scene.golden import scene_device_from_golden
+from pathtracing_tpu_torch.render import (
+    CUDA_TILE_PIXELS,
+    _mk_spp_chunk,
+    _render_megakernel,
+    megakernel_supported,
+    render_frame,
+    render_pixels,
+    to_bgra,
+)
+from pathtracing_tpu_torch.scene.golden import (
+    scene_device_from_golden,
+    scene_device_from_motion_golden,
+)
 from pathtracing_tpu_torch.utils.goldenio import load_golden
 from pathtracing_tpu_torch.utils.vec import Vec3
 
@@ -100,6 +141,27 @@ FP32_FLOPS = 67e12
 # slab test 27, triangle test 52, BLAS entry 45).
 NODE_ROW_B, TRI_ROW_B, INST_ROW_B = 32, 48, 84 + 24
 NODE_FLOPS, TRI_FLOPS, INST_FLOPS = 27, 52, 45
+# The megakernel's float operations per call of each piece of its device code
+# (csrc/shading.cuh, csrc/megakernel.cu), counted from the source: every
+# float add, subtract, multiply, divide, square root and transcendental is
+# one, comparisons and selects none; the RNG's integer operations are left
+# out (so the bound stays a lower bound). Keyed by the counting build's
+# counters (ops/cuda_megakernel.COUNT_NAMES); the walk's visits are charged
+# as above (slab tests, triangle tests, BLAS entries).
+MK_FLOPS = {
+    "samples": 85,        # film draw, Gaussian disk, camera ray
+    "rays": 3,            # reciprocal direction of each walk
+    "shade_hits": 241,    # instance ray, triangle test, 10 attributes, normal,
+                          # tangent space, position + the path update after it
+    "shade_misses": 95,   # sun disk, tangent space, position + path update
+    "atmo_marches": 1590,  # 8 primary x 4 secondary steps, phases, in-scatter
+    "nee_evals": 236,     # cone sample, tangent space, bsdf_eval
+    "nee_marches": 268,   # MIS weight + the 8-step transmittance march
+    "bsdf_samples": 244,  # view, GGX VNDF, lobe pick, bsdf_core, new direction
+}
+# wide_ray_query's registers per layout (and 0 spill bytes each) as the
+# kernel compiled before its walk moved into wide_walk.cuh
+K1_REGISTERS = {"w8": 80, "w16": 91, "s8": 67}
 
 RTOL = ATOL = 1e-6  # kernel vs plain version: same ops, same order, no FMA
 # Shared memory a block could give to staged mega-table rows: the share of
@@ -108,7 +170,7 @@ HOT_ROW_BYTES = 160 * 1024
 EDGE_R = (1, 31, 33, 4097)  # one lane, just under / over a warp, a ragged block
 
 LIBRARIES = {"ray_query": CT.LIBRARY, "wide_ray_query": CW.LIBRARY,
-             "gather_rows": GP.LIBRARY}
+             "gather_rows": GP.LIBRARY, "megakernel": CM.LIBRARY}
 SOURCES = {k: str(lib.source.relative_to(ROOT)) for k, lib in LIBRARIES.items()}
 
 
@@ -372,8 +434,13 @@ def measure_wide_shape(tag, args, kwargs):
     table_b = wide_table_bytes_needed(scene, lay, args, hk, c)
     b = bound(table_b, io_b, row_b, flops)
     ms, all_ms = t["wide"]
+    # the megakernel abandons a sample whose ray walks past its step cap
+    longest = int(c.lane_steps.max())
+    require(CM.DEFAULT_MAX_STEPS >= 16 * longest,
+            f"step cap {CM.DEFAULT_MAX_STEPS} vs longest walk {longest}")
     return {
         "shape": tag, "layout": MAIN_LAYOUT, "rays": R, "active": n_active,
+        "longest_walk_rows": longest, "megakernel_step_cap": CM.DEFAULT_MAX_STEPS,
         "io_bytes": io_b, "table_bytes_needed": table_b, "flops": flops,
         "max_abs_err": err, "ms": ms, "ms_all": all_ms,
         "p1_ms_same_batch": t["binary"][0], "p1_ms_all": t["binary"][1],
@@ -412,8 +479,26 @@ def capture_main_path_queries(cfg, scene, n):
 # -------------------------------------------------------------------- phases
 
 
+# (slots, leaf triangles, stub) of each layout as they appear in a kernel's
+# mangled template arguments
+LAYOUT_MANGLED = {"w8": "ILi8ELi4ELb0E", "w16": "ILi16ELi8ELb0E", "s8": "ILi8ELi8ELb1E"}
+
+
+def by_layout(kernels, suffix="") -> dict:
+    """ptxas' report of a layout-templated kernel per layout: {layout:
+    (registers, spill bytes)}. ``suffix``: a further template argument that
+    picks one build (the megakernel's timed build is ``Lb0E``)."""
+    out = {}
+    for name, tag in LAYOUT_MANGLED.items():
+        hit = [k for k in kernels if tag + suffix in k["entry"]]
+        require(len(hit) == 1, f"{name}: {len(hit)} kernels match {tag}{suffix}")
+        k = hit[0]
+        out[name] = (k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"])
+    return out
+
+
 def phase_build():
-    """All three libraries, one nvcc each, started together."""
+    """All four libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         list(pool.map(lambda lib: lib.build(), LIBRARIES.values()))
@@ -430,12 +515,28 @@ def phase_build():
     occ = {"ray_query": CT.LIBRARY.load().pt_ray_query_occupancy()}
     for name, lay in LAYOUTS.items():
         occ[name] = CW.LIBRARY.load().pt_wide_ray_query_occupancy(lay.w_row)
-    require(all(v > 0 for v in occ.values()), f"occupancy query failed: {occ}")
+    mk_occ = {name: CM.LIBRARY.load().pt_megakernel_occupancy(lay.w_row)
+              for name, lay in LAYOUTS.items()}
+    require(all(v > 0 for v in [*occ.values(), *mk_occ.values()]),
+            f"occupancy query failed: {occ} {mk_occ}")
     report["ray_query"]["blocks_per_sm"] = occ["ray_query"]
     report["wide_ray_query"]["blocks_per_sm"] = {k: occ[k] for k in LAYOUTS}
+    report["megakernel"]["blocks_per_sm"] = mk_occ
+    # the walk moved into wide_walk.cuh: K1 compiles as it did before
+    k1 = by_layout(report["wide_ray_query"]["kernels"])
+    require(k1 == {k: (v, 0) for k, v in K1_REGISTERS.items()},
+            f"wide_ray_query registers/spills {k1}, expected {K1_REGISTERS} / 0")
+    report["wide_ray_query"]["registers_spills_by_layout"] = k1
+    report["megakernel"]["registers_spills_by_layout"] = {
+        "timed": by_layout(report["megakernel"]["kernels"], "Lb0E"),
+        "counting": by_layout(report["megakernel"]["kernels"], "Lb1E"),
+    }
+    mk_block = CM.block_size()
     emit("build", seconds=sec, flags=list(cuda_build.NVCC_FLAGS), libraries=report,
-         sms=sms, block=CT.block_size(),
-         resident_warps_per_sm={k: v * CT.block_size() // 32 for k, v in occ.items()})
+         sms=sms, block=CT.block_size(), megakernel_block=mk_block,
+         resident_warps_per_sm={k: v * CT.block_size() // 32 for k, v in occ.items()},
+         megakernel_resident_warps_per_sm={k: v * mk_block // 32 for k, v in mk_occ.items()},
+         wide_ray_query_registers_unchanged=True)
     return report
 
 
@@ -748,12 +849,22 @@ def phase_gather_probe(smi):
     return launches, one
 
 
-def phase_oracle_frame(scene, phase="oracle_frame"):
+def frame_pixels(cfg):
+    idx = np.arange(cfg.image_width * cfg.image_height, dtype=np.int32)
+    return idx % cfg.image_width, idx // cfg.image_width
+
+
+def phase_oracle_frame(scene, phase="oracle_frame", megakernel=False):
+    """The 640x360 frame against the oracle's: the scan (pinned, whatever
+    the scene's tables), or the megakernel."""
     rg = load_golden(str(GOLDEN / "render8.gold"))
     ref = rg["colors"]
+    CM.reset_launches()
     t0 = time.perf_counter()
-    colors, _ = render_frame(TESTING, scene, spp=8)
+    colors = render_pixels(TESTING, scene, *frame_pixels(TESTING), spp=8,
+                           megakernel=megakernel).reshape(ref.shape)
     sec = time.perf_counter() - t0
+    require((CM.launches > 0) == megakernel, f"{phase}: {CM.launches} megakernel launches")
     require(colors.shape == ref.shape and np.isfinite(colors).all(), "oracle frame shape/finite")
     rel = np.abs(colors - ref) / (np.abs(ref) + 1e-3)
     q98 = float(np.quantile(rel, 0.98))
@@ -766,6 +877,7 @@ def phase_oracle_frame(scene, phase="oracle_frame"):
     mse = ((tm(colors) - tm(ref)) ** 2).mean()
     psnr = float(10 * np.log10(255.0**2 / max(mse, 1e-12)))
     emit(phase, width=640, height=360, spp=8, bounces=TESTING.max_bounces,
+         renderer="megakernel" if megakernel else "scan",
          rel_q98=q98, rel_q98_bar=1e-3, psnr_db=psnr, psnr_bar_db=35.0, seconds=sec)
     require(q98 < 1e-3, f"{phase} rel q98 {q98}")
     require(psnr > 35.0, f"{phase} PSNR {psnr}")
@@ -783,12 +895,18 @@ def phase_main_path(cfg, scene, oracle_mean, wide: bool, binary_colors=None):
     torch.cuda.reset_peak_memory_stats()
     CT.reset_launches()
     CW.reset_launches()
+    CM.reset_launches()
     t0 = time.perf_counter()
-    colors, image = render_frame(cfg, scene, spp=MAIN_SPP)
+    # the scan, pinned: on the card render_frame takes a wide scene through
+    # the megakernel (main_path_megakernel)
+    colors = render_pixels(cfg, scene, *frame_pixels(cfg), spp=MAIN_SPP,
+                           megakernel=False).reshape(H, W, 3)
+    image = to_bgra(colors)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     binary_launches, wide_launches = CT.launches, CW.launches
     peak = torch.cuda.max_memory_allocated()
+    require(CM.launches == 0, f"{phase}: {CM.launches} megakernel launches in the scan")
 
     expected = tiles * MAIN_SPP * (1 + cfg.max_bounces)
     launches, other = (wide_launches, binary_launches) if wide else (
@@ -826,7 +944,221 @@ def phase_main_path(cfg, scene, oracle_mean, wide: bool, binary_colors=None):
          msamples_per_s=W * H * MAIN_SPP / sec / 1e6,
          peak_memory_allocated_bytes=int(peak), mean_vs_oracle=mean_ratio,
          bmp=str(bmp.relative_to(ROOT)), bmp_bytes=bmp.stat().st_size, **extra)
-    return launches, colors
+    return launches, colors, sec
+
+
+# ---------------------------------------------------------------- megakernel
+
+MK_BAR = 2e-4  # tests/test_megakernel.py's bar for the JAX megakernel vs its scan
+
+
+def mk_compare(tag, got, ref, spp, sample_base, pixel_base, W, bar=MK_BAR):
+    """The kernel's per-pixel sums against the plain version's: the share of
+    the plain version's pixels that are finite (>= 99 %), the share of those
+    within bar + bar |ref| on every channel (>= 97 %), the bit-equal share,
+    the max abs error over finite pixels, and the worst pixels as (x, y,
+    first sample, samples)."""
+    got = torch.stack(got, -1).double().cpu().numpy()
+    ref = torch.stack(ref, -1).double().cpu().numpy()
+    finite = np.isfinite(ref).all(-1)
+    err = np.abs(got - ref)
+    close = finite & (err <= bar + bar * np.abs(ref)).all(-1)
+    equal = (got == ref).all(-1) | (np.isnan(got) & np.isnan(ref)).all(-1)
+    worst_err = np.where(finite, (err / (bar + bar * np.abs(ref))).max(-1), -1.0)
+    worst = np.argsort(worst_err)[::-1][:3]
+    out = {
+        "case": tag, "pixels": len(ref), "spp": spp, "sample_base": sample_base,
+        "pixel_base": pixel_base, "finite_share": float(finite.mean()),
+        "close_share": float(close.sum() / max(finite.sum(), 1)), "bar": bar,
+        "bit_equal_share": float(equal.mean()),
+        "max_abs_err": float(err[finite].max()) if finite.any() else 0.0,
+        "worst": [{"x": int((pixel_base + i) % W), "y": int((pixel_base + i) // W),
+                   "sample": sample_base, "samples": spp,
+                   "err_over_bar": float(worst_err[i])} for i in worst],
+    }
+    require(out["finite_share"] >= 0.99, f"{tag}: finite share {out['finite_share']}")
+    require(out["close_share"] >= 0.97, f"{tag}: share within the bar {out['close_share']}")
+    return out
+
+
+def mk_case(tag, cfg, scene, n, spp, sample_base=0, pixel_base=0, order=None,
+            with_stats=False):
+    """One call of the public entry point on the card against the plain
+    version on the same inputs. Returns the comparisons and the kernel's
+    output."""
+    order_t = None if order is None else torch.from_numpy(order).cuda()
+    out = path_trace_megakernel(cfg, scene, n, spp, sample_base, pixel_base,
+                                with_stats=with_stats, return_truncated=True,
+                                pixel_order=order, device="cuda")
+    acc, l2, n_trunc = (out[0], out[1], out[2]) if with_stats else (out[0], None, out[1])
+    ref = path_trace_megakernel_plain(cfg, scene, n, spp, sample_base, pixel_base,
+                                      with_stats, order_t)
+    torch.cuda.synchronize()
+    require(int(n_trunc[0]) == 0, f"{tag}: {int(n_trunc[0])} samples abandoned")
+    res = [mk_compare(tag, tuple(acc), ref[:3], spp, sample_base, pixel_base,
+                      cfg.image_width)]
+    if with_stats:
+        # the plane is a square: twice the relative error
+        res.append(mk_compare(tag + " lum2", (l2,), (ref[3],), spp, sample_base,
+                              pixel_base, cfg.image_width, bar=2 * MK_BAR))
+    return res, acc
+
+
+def phase_megakernel_check(scene_wide, scene_motion):
+    """The kernel against its plain version on the golden 640x360 frame
+    (TESTING, wide w8 tables with chained leaves) and on motion.gold's scene,
+    whose four subframe rows differ (the golden scene's are all equal, so a
+    wrong row would not show there)."""
+    cfg = TESTING
+    W, H = cfg.image_width, cfg.image_height
+    N = W * H
+    ragged = N - 1000 - 37
+    require(ragged % CM.block_size() != 0, "ragged slot count is a block multiple")
+    rows = scene_motion.sf_tlas_offset.shape[0]
+    require(len({tuple(r) for r in scene_motion.sf_light.cpu().numpy().tolist()}) > 1
+            and len(set(scene_motion.sf_tlas_offset.tolist())) > 1,
+            "motion.gold's subframe rows are all equal")
+    past = cfg.samples_per_motion_blur_step * rows + 5
+    results = []
+    res, first = mk_case("spp1", cfg, scene_wide, N, 1)
+    results += res
+    for tag, kw in (
+        ("spp4_base5", dict(spp=4, sample_base=5)),
+        ("pixel_base_ragged", dict(spp=2, pixel_base=1000, n=ragged)),
+        ("morton_order", dict(spp=1, order=morton_pixel_order(W, H))),
+        ("with_stats", dict(spp=2, sample_base=3, with_stats=True)),
+    ):
+        n = kw.pop("n", N)
+        results += mk_case(tag, cfg, scene_wide, n, **kw)[0]
+    for tag, base in (("motion_negative_base", -3), ("motion_past_the_rows", past)):
+        results += mk_case(tag, cfg, scene_motion, N, 2, sample_base=base)[0]
+    # two launches of one call give the same bytes
+    again = path_trace_megakernel(cfg, scene_wide, N, 1, device="cuda")
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(first, again)),
+            "two launches of the same call differ")
+    # the step cap: at 8 rows a ray most samples are abandoned and counted;
+    # an abandoned sample is not folded (its pixel keeps 0 at spp 1), and a
+    # pixel whose sample was not abandoned keeps its bits
+    cr, cg, cb, _, n_trunc, _ = CM.megakernel_cuda(cfg, scene_wide, N, 1, max_steps=8)
+    torch.cuda.synchronize()
+    capped = int(n_trunc[0])
+    moved = (cr != first.x) | (cg != first.y) | (cb != first.z)
+    require(0 < capped <= N, f"{capped} samples abandoned at a cap of 8 rows")
+    require(int(moved.sum()) <= capped
+            and bool(((cr[moved] == 0) & (cg[moved] == 0) & (cb[moved] == 0)).all()),
+            "the step cap changed a pixel it did not abandon")
+    for r in results:
+        emit("megakernel_check", **r)
+    emit("megakernel_check", part="summary", cases=len(results),
+         min_close_share=min(r["close_share"] for r in results),
+         min_bit_equal_share=min(r["bit_equal_share"] for r in results),
+         two_launches_byte_equal=True, samples_abandoned=0,
+         abandoned_at_cap_8=capped, pixels_changed_at_cap_8=int(moved.sum()),
+         motion_subframe_rows=rows, motion_past_base=past)
+    return max(r["max_abs_err"] for r in results)
+
+
+def phase_main_path_megakernel(cfg, scene, oracle_mean, scan_colors, scan_sec):
+    """The full-width frame through ``render_frame`` on the wide scene: the
+    megakernel, one launch per spp chunk, and neither ray-query kernel. The
+    counts are set to 0 just before and read just after."""
+    W, H = cfg.image_width, cfg.image_height
+    chunks = -(-MAIN_SPP // _mk_spp_chunk(W * H, MAIN_SPP, scene))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    CT.reset_launches()
+    CW.reset_launches()
+    CM.reset_launches()
+    t0 = time.perf_counter()
+    colors, image = render_frame(cfg, scene, spp=MAIN_SPP)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches, others = CM.launches, (CT.launches, CW.launches)
+    peak = torch.cuda.max_memory_allocated()
+    require(colors.shape == (H, W, 3) and image.shape == (H, W, 4), "frame shape")
+    require(image.dtype == np.uint8, "image dtype")
+    require(np.isfinite(colors).all(), "non-finite radiance")
+    require(launches == chunks, f"{launches} megakernel launches, expected {chunks}")
+    require(others == (0, 0), f"ray-query kernel launches {others}")
+    mean_ratio = float(np.minimum(colors, 10.0).mean()) / oracle_mean
+    require(0.9 < mean_ratio < 1.1, f"mean radiance vs oracle frame: {mean_ratio}")
+    # against the scan's frame on the same scene, at the JAX bar (on the
+    # sums: frame * spp, exact for a power of two)
+    sums = lambda c: tuple(torch.from_numpy(np.ascontiguousarray(c[..., k].reshape(-1)
+                                                                 * MAIN_SPP))
+                           for k in range(3))
+    vs_scan = mk_compare("vs scan frame", sums(colors), sums(scan_colors), MAIN_SPP, 0, 0, W)
+    colors2, image2 = render_frame(cfg, scene, spp=MAIN_SPP)
+    require(colors2.tobytes() == colors.tobytes() and image2.tobytes() == image.tobytes(),
+            "a second megakernel frame differs")
+    # where the frame's wall time goes: render_frame's steps once more, one
+    # by one, on the host's clock (the kernel's own time is in the
+    # megakernel_timing phase)
+    xs, ys = frame_pixels(cfg)
+    steps, t0 = {}, time.perf_counter()
+    megakernel_supported(scene, xs, ys, W)
+    steps["megakernel_supported"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = _render_megakernel(cfg, scene, W * H, MAIN_SPP, 0, torch.device("cuda"))
+    steps["launch_and_copy_back"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    avg = (raw / np.float32(MAIN_SPP)).reshape(H, W, 3)
+    steps["average"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    to_bgra(avg)
+    steps["to_bgra"] = time.perf_counter() - t0
+    require(avg.tobytes() == colors.tobytes(), "the steps one by one give another frame")
+    out = ROOT / "output"
+    out.mkdir(exist_ok=True)
+    bmp = out / "chip_smoke_frame_megakernel.bmp"
+    write_bmp(str(bmp), image)
+    back = read_bmp(str(bmp))
+    require(np.array_equal(back[..., ::-1], image[..., :3]), "BMP round trip")
+    emit("main_path_megakernel", width=W, height=H, bounces=cfg.max_bounces, spp=MAIN_SPP,
+         spp_reduced_from=PRODUCTION.samples_per_pixel, chunks=chunks, launches=launches,
+         launches_of_ray_query_kernels=list(others), seconds=sec,
+         msamples_per_s=W * H * MAIN_SPP / sec / 1e6,
+         scan_frame_seconds=scan_sec, speedup_vs_scan_frame=scan_sec / sec,
+         peak_memory_allocated_bytes=int(peak), mean_vs_oracle=mean_ratio,
+         vs_scan_frame={k: vs_scan[k] for k in ("finite_share", "close_share", "bar",
+                                                "bit_equal_share", "max_abs_err")},
+         second_frame_byte_equal=True, host_steps_s=steps,
+         bmp=str(bmp.relative_to(ROOT)), bmp_bytes=bmp.stat().st_size)
+    return launches, sec, peak
+
+
+def phase_megakernel_timing(cfg, scene, smi):
+    """One launch at the main path's shape (the whole frame's samples, as
+    render_frame's one chunk): its time (L2 flushed, median of 3) and its
+    bound from the counting build's counters of the same launch's work."""
+    W, H = cfg.image_width, cfg.image_height
+    n = W * H
+    require(_mk_spp_chunk(n, MAIN_SPP, scene) == MAIN_SPP, "the main path is one chunk")
+    t = time_launches({"k2": lambda: CM.megakernel_cuda(cfg, scene, n, MAIN_SPP)}, reps=3)
+    ms, all_ms = t["k2"]
+    *_, counts = CM.megakernel_cuda(cfg, scene, n, MAIN_SPP, counts=True)
+    c = dict(zip(CM.COUNT_NAMES, counts.tolist()))
+    require(c["samples"] == n * MAIN_SPP, f"counted {c['samples']} samples")
+    flops = (c["slab_tests"] * NODE_FLOPS + c["tri_tests"] * TRI_FLOPS
+             + c["inst_rows"] * INST_FLOPS
+             + sum(c[k] * f for k, f in MK_FLOPS.items()))
+    # every table the kernel reads, once (over 16.6 M samples each row is
+    # read), and the three output planes written once
+    nb = lambda x: 0 if x is None else x.numel() * x.element_size()
+    table_b = sum(nb(x) for x in (scene.wide_rows, scene.wide_root, scene.inst_f,
+                                  scene.inst_u, scene.tri_shade, scene.sf_cam,
+                                  scene.sf_light, scene.sf_tlas_offset))
+    b = bound(table_b, 3 * 4 * n, 0, flops)
+    res = {"pixels": n, "spp": MAIN_SPP, "ms": ms, "ms_all": all_ms, "flops": flops,
+           "table_bytes": table_b, "counts": c,
+           "rows_per_ray": (c["wide_rows"] + c["leaf_rows"] + c["inst_rows"]) / c["rays"],
+           "rays_per_sample": c["rays"] / c["samples"],
+           "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+           "bound_bytes_ms": b["bound_bytes_ms"], "bound_ops_ms": b["bound_ops_ms"],
+           "roofline_share": b["bound_ms"] / ms, "card": smi}
+    emit("megakernel_timing", **res)
+    return res
 
 
 def main() -> int:
@@ -873,10 +1205,19 @@ def main() -> int:
     gather_launches, gather_one = phase_gather_probe(smi)
     oracle_mean = phase_oracle_frame(scene)
     phase_oracle_frame(wide_scenes[MAIN_LAYOUT], "oracle_frame_wide")
-    launches, colors = phase_main_path(prod_cfg, prod_scene, oracle_mean, wide=False)
-    wide_launches, _ = phase_main_path(
+    phase_oracle_frame(wide_scenes[MAIN_LAYOUT], "oracle_frame_megakernel", megakernel=True)
+    motion_wide = scene_device_from_motion_golden(
+        load_golden(str(GOLDEN / "motion.gold")), wide=True, wide_layout=MAIN_LAYOUT
+    )
+    mk_err = phase_megakernel_check(wide_scenes[MAIN_LAYOUT], motion_wide)
+    launches, colors, _ = phase_main_path(prod_cfg, prod_scene, oracle_mean, wide=False)
+    wide_launches, wide_colors, wide_sec = phase_main_path(
         prod_cfg, prod_wide, oracle_mean, wide=True, binary_colors=colors
     )
+    mk_launches, mk_sec, mk_peak = phase_main_path_megakernel(
+        prod_cfg, prod_wide, oracle_mean, wide_colors, wide_sec
+    )
+    mk_time = phase_megakernel_timing(prod_cfg, prod_wide, smi)
 
     emit("done", seconds=time.perf_counter() - t_start)
     # the batch launched max_bounces times of 1+max_bounces
@@ -947,6 +1288,32 @@ def main() -> int:
             "shape": (f"table {gather_one['table']}, {gather_one['lanes']} rows, "
                       f"k={gather_one['k']}"),
             **regs("gather_rows"),
+            "card": smi,
+        },
+        {
+            "name": "megakernel",
+            "route": "cuda",
+            "source": SOURCES["megakernel"],
+            "replaces": "pathtracing_tpu/ops/megakernel.py:554",
+            "layout": MAIN_LAYOUT,
+            "launches": mk_launches,
+            "max_abs_err": mk_err,
+            "ms": mk_time["ms"],
+            # the scan frame's time on the same scene (main_path_wide)
+            "plain_ms": wide_sec * 1e3,
+            "bound_ms": mk_time["bound_ms"],
+            "bound_by": mk_time["bound_by"],
+            "library_ms": None,  # no single PyTorch call renders a path
+            "shape": f"{prod_cfg.image_width}x{prod_cfg.image_height} x {MAIN_SPP} spp, "
+                     f"{prod_cfg.max_bounces} bounces, one launch",
+            "frame_seconds": mk_sec,
+            "msamples_per_s": prod_cfg.image_width * prod_cfg.image_height * MAIN_SPP
+                              / mk_sec / 1e6,
+            "peak_memory_allocated_bytes": int(mk_peak),
+            **regs("megakernel"),
+            "registers_spills_timed_build":
+                built["megakernel"]["registers_spills_by_layout"]["timed"],
+            "blocks_per_sm": built["megakernel"]["blocks_per_sm"],
             "card": smi,
         },
     ]}), flush=True)

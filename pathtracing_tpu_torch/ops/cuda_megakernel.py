@@ -1,0 +1,192 @@
+"""The CUDA megakernel (K2): binding and wrapper.
+
+``megakernel_cuda`` renders the per-pixel sums of whole sun-NEE paths with
+the hand-written kernel in ``csrc/megakernel.cu`` (one thread per pixel slot,
+its samples in order; see the note at the top of that file for the design,
+the fold and the step cap). It is the counterpart of the JAX package's
+``path_trace_megakernel`` (pathtracing_tpu/ops/megakernel.py, an XLA
+while-loop there); ``ops/megakernel.path_trace_megakernel`` dispatches to it
+for CUDA tensors, and ``ops/megakernel.path_trace_megakernel_plain`` is its
+plain version.
+
+There is no second path to give way to: a build or launch failure, or a
+tensor the kernel does not take, raises.
+
+Build and binding: ops/cuda_build.py. The library's hash covers the three
+headers the source includes: ``ray_common.cuh`` (shared with both ray-query
+kernels), ``wide_walk.cuh`` (the walk, shared with ``wide_ray_query.cu``)
+and ``shading.cuh``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pathtracing_tpu_torch.ops.cuda_build import (
+    CSRC,
+    KernelLibrary,
+    check_tensor as _check,
+)
+from pathtracing_tpu_torch.ops.cuda_wide_traversal import check_scene as _check_wide
+from pathtracing_tpu_torch.utils.vec import c32
+
+SOURCE = CSRC / "megakernel.cu"
+HEADERS = (CSRC / "ray_common.cuh", CSRC / "wide_walk.cuh", CSRC / "shading.cuh")
+
+_p, _f, _i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+LIBRARY = KernelLibrary(
+    SOURCE,
+    headers=HEADERS,
+    symbols={
+        "pt_megakernel": (
+            [_p, _i] + [_p] * 6 + [_p, _i] * 3 + [_p] + [_i] * 9 + [_f] * 3 + [_i]
+            + [_p] * 7,
+            _i,
+        ),
+        "pt_megakernel_block_size": ([], _i),
+        "pt_megakernel_count_slots": ([], _i),
+        "pt_megakernel_occupancy": ([_i], _i),
+    },
+)
+
+# What the counting build counts, in the kernel's order (csrc/megakernel.cu):
+# samples traced, mega-table rows visited by kind, the slab tests the WIDE
+# visits needed and the triangle tests the LEAF visits made, rays walked,
+# closest hits shaded as hits / misses, atmosphere marches run (scattering,
+# with a draw) and NEE transmittance marches run, BSDF evaluations (one per
+# NEE) and BSDF samples.
+COUNT_NAMES = (
+    "samples", "wide_rows", "leaf_rows", "inst_rows", "slab_tests", "tri_tests",
+    "rays", "shade_hits", "shade_misses", "atmo_marches", "nee_evals",
+    "nee_marches", "bsdf_samples",
+)
+
+# Row visits one ray may make before the walk gives up on its sample: 64x
+# the longest walk the plain walk's ``lane_steps`` show on the golden scene:
+# 81 rows, in the main path's primary batch (1920x1080, w8), which
+# chip_smoke.py's wide_kernel_check reports as longest_walk_rows beside the
+# cap (and fails if the cap is under 16x it).
+LONGEST_GOLDEN_WALK = 81
+DEFAULT_MAX_STEPS = 64 * LONGEST_GOLDEN_WALK
+
+# Launches of the kernel since the last reset: incremented where the kernel
+# is launched and nowhere else, so a run can show that it went through it.
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def block_size() -> int:
+    """Threads per block of the built kernel."""
+    return int(LIBRARY.load().pt_megakernel_block_size())
+
+
+def check_scene(scene, device):
+    """Raise unless the scene's tables are what the kernel takes, on
+    ``device``: the wide tables (as the wide ray-query kernel checks them),
+    the packed shading rows, and the subframe tables with at least one row
+    each. Returns the mega-table's layout."""
+    f32, i32 = torch.float32, torch.int32
+    lay = _check_wide(scene, device)
+    if scene.tri_shade is None:
+        raise ValueError("the scene carries no tri_shade rows: pack it with wide=True")
+    _check("scene.tri_shade", scene.tri_shade, f32, (scene.tri_shade.shape[0], 48), device)
+    _check("scene.sf_cam", scene.sf_cam, f32, (scene.sf_cam.shape[0], 18), device)
+    _check("scene.sf_light", scene.sf_light, f32, (scene.sf_light.shape[0], 7), device)
+    _check("scene.sf_tlas_offset", scene.sf_tlas_offset, i32,
+           (scene.sf_tlas_offset.shape[0],), device)
+    for name in ("sf_cam", "sf_light", "sf_tlas_offset"):
+        if getattr(scene, name).shape[0] == 0:
+            raise ValueError(f"scene.{name}: no subframe rows")
+    return lay
+
+
+def _int32(name, v) -> int:
+    v = int(v)
+    if not -(1 << 31) <= v < (1 << 31):
+        raise ValueError(f"{name}={v} does not fit in int32")
+    return v
+
+
+def megakernel_cuda(
+    config,
+    scene,
+    n_pixels: int,
+    spp: int,
+    sample_base: int = 0,
+    pixel_base: int = 0,
+    with_stats: bool = False,
+    pixel_order=None,
+    max_steps: int | None = None,
+    counts: bool = False,
+):
+    """Per-pixel radiance sums over samples [sample_base, sample_base + spp)
+    of pixels pixel_base + [0, n_pixels) by the hand-written kernel.
+
+    ``pixel_order``: None, or an int32 CUDA tensor holding a permutation of
+    [0, n_pixels): slot i then renders pixel pixel_base + pixel_order[i] (the
+    output stays indexed by pixel). ``counts=True`` runs the counting build
+    instead and also returns its counters (int64, COUNT_NAMES' order).
+
+    Returns (r, g, b, l2, n_truncated, counts): (n_pixels,) f32 sums, the
+    luminance-squared sums or None, a one-element int32 tensor of abandoned
+    samples, and the counters or None. Launches on PyTorch's current stream
+    and does not synchronise. Raises on a tensor of the wrong device, dtype,
+    shape or layout and on a refused launch; it never gives way to the plain
+    version.
+    """
+    global launches
+    device = scene.nl8.device
+    if device.type != "cuda":
+        raise ValueError(f"megakernel_cuda needs CUDA tensors, got {device}")
+    check_scene(scene, device)
+    if n_pixels < 0 or spp < 0:
+        raise ValueError(f"n_pixels={n_pixels}, spp={spp}: both must be >= 0")
+    if pixel_order is not None:
+        _check("pixel_order", pixel_order, torch.int32, (n_pixels,), device)
+    steps = DEFAULT_MAX_STEPS if max_steps is None else int(max_steps)
+    if steps <= 0:
+        raise ValueError(f"max_steps={steps}: must be > 0")
+
+    f32 = torch.float32
+    out = lambda: torch.empty(n_pixels, dtype=f32, device=device)
+    r, g, b = out(), out(), out()
+    l2 = out() if with_stats else None
+    n_trunc = torch.zeros(1, dtype=torch.int32, device=device)
+    lib = LIBRARY.load()
+    cnt = None
+    if counts:
+        cnt = torch.zeros(lib.pt_megakernel_count_slots(), dtype=torch.int64, device=device)
+        if cnt.numel() != len(COUNT_NAMES):
+            raise RuntimeError(f"kernel counts {cnt.numel()} slots, COUNT_NAMES "
+                               f"names {len(COUNT_NAMES)}")
+    # The launch is asynchronous; PyTorch's allocator hands a freed block out
+    # again only in the order of the stream it was used on, and this is it.
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(device):
+        err = lib.pt_megakernel(
+            ptr(scene.wide_rows), scene.wide_rows.shape[1], ptr(scene.wide_root),
+            ptr(scene.wide_root_base), ptr(scene.tri_pos), ptr(scene.inst_f),
+            ptr(scene.inst_u), ptr(scene.tri_shade),
+            ptr(scene.sf_cam), scene.sf_cam.shape[0],
+            ptr(scene.sf_light), scene.sf_light.shape[0],
+            ptr(scene.sf_tlas_offset), scene.sf_tlas_offset.shape[0],
+            ptr(pixel_order), _int32("n_pixels", n_pixels), _int32("spp", spp),
+            _int32("sample_base", sample_base), _int32("pixel_base", pixel_base),
+            config.image_width, config.image_height, config.max_bounces,
+            config.samples_per_motion_blur_step, _int32("student_id", config.student_id),
+            c32(config.min_ray_dist), c32(config.max_ray_dist),
+            c32(config.path_space_regularization_gamma), _int32("max_steps", steps),
+            ptr(r), ptr(g), ptr(b), ptr(l2), ptr(n_trunc), ptr(cnt),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"megakernel launch refused: cudaError {err}")
+    if n_pixels > 0:
+        launches += 1
+    return r, g, b, l2, n_trunc, cnt

@@ -14,7 +14,9 @@ own loop here. There is no second path to give way to: a build or launch
 failure propagates.
 
 Build and binding: ops/cuda_build.py. The library's hash covers
-``csrc/ray_common.cuh``, which this kernel shares with ``csrc/ray_query.cu``.
+``csrc/ray_common.cuh``, which this kernel shares with ``csrc/ray_query.cu``,
+and ``csrc/wide_walk.cuh``, the walk it shares with the megakernel
+(``csrc/megakernel.cu``).
 """
 
 from __future__ import annotations
@@ -34,11 +36,12 @@ from pathtracing_tpu_torch.utils.vec import Vec3
 
 SOURCE = CSRC / "wide_ray_query.cu"
 HEADER = CSRC / "ray_common.cuh"
+WALK_HEADER = CSRC / "wide_walk.cuh"
 
 _p, _f, _i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 LIBRARY = KernelLibrary(
     SOURCE,
-    headers=(HEADER,),
+    headers=(HEADER, WALK_HEADER),
     symbols={
         "pt_wide_ray_query": (
             [_p, _i] + [_p] * 16 + [_f, _f, _i] + [_p] * 7 + [_i, _p], _i,

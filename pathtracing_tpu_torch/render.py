@@ -7,9 +7,16 @@ lanes with samples accumulated by a Python loop over sample indices.
 
 Entry points take ``device=None``, which means CUDA and raises when there is
 no card; the scene's tensors must lie on that device.
+
+On a CUDA device a row-major [0, N) pixel list on a scene with wide tables
+renders through the megakernel (ops/megakernel.py, kernel K2), as the JAX
+package picks its megakernel on a TPU; everything else, and every render on
+the CPU, goes through the tiled scan of ``path_trace_samples``.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -17,6 +24,7 @@ import torch
 from pathtracing_tpu_torch import resolve_device
 from pathtracing_tpu_torch.config import RenderConfig
 from pathtracing_tpu_torch.ops.integrator import path_trace_samples
+from pathtracing_tpu_torch.ops.megakernel import path_trace_megakernel
 from pathtracing_tpu_torch.ops.tonemap import tonemap
 from pathtracing_tpu_torch.utils.vec import Vec3
 
@@ -91,6 +99,80 @@ def to_bgra(colors: np.ndarray, device=None) -> np.ndarray:
     return torch.stack([b, g, r, a], dim=-1).cpu().numpy()
 
 
+def megakernel_supported(scene, xs, ys, width: int) -> bool:
+    """The megakernel owns pixels [0, N) of a row-major frame and needs the
+    wide tables (the JAX package's rule; area-light scenes pass it there and
+    raise NotImplementedError here, as the scan does)."""
+    if getattr(scene, "wide_rows", None) is None:
+        return False
+    n = len(xs)
+    idx = np.arange(n, dtype=np.int64)
+    return bool(
+        np.array_equal(np.asarray(xs, np.int64), idx % width)
+        and np.array_equal(np.asarray(ys, np.int64), idx // width)
+    )
+
+
+# Megakernel dispatch budgets, the JAX package's (pathtracing_tpu/render.py):
+# an accumulator-memory budget (PT_MK_ACC_MB) and a cap on the samples one
+# dispatch renders (PT_MK_DISPATCH_SAMPLES), smaller for large scenes. Here
+# the accumulator is the kernel's per-pixel output, and the cap keeps one
+# launch's device time bounded; partial sums add exactly (the sample-range
+# seeding contract, reference: path_tracer.hh:659).
+DEFAULT_MK_ACC_MB = 25600
+DEFAULT_MK_DISPATCH_SAMPLES = 32 << 20
+DEFAULT_MK_DISPATCH_SAMPLES_LARGE = 4 << 20
+# nl8 nodes above which a scene counts as large (the JAX package's
+# ops/traversal.LARGE_SCENE_NODES)
+LARGE_SCENE_NODES = 100_000
+
+
+def _mk_spp_chunk(
+    n_pixels: int, spp: int, scene=None, bytes_per_pixel: int = 12
+) -> int:
+    """Largest per-dispatch spp within the memory and dispatch budgets;
+    prefers a divisor of spp so every dispatch renders the same count.
+    ``bytes_per_pixel``: 12 for the three radiance planes, 16 with the
+    luminance-squared plane."""
+    default_cap = DEFAULT_MK_DISPATCH_SAMPLES
+    if scene is not None and (scene.nl8.shape[0] // 8) > LARGE_SCENE_NODES:
+        default_cap = DEFAULT_MK_DISPATCH_SAMPLES_LARGE
+    budget = int(os.environ.get("PT_MK_ACC_MB", DEFAULT_MK_ACC_MB)) << 20
+    cap = int(os.environ.get("PT_MK_DISPATCH_SAMPLES", default_cap))
+    limit = max(
+        1, min(budget // (n_pixels * bytes_per_pixel), cap // n_pixels)
+    )
+    if spp <= limit:
+        return spp
+    for c in range(limit, 0, -1):
+        if spp % c == 0:
+            return c
+    return limit
+
+
+def _render_megakernel(config, scene, n: int, spp: int, sample_base: int, device):
+    """Raw (n, 3) sums of pixels [0, n) by the megakernel, in spp chunks;
+    raises when the kernel abandoned samples (the output would be dark)."""
+    out = np.zeros((n, 3), np.float32)
+    chunk = _mk_spp_chunk(n, spp, scene)
+    for a in range(0, spp, chunk):
+        c = min(chunk, spp - a)
+        acc, n_trunc = path_trace_megakernel(
+            config, scene, n, c, int(sample_base) + a, return_truncated=True,
+            device=device,
+        )
+        out[:, 0] += acc.x.cpu().numpy()
+        out[:, 1] += acc.y.cpu().numpy()
+        out[:, 2] += acc.z.cpu().numpy()
+        if int(n_trunc):
+            raise RuntimeError(
+                f"megakernel step cap abandoned {int(n_trunc)} samples "
+                f"(samples [{int(sample_base) + a}, {int(sample_base) + a + c})): "
+                "output would be darkened"
+            )
+    return out
+
+
 def render_pixels(
     config: RenderConfig,
     scene,
@@ -108,21 +190,19 @@ def render_pixels(
 
     average=False returns raw sums over [sample_base, sample_base+spp) for
     sample-range checkpointing (partials merge by addition).
-    tile_pixels=None resolves per device type. ``device=None`` means CUDA.
-    The JAX package's other renderers are later slices of the port:
-    wavefront=True (path regeneration, ops/wavefront.py) and megakernel=True
-    (persistent lanes, ops/megakernel.py) raise NotImplementedError;
-    megakernel=None selects the scan integrator, the only one here.
+    megakernel=True renders through the megakernel (needs wide tables and a
+    row-major [0, N) pixel list, else ValueError); None picks it on a CUDA
+    device when ``megakernel_supported``, and the scan otherwise (always on
+    the CPU, as the JAX package picks it on a TPU only); False pins the scan.
+    tile_pixels=None resolves per device type (the scan's tiles).
+    ``device=None`` means CUDA. wavefront=True (path regeneration,
+    ops/wavefront.py) is a later slice of the port and raises
+    NotImplementedError.
     """
     if wavefront:
         raise NotImplementedError(
             "wavefront=True: the path-regeneration renderer is a later slice "
             "of the port (ops/wavefront.py)"
-        )
-    if megakernel:
-        raise NotImplementedError(
-            "megakernel=True: the persistent-lane renderer is a later slice "
-            "of the port (ops/megakernel.py)"
         )
     device = resolve_device(device)
     if scene.nl8.device != device:
@@ -130,13 +210,24 @@ def render_pixels(
             f"scene is on {scene.nl8.device}, render asked for {device}"
         )
     spp = spp or config.samples_per_pixel
-    if tile_pixels is None:
-        tile_pixels = default_tile_pixels(device)
-    kernel = lambda txs, tys: _render_tile(
-        config, scene, txs, tys, spp, int(sample_base)
-    )
-    r, g, b = run_tiled(kernel, xs, ys, tile_pixels, 3, device)
-    out = np.stack([r, g, b], -1)
+    if megakernel is None:
+        megakernel = device.type == "cuda" and megakernel_supported(
+            scene, xs, ys, config.image_width
+        )
+    elif megakernel and not megakernel_supported(scene, xs, ys, config.image_width):
+        raise ValueError(
+            "megakernel needs wide tables and a row-major [0, N) pixel list"
+        )
+    if megakernel:
+        out = _render_megakernel(config, scene, len(xs), spp, sample_base, device)
+    else:
+        if tile_pixels is None:
+            tile_pixels = default_tile_pixels(device)
+        kernel = lambda txs, tys: _render_tile(
+            config, scene, txs, tys, spp, int(sample_base)
+        )
+        r, g, b = run_tiled(kernel, xs, ys, tile_pixels, 3, device)
+        out = np.stack([r, g, b], -1)
     if average:
         return out / np.float32(spp)
     return out
@@ -150,7 +241,11 @@ def render_frame(
     wavefront: bool = False,
     device=None,
 ):
-    """Render a full frame; returns (colors (H,W,3) f32, image (H,W,4) u8 BGRA)."""
+    """Render a full frame; returns (colors (H,W,3) f32, image (H,W,4) u8 BGRA).
+
+    On a CUDA device a scene with wide tables renders through the megakernel
+    (``render_pixels``' auto-selection); ``render_pixels(..., megakernel=False)``
+    pins the scan."""
     device = resolve_device(device)
     W, H = config.image_width, config.image_height
     idx = np.arange(W * H, dtype=np.int32)

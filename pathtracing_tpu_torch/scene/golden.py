@@ -17,8 +17,10 @@ from pathtracing_tpu_torch.io.obj import MeshHandle
 from pathtracing_tpu_torch.scene.device import (
     SceneDevice,
     _instance_rows,
+    attach_wide,
     pack_nl8,
     pack_scene,
+    pack_tri_shade,
     pack_tri_tables,
     pack_vattr,
     to_device,
@@ -94,9 +96,15 @@ def scene_device_from_golden(
     )
 
 
-def scene_device_from_motion_golden(g, device=None) -> SceneDevice:
+def scene_device_from_motion_golden(
+    g, wide: bool = False, wide_layout="w8", device=None,
+) -> SceneDevice:
     """Build a SceneDevice from the harness 'motion' dump (distinct
-    subframes: moving teapot + moving sun; prefix mb_)."""
+    subframes: moving teapot + moving sun; prefix mb_).
+
+    ``wide``, ``wide_layout``: as ``scene_device_from_golden`` (the wide
+    tables, leaf bundles of 8, and the packed shading rows of the same
+    geometry)."""
     device = resolve_device(device)
     instances = [
         _GoldenInstance(g["mb_instances_u"][i], g["mb_instances_f"][i])
@@ -109,7 +117,7 @@ def scene_device_from_motion_golden(g, device=None) -> SceneDevice:
         g["mb_indices"], g["mb_pos"], [i.mesh for i in instances]
     )
     dev = lambda a: to_device(a, device)
-    return SceneDevice(
+    scene = SceneDevice(
         nl8=dev(pack_nl8(g["mb_nodes"], g["mb_links"], segments)),
         tri_pos=dev(tri_pos),
         tri_idx=dev(tri_idx),
@@ -121,3 +129,21 @@ def scene_device_from_motion_golden(g, device=None) -> SceneDevice:
         sf_cam=dev(g["mb_sf_cam"]),
         sf_light=dev(g["mb_sf_light"]),
     )
+    if wide:
+        mesh_arrays = (
+            g["mb_indices"], g["mb_pos"], g["mb_normal"], g["mb_albedo"],
+            g["mb_material"],
+        )
+        # the wide builder reads a subframe's TLAS handle only
+        subframes = [
+            Subframe(BvhHandle(node_count=int(c), node_offset=int(o)), None, None)
+            for c, o in g["mb_sf_tlas"]
+        ]
+        scene = attach_wide(
+            scene, mesh_arrays, g["mb_nodes"], g["mb_links"], instances,
+            subframes, layout=wide_layout,
+        )
+        scene = scene._replace(tri_shade=dev(pack_tri_shade(
+            *mesh_arrays, [i.mesh for i in instances]
+        )))
+    return scene
