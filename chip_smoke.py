@@ -10,17 +10,21 @@ mega-table (every ray query served by the ``wide_ray_query`` kernel, pinned
 with ``megakernel=False``), and ``render_frame`` on that wide scene, which on
 the card renders through the ``megakernel`` kernel (whole paths, one launch
 per spp chunk) — at the PRODUCTION preset's geometry (1920x1080, 5 bounces)
-with spp cut from 1024 to 8 (one motion-blur step), and the row-gather probe
-(``gather_rows`` kernel). Every kernel is held against its plain PyTorch
-version and, where there is one, against the C++ oracle's goldens on the way.
+with spp cut from 1024 to 8 (one motion-blur step); ``render_frame(...,
+wavefront=True)`` on the binary scene, which on the card renders through the
+``wavefront`` kernel (whole paths for any pixel list, one launch per tile and
+spp chunk); and the row-gather probe (``gather_rows`` kernel). Every kernel
+is held against its plain PyTorch version and, where there is one, against
+the C++ oracle's goldens on the way.
 Phases, one JSON object per line:
 
   device            card name + power limit (nvidia-smi), torch / CUDA versions
-  build             the four libraries of csrc/, built side by side: seconds,
+  build             the five libraries of csrc/, built side by side: seconds,
                     ptxas' registers and spills per kernel, resident blocks
-                    per SM of the ray-query kernels and the megakernel;
-                    wide_ray_query's registers and spills as they were
-                    before its walk moved into wide_walk.cuh
+                    per SM of the ray-query kernels and the path kernels;
+                    wide_ray_query's and ray_query's registers and spills as
+                    they were before their walks moved into wide_walk.cuh and
+                    binary_walk.cuh
   scene, wide_scene table sizes; rows and bytes of the wide tables per layout
   kernel_check      ray_query kernel vs plain version: the 4096 rays of
                     rays.gold in five modes, and the two batches the main path
@@ -42,15 +46,17 @@ Phases, one JSON object per line:
                     time beside the ray_query kernel's on the same batch in
                     the same call, row counts, the bound, lane fill and the
                     share of row visits on the hottest rows of 160 KB, the
-                    longest walk beside the megakernel's step cap; w16
+                    longest walk beside the path kernels' step cap; w16
                     and s8 on the primary batch, timed beside w8.
   breakdown         one tile x one sample: time inside the kernel vs the rest
   gather_probe      gather_rows kernel bit-equal to index_select; the probe's
                     harness times; one gather's time beside index_select's
-  oracle_frame, oracle_frame_wide, oracle_frame_megakernel
+  oracle_frame, oracle_frame_wide, oracle_frame_megakernel,
+  oracle_frame_wavefront
                     TESTING preset 640x360, spp 8, 4 bounces vs render8.gold:
-                    the scan on the binary and the wide scene, and the
-                    megakernel on the wide one
+                    the scan on the binary and the wide scene, the
+                    megakernel on the wide one, the wavefront on the binary
+                    one
   megakernel_check  the megakernel vs its plain version (path_trace_megakernel_plain)
                     on the golden 640x360 frame: spp 1, spp 4 from sample 5,
                     a pixel base with a ragged slot count, a Morton pixel
@@ -61,15 +67,28 @@ Phases, one JSON object per line:
                     byte-equal; no sample abandoned, and at a step cap of 8
                     rows samples abandoned, counted, and only their pixels
                     changed
-  main_path, main_path_wide, main_path_megakernel
+  wavefront_check   the wavefront kernel vs its plain version
+                    (path_trace_wavefront_plain) on the binary, w8, w16 and
+                    s8 scenes: a random list with duplicates, spp 1, spp 4
+                    from sample 5, the luminance-squared plane, ragged counts
+                    1 / 31 / 33 / 4097, an empty list, motion.gold's scene
+                    from sample -3 and from 37; two launches byte-equal; on
+                    w8 bit-equal to the megakernel on the row-major list; a
+                    cap of 8 rows abandons samples and counts them; the
+                    device-side average and tonemap of both fused renderers
+                    at spp 3 byte-equal to the host's
+  main_path, main_path_wide, main_path_megakernel, main_path_wavefront
                     the frame above; finite radiance, launch counts, BMP
                     written; the wide frame against the binary frame, the
-                    megakernel's against the wide scan frame (and a second
-                    megakernel frame byte-equal to the first; its host
-                    steps one by one)
-  megakernel_timing one megakernel launch at the main path's shape (L2
-                    flushed) and its bound from the counting build's
-                    counters of the same work
+                    megakernel's against the wide scan frame, the
+                    wavefront's against the binary scan frame (and a second
+                    fused frame byte-equal to the first; its host steps one
+                    by one)
+  megakernel_timing, wavefront_timing
+                    one launch at the main path's shape (L2 flushed) and its
+                    bound from the counting build's counters of the same
+                    work; the wavefront on the binary and the w8 scene, timed
+                    in turns with the megakernel
   kernels           the per-kernel summary line
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises: the
 script exits non-zero and prints no result line. There is no CPU fallback:
@@ -100,6 +119,7 @@ from pathtracing_tpu_torch.io.bmp import read_bmp, write_bmp
 from pathtracing_tpu_torch.ops import cuda_build
 from pathtracing_tpu_torch.ops import cuda_megakernel as CM
 from pathtracing_tpu_torch.ops import cuda_traversal as CT
+from pathtracing_tpu_torch.ops import cuda_wavefront as CWF
 from pathtracing_tpu_torch.ops import cuda_wide_traversal as CW
 from pathtracing_tpu_torch.ops import integrator
 from pathtracing_tpu_torch.ops.megakernel import (
@@ -109,13 +129,19 @@ from pathtracing_tpu_torch.ops.megakernel import (
 )
 from pathtracing_tpu_torch.ops.tonemap import tonemap
 from pathtracing_tpu_torch.ops.traversal import ray_query, ray_query_plain, simd_efficiency
+from pathtracing_tpu_torch.ops.wavefront import (
+    path_trace_wavefront,
+    path_trace_wavefront_plain,
+)
 from pathtracing_tpu_torch.ops.wide_traversal import wide_ray_query_plain
 from pathtracing_tpu_torch.probes import gather_probe as GP
 from pathtracing_tpu_torch.render import (
     CUDA_TILE_PIXELS,
+    _average,
+    _bgra,
     _mk_spp_chunk,
-    _render_megakernel,
-    megakernel_supported,
+    _render_fused,
+    _row_major,
     render_frame,
     render_pixels,
     to_bgra,
@@ -159,9 +185,11 @@ MK_FLOPS = {
     "nee_marches": 268,   # MIS weight + the 8-step transmittance march
     "bsdf_samples": 244,  # view, GGX VNDF, lobe pick, bsdf_core, new direction
 }
-# wide_ray_query's registers per layout (and 0 spill bytes each) as the
-# kernel compiled before its walk moved into wide_walk.cuh
+# wide_ray_query's registers per layout and ray_query's (and 0 spill bytes
+# each) as the kernels compiled before their walks moved into wide_walk.cuh
+# and binary_walk.cuh
 K1_REGISTERS = {"w8": 80, "w16": 91, "s8": 67}
+P1_REGISTERS = 52
 
 RTOL = ATOL = 1e-6  # kernel vs plain version: same ops, same order, no FMA
 # Shared memory a block could give to staged mega-table rows: the share of
@@ -170,7 +198,8 @@ HOT_ROW_BYTES = 160 * 1024
 EDGE_R = (1, 31, 33, 4097)  # one lane, just under / over a warp, a ragged block
 
 LIBRARIES = {"ray_query": CT.LIBRARY, "wide_ray_query": CW.LIBRARY,
-             "gather_rows": GP.LIBRARY, "megakernel": CM.LIBRARY}
+             "gather_rows": GP.LIBRARY, "megakernel": CM.LIBRARY,
+             "wavefront": CWF.LIBRARY}
 SOURCES = {k: str(lib.source.relative_to(ROOT)) for k, lib in LIBRARIES.items()}
 
 
@@ -332,6 +361,10 @@ def measure_shape(tag, args, kwargs):
     n_active = int(args[7].sum())
     io_b = ray_io_bytes(kwargs.get("anyhit", False), args[6], R, n_active)
     node, inst, tri = c.node_rows, c.inst_rows, c.tri_rows
+    # the wavefront kernel abandons a sample whose ray walks past the step
+    # cap derived from the tables
+    longest, cap = int(c.lane_steps.max()), CM.step_cap(args[0])
+    require(cap >= 16 * longest, f"step cap {cap} vs longest walk {longest}")
     # each table row the batch's walk touched, read once (the finalize
     # step's instance and triangle rows included)
     table_b = (c.node_rows_touched * NODE_ROW_B + c.inst_rows_touched * INST_ROW_B
@@ -343,6 +376,7 @@ def measure_shape(tag, args, kwargs):
     )
     return {
         "shape": tag, "rays": R, "active": n_active, "io_bytes": io_b,
+        "longest_walk_rows": longest, "path_kernels_step_cap": cap,
         "table_bytes_needed": table_b, "max_abs_err": err, "ms": ms,
         "ms_all": all_ms, "plain_ms": plain_ms, **scalars(c),
         **walk_stats(c.lane_steps, args[7]),
@@ -434,13 +468,14 @@ def measure_wide_shape(tag, args, kwargs):
     table_b = wide_table_bytes_needed(scene, lay, args, hk, c)
     b = bound(table_b, io_b, row_b, flops)
     ms, all_ms = t["wide"]
-    # the megakernel abandons a sample whose ray walks past its step cap
+    # the path kernels abandon a sample whose ray walks past the step cap
+    # derived from the tables
     longest = int(c.lane_steps.max())
-    require(CM.DEFAULT_MAX_STEPS >= 16 * longest,
-            f"step cap {CM.DEFAULT_MAX_STEPS} vs longest walk {longest}")
+    cap = CM.step_cap(scene)
+    require(cap >= 16 * longest, f"step cap {cap} vs longest walk {longest}")
     return {
         "shape": tag, "layout": MAIN_LAYOUT, "rays": R, "active": n_active,
-        "longest_walk_rows": longest, "megakernel_step_cap": CM.DEFAULT_MAX_STEPS,
+        "longest_walk_rows": longest, "path_kernels_step_cap": cap,
         "io_bytes": io_b, "table_bytes_needed": table_b, "flops": flops,
         "max_abs_err": err, "ms": ms, "ms_all": all_ms,
         "p1_ms_same_batch": t["binary"][0], "p1_ms_all": t["binary"][1],
@@ -497,8 +532,27 @@ def by_layout(kernels, suffix="") -> dict:
     return out
 
 
+# the wavefront kernel's walk policy per layout, as mangled in its name
+WALK_MANGLED = {"binary": "10BinaryWalk", **{k: "8WideWalk" + v for k, v in LAYOUT_MANGLED.items()}}
+
+
+def wavefront_by_layout(kernels) -> dict:
+    """ptxas' report of the wavefront kernel per layout: {layout: {"timed" |
+    "counting": (registers, spill bytes)}} (its third template argument is
+    the counting flag, after the fetch policy)."""
+    out = {}
+    for name, tag in WALK_MANGLED.items():
+        out[name] = {}
+        for build, flag in (("timed", "FetchELb0E"), ("counting", "FetchELb1E")):
+            hit = [k for k in kernels if tag in k["entry"] and flag in k["entry"]]
+            require(len(hit) == 1, f"wavefront {name} {build}: {len(hit)} kernels match")
+            k = hit[0]
+            out[name][build] = (k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"])
+    return out
+
+
 def phase_build():
-    """All four libraries, one nvcc each, started together."""
+    """All five libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         list(pool.map(lambda lib: lib.build(), LIBRARIES.values()))
@@ -517,26 +571,37 @@ def phase_build():
         occ[name] = CW.LIBRARY.load().pt_wide_ray_query_occupancy(lay.w_row)
     mk_occ = {name: CM.LIBRARY.load().pt_megakernel_occupancy(lay.w_row)
               for name, lay in LAYOUTS.items()}
-    require(all(v > 0 for v in [*occ.values(), *mk_occ.values()]),
-            f"occupancy query failed: {occ} {mk_occ}")
+    wf_occ = {name: CWF.LIBRARY.load().pt_wavefront_occupancy(w)
+              for name, w in (("binary", 0), *((k, v.w_row) for k, v in LAYOUTS.items()))}
+    require(all(v > 0 for v in [*occ.values(), *mk_occ.values(), *wf_occ.values()]),
+            f"occupancy query failed: {occ} {mk_occ} {wf_occ}")
     report["ray_query"]["blocks_per_sm"] = occ["ray_query"]
     report["wide_ray_query"]["blocks_per_sm"] = {k: occ[k] for k in LAYOUTS}
     report["megakernel"]["blocks_per_sm"] = mk_occ
-    # the walk moved into wide_walk.cuh: K1 compiles as it did before
+    report["wavefront"]["blocks_per_sm"] = wf_occ
+    # the walks moved into wide_walk.cuh and binary_walk.cuh: K1 and P1
+    # compile as they did before
     k1 = by_layout(report["wide_ray_query"]["kernels"])
     require(k1 == {k: (v, 0) for k, v in K1_REGISTERS.items()},
             f"wide_ray_query registers/spills {k1}, expected {K1_REGISTERS} / 0")
     report["wide_ray_query"]["registers_spills_by_layout"] = k1
+    p1 = report["ray_query"]["kernels"]
+    p1_regs = [(k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"]) for k in p1]
+    require(p1_regs == [(P1_REGISTERS, 0)],
+            f"ray_query registers/spills {p1_regs}, expected {P1_REGISTERS} / 0")
+    report["wavefront"]["registers_spills_by_layout"] = wavefront_by_layout(
+        report["wavefront"]["kernels"])
     report["megakernel"]["registers_spills_by_layout"] = {
         "timed": by_layout(report["megakernel"]["kernels"], "Lb0E"),
         "counting": by_layout(report["megakernel"]["kernels"], "Lb1E"),
     }
-    mk_block = CM.block_size()
+    mk_block, wf_block = CM.block_size(), CWF.block_size()
     emit("build", seconds=sec, flags=list(cuda_build.NVCC_FLAGS), libraries=report,
-         sms=sms, block=CT.block_size(), megakernel_block=mk_block,
+         sms=sms, block=CT.block_size(), megakernel_block=mk_block, wavefront_block=wf_block,
          resident_warps_per_sm={k: v * CT.block_size() // 32 for k, v in occ.items()},
          megakernel_resident_warps_per_sm={k: v * mk_block // 32 for k, v in mk_occ.items()},
-         wide_ray_query_registers_unchanged=True)
+         wavefront_resident_warps_per_sm={k: v * wf_block // 32 for k, v in wf_occ.items()},
+         wide_ray_query_registers_unchanged=True, ray_query_registers_unchanged=True)
     return report
 
 
@@ -854,17 +919,19 @@ def frame_pixels(cfg):
     return idx % cfg.image_width, idx // cfg.image_width
 
 
-def phase_oracle_frame(scene, phase="oracle_frame", megakernel=False):
+def phase_oracle_frame(scene, phase="oracle_frame", megakernel=False, wavefront=False):
     """The 640x360 frame against the oracle's: the scan (pinned, whatever
-    the scene's tables), or the megakernel."""
+    the scene's tables), the megakernel, or the wavefront."""
     rg = load_golden(str(GOLDEN / "render8.gold"))
     ref = rg["colors"]
     CM.reset_launches()
+    CWF.reset_launches()
     t0 = time.perf_counter()
     colors = render_pixels(TESTING, scene, *frame_pixels(TESTING), spp=8,
-                           megakernel=megakernel).reshape(ref.shape)
+                           megakernel=megakernel, wavefront=wavefront).reshape(ref.shape)
     sec = time.perf_counter() - t0
     require((CM.launches > 0) == megakernel, f"{phase}: {CM.launches} megakernel launches")
+    require((CWF.launches > 0) == wavefront, f"{phase}: {CWF.launches} wavefront launches")
     require(colors.shape == ref.shape and np.isfinite(colors).all(), "oracle frame shape/finite")
     rel = np.abs(colors - ref) / (np.abs(ref) + 1e-3)
     q98 = float(np.quantile(rel, 0.98))
@@ -877,7 +944,7 @@ def phase_oracle_frame(scene, phase="oracle_frame", megakernel=False):
     mse = ((tm(colors) - tm(ref)) ** 2).mean()
     psnr = float(10 * np.log10(255.0**2 / max(mse, 1e-12)))
     emit(phase, width=640, height=360, spp=8, bounces=TESTING.max_bounces,
-         renderer="megakernel" if megakernel else "scan",
+         renderer="megakernel" if megakernel else ("wavefront" if wavefront else "scan"),
          rel_q98=q98, rel_q98_bar=1e-3, psnr_db=psnr, psnr_bar_db=35.0, seconds=sec)
     require(q98 < 1e-3, f"{phase} rel q98 {q98}")
     require(psnr > 35.0, f"{phase} PSNR {psnr}")
@@ -896,6 +963,7 @@ def phase_main_path(cfg, scene, oracle_mean, wide: bool, binary_colors=None):
     CT.reset_launches()
     CW.reset_launches()
     CM.reset_launches()
+    CWF.reset_launches()
     t0 = time.perf_counter()
     # the scan, pinned: on the card render_frame takes a wide scene through
     # the megakernel (main_path_megakernel)
@@ -906,7 +974,8 @@ def phase_main_path(cfg, scene, oracle_mean, wide: bool, binary_colors=None):
     sec = time.perf_counter() - t0
     binary_launches, wide_launches = CT.launches, CW.launches
     peak = torch.cuda.max_memory_allocated()
-    require(CM.launches == 0, f"{phase}: {CM.launches} megakernel launches in the scan")
+    require(CM.launches == 0 and CWF.launches == 0,
+            f"{phase}: {CM.launches} megakernel, {CWF.launches} wavefront launches in the scan")
 
     expected = tiles * MAIN_SPP * (1 + cfg.max_bounces)
     launches, other = (wide_launches, binary_launches) if wide else (
@@ -952,12 +1021,14 @@ def phase_main_path(cfg, scene, oracle_mean, wide: bool, binary_colors=None):
 MK_BAR = 2e-4  # tests/test_megakernel.py's bar for the JAX megakernel vs its scan
 
 
-def mk_compare(tag, got, ref, spp, sample_base, pixel_base, W, bar=MK_BAR):
+def mk_compare(tag, got, ref, spp, sample_base, pixel_base, W, bar=MK_BAR, xy=None):
     """The kernel's per-pixel sums against the plain version's: the share of
     the plain version's pixels that are finite (>= 99 %), the share of those
     within bar + bar |ref| on every channel (>= 97 %), the bit-equal share,
     the max abs error over finite pixels, and the worst pixels as (x, y,
-    first sample, samples)."""
+    first sample, samples). ``xy``: the (xs, ys) numpy arrays of a pixel
+    list (entry i is pixel (xs[i], ys[i])), else entry i is pixel
+    pixel_base + i of a row-major frame W wide."""
     got = torch.stack(got, -1).double().cpu().numpy()
     ref = torch.stack(ref, -1).double().cpu().numpy()
     finite = np.isfinite(ref).all(-1)
@@ -972,7 +1043,8 @@ def mk_compare(tag, got, ref, spp, sample_base, pixel_base, W, bar=MK_BAR):
         "close_share": float(close.sum() / max(finite.sum(), 1)), "bar": bar,
         "bit_equal_share": float(equal.mean()),
         "max_abs_err": float(err[finite].max()) if finite.any() else 0.0,
-        "worst": [{"x": int((pixel_base + i) % W), "y": int((pixel_base + i) // W),
+        "worst": [{"x": int(xy[0][i] if xy else (pixel_base + i) % W),
+                   "y": int(xy[1][i] if xy else (pixel_base + i) // W),
                    "sample": sample_base, "samples": spp,
                    "err_over_bar": float(worst_err[i])} for i in worst],
     }
@@ -1059,28 +1131,140 @@ def phase_megakernel_check(scene_wide, scene_motion):
     return max(r["max_abs_err"] for r in results)
 
 
-def phase_main_path_megakernel(cfg, scene, oracle_mean, scan_colors, scan_sec):
-    """The full-width frame through ``render_frame`` on the wide scene: the
-    megakernel, one launch per spp chunk, and neither ray-query kernel. The
-    counts are set to 0 just before and read just after."""
+def wf_case(tag, cfg, scene, xs, ys, spp, sample_base=0, with_stats=False):
+    """One call of the public entry point on the card against the plain
+    version on the same inputs (``xs``, ``ys``: int32 CUDA tensors). Returns
+    the comparisons and the kernel's output."""
+    out = path_trace_wavefront(cfg, scene, xs, ys, spp, sample_base, with_stats=with_stats,
+                               return_truncated=True, device="cuda")
+    acc, l2, n_trunc = (out[0], out[1], out[2]) if with_stats else (out[0], None, out[1])
+    ref = path_trace_wavefront_plain(cfg, scene, xs, ys, spp, sample_base, with_stats)
+    torch.cuda.synchronize()
+    require(int(n_trunc[0]) == 0, f"{tag}: {int(n_trunc[0])} samples abandoned")
+    xy = (xs.cpu().numpy(), ys.cpu().numpy())
+    res = [mk_compare(tag, tuple(acc), ref[:3], spp, sample_base, 0, cfg.image_width, xy=xy)]
+    if with_stats:
+        # the plane is a square: twice the relative error
+        res.append(mk_compare(tag + " lum2", (l2,), (ref[3],), spp, sample_base, 0,
+                              cfg.image_width, bar=2 * MK_BAR, xy=xy))
+    return res, acc
+
+
+def phase_wavefront_check(scenes, motion):
+    """The wavefront kernel against its plain version on the golden 640x360
+    frame's camera, on the binary tables and the three wide layouts, over a
+    random list of the frame's size (entries drawn with replacement, so
+    pixels repeat, plus a run of one pixel); on motion.gold's scene (binary
+    and w8) below and past its subframe rows; two launches byte-equal; on w8
+    the row-major list bit-equal to the megakernel; a cap of 8 rows; the
+    device-side average and tonemap of both fused renderers at spp 3
+    byte-equal to the host's float32 division and to_bgra."""
+    cfg = TESTING
     W, H = cfg.image_width, cfg.image_height
-    chunks = -(-MAIN_SPP // _mk_spp_chunk(W * H, MAIN_SPP, scene))
+    N = W * H
+    rng = np.random.default_rng(11)
+    xs_np = rng.integers(0, W, N).astype(np.int32)
+    ys_np = rng.integers(0, H, N).astype(np.int32)
+    xs_np[100:164], ys_np[100:164] = 300, 250  # a run of one pixel (geometry)
+    xs, ys = (torch.from_numpy(a).cuda() for a in (xs_np, ys_np))
+    rows = motion["binary"].sf_tlas_offset.shape[0]
+    past = cfg.samples_per_motion_blur_step * rows + 5
+    results, summary = [], {}
+    for name, scene in scenes.items():
+        case = lambda tag, *a, **k: wf_case(f"{name} {tag}", cfg, scene, *a, **k)
+        res, first = case("random_dups", xs, ys, 2)
+        require(bool((first.x[100:164] == first.x[100]).all()), f"{name}: duplicates differ")
+        results += res
+        results += case("spp1", xs, ys, 1)[0]
+        results += case("spp4_base5", xs, ys, 4, 5)[0]
+        results += case("with_stats", xs, ys, 2, 3, with_stats=True)[0]
+        for r in EDGE_R:
+            results += case(f"R={r}", xs[:r].contiguous(), ys[:r].contiguous(), 1, 7)[0]
+        if name in motion:
+            for tag, base in (("motion_negative_base", -3), ("motion_past_the_rows", past)):
+                results += wf_case(f"{name} {tag}", cfg, motion[name], xs, ys, 2, base)[0]
+        # an empty list launches nothing and returns empty sums
+        before = CWF.launches
+        empty = path_trace_wavefront(cfg, scene, xs[:0], ys[:0], 2, device="cuda")
+        require(CWF.launches == before and all(v.shape == (0,) for v in empty),
+                f"{name}: the empty list")
+        # two launches of one call give the same bytes
+        a = path_trace_wavefront(cfg, scene, xs, ys, 1, device="cuda")
+        b = path_trace_wavefront(cfg, scene, xs, ys, 1, device="cuda")
+        torch.cuda.synchronize()
+        require(all(torch.equal(u, v) for u, v in zip(a, b)), f"{name}: two launches differ")
+        # the step cap: at 8 rows a ray samples are abandoned and counted;
+        # an abandoned sample is not folded, an entry whose sample was not
+        # abandoned keeps its bits
+        cr, cg, cb, _, n_trunc, _ = CWF.wavefront_cuda(cfg, scene, xs, ys, 1, max_steps=8)
+        torch.cuda.synchronize()
+        capped = int(n_trunc[0])
+        moved = (cr != a.x) | (cg != a.y) | (cb != a.z)
+        require(0 < capped <= N, f"{name}: {capped} samples abandoned at a cap of 8 rows")
+        require(int(moved.sum()) <= capped
+                and bool(((cr[moved] == 0) & (cg[moved] == 0) & (cb[moved] == 0)).all()),
+                f"{name}: the step cap changed an entry it did not abandon")
+        summary[name] = {"abandoned_at_cap_8": capped, "entries_changed_at_cap_8":
+                         int(moved.sum()), "step_cap": CM.step_cap(scene)}
+    # on the row-major list, K5 on w8 is K2's body: the same bits
+    idx = torch.arange(N, dtype=torch.int32, device="cuda")
+    k5 = path_trace_wavefront(cfg, scenes["w8"], idx % W, idx // W, 2, 1, device="cuda")
+    k2 = path_trace_megakernel(cfg, scenes["w8"], N, 2, 1, device="cuda")
+    torch.cuda.synchronize()
+    require(all(torch.equal(u, v) for u, v in zip(k5, k2)), "K5 w8 differs from K2")
+    # the fused renderers' sums, average and tonemap on the device, at spp 3
+    # (a division by 3 is not a multiply by its reciprocal): the host's bytes
+    for renderer, scene in (("wavefront", scenes["binary"]), ("megakernel", scenes["w8"])):
+        wf = renderer == "wavefront"
+        colors, image = render_frame(cfg, scene, spp=3, wavefront=wf)
+        raw = render_pixels(cfg, scene, *frame_pixels(cfg), spp=3, average=False,
+                            wavefront=wf, megakernel=not wf)
+        host = (raw / np.float32(3)).reshape(H, W, 3)
+        require(colors.tobytes() == host.tobytes(), f"{renderer}: device average differs")
+        require(image.tobytes() == to_bgra(host).tobytes(), f"{renderer}: device BGRA differs")
+    for r in results:
+        emit("wavefront_check", **r)
+    emit("wavefront_check", part="summary", cases=len(results), layouts=list(scenes),
+         min_close_share=min(r["close_share"] for r in results),
+         min_bit_equal_share=min(r["bit_equal_share"] for r in results),
+         two_launches_byte_equal=True, empty_list_launches=0, samples_abandoned=0,
+         w8_bit_equal_to_megakernel=True, device_average_and_bgra_byte_equal_at_spp3=True,
+         step_cap=summary, motion_subframe_rows=rows, motion_past_base=past)
+    return max(r["max_abs_err"] for r in results)
+
+
+def phase_main_path_fused(cfg, scene, oracle_mean, scan_colors, scan_sec, wavefront: bool):
+    """The full-width frame through ``render_frame``: on the wide scene the
+    megakernel (one launch per spp chunk), or with ``wavefront=True`` on the
+    binary scene the wavefront (one launch per tile and spp chunk); no
+    ray-query kernel and not the other fused one. The counts are set to 0
+    just before and read just after."""
+    phase = "main_path_wavefront" if wavefront else "main_path_megakernel"
+    W, H = cfg.image_width, cfg.image_height
+    N = W * H
+    tiles = [min(CUDA_TILE_PIXELS, N - a) for a in range(0, N, CUDA_TILE_PIXELS)]
+    if wavefront:
+        expected = sum(-(-MAIN_SPP // _mk_spp_chunk(t, MAIN_SPP, scene)) for t in tiles)
+    else:
+        expected = -(-MAIN_SPP // _mk_spp_chunk(N, MAIN_SPP, scene))
+    counters = (CT, CW, CM, CWF)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    CT.reset_launches()
-    CW.reset_launches()
-    CM.reset_launches()
+    for mod in counters:
+        mod.reset_launches()
     t0 = time.perf_counter()
-    colors, image = render_frame(cfg, scene, spp=MAIN_SPP)
+    colors, image = render_frame(cfg, scene, spp=MAIN_SPP, wavefront=wavefront)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    launches, others = CM.launches, (CT.launches, CW.launches)
+    ct, cw, cm, cwf = (mod.launches for mod in counters)
+    launches, other_fused = (cwf, cm) if wavefront else (cm, cwf)
     peak = torch.cuda.max_memory_allocated()
     require(colors.shape == (H, W, 3) and image.shape == (H, W, 4), "frame shape")
     require(image.dtype == np.uint8, "image dtype")
     require(np.isfinite(colors).all(), "non-finite radiance")
-    require(launches == chunks, f"{launches} megakernel launches, expected {chunks}")
-    require(others == (0, 0), f"ray-query kernel launches {others}")
+    require(launches == expected, f"{phase}: {launches} launches, expected {expected}")
+    require((ct, cw, other_fused) == (0, 0, 0),
+            f"{phase}: ray-query kernel launches {(ct, cw)}, other fused {other_fused}")
     mean_ratio = float(np.minimum(colors, 10.0).mean()) / oracle_mean
     require(0.9 < mean_ratio < 1.1, f"mean radiance vs oracle frame: {mean_ratio}")
     # against the scan's frame on the same scene, at the JAX bar (on the
@@ -1089,43 +1273,85 @@ def phase_main_path_megakernel(cfg, scene, oracle_mean, scan_colors, scan_sec):
                                                                  * MAIN_SPP))
                            for k in range(3))
     vs_scan = mk_compare("vs scan frame", sums(colors), sums(scan_colors), MAIN_SPP, 0, 0, W)
-    colors2, image2 = render_frame(cfg, scene, spp=MAIN_SPP)
+    colors2, image2 = render_frame(cfg, scene, spp=MAIN_SPP, wavefront=wavefront)
     require(colors2.tobytes() == colors.tobytes() and image2.tobytes() == image.tobytes(),
-            "a second megakernel frame differs")
+            f"{phase}: a second frame differs")
     # where the frame's wall time goes: render_frame's steps once more, one
-    # by one, on the host's clock (the kernel's own time is in the
-    # megakernel_timing phase)
+    # by one, on the host's clock, each ending in a synchronise (the kernel's
+    # own time is in the timing phases). render_frame makes its row-major
+    # list on the device and does not check it; render_pixels checks a numpy
+    # list (row_major_check)
+    dev = torch.device("cuda")
     xs, ys = frame_pixels(cfg)
-    steps, t0 = {}, time.perf_counter()
-    megakernel_supported(scene, xs, ys, W)
-    steps["megakernel_supported"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    raw = _render_megakernel(cfg, scene, W * H, MAIN_SPP, 0, torch.device("cuda"))
-    steps["launch_and_copy_back"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    avg = (raw / np.float32(MAIN_SPP)).reshape(H, W, 3)
-    steps["average"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    to_bgra(avg)
-    steps["to_bgra"] = time.perf_counter() - t0
-    require(avg.tobytes() == colors.tobytes(), "the steps one by one give another frame")
+    steps = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        return out
+
+    def device_list():
+        idx = torch.arange(N, dtype=torch.int32, device=dev)
+        return torch.remainder(idx, W), idx.div_(W, rounding_mode="floor")
+
+    dxs, dys = step("pixel_list", device_list)
+    raw = step("launches_and_sums", lambda: _render_fused(
+        cfg, scene, dxs, dys, MAIN_SPP, 0, dev, wavefront, CUDA_TILE_PIXELS))
+    avg = step("average", lambda: _average(raw, MAIN_SPP).view(H, W, 3))
+    bgra = step("tonemap", lambda: _bgra(avg))
+    host = step("copy_back", lambda: (avg.cpu().numpy(), bgra.cpu().numpy()))
+    require(step("row_major_check", lambda: _row_major(xs, ys, W)), "the list is not row-major")
+    require(host[0].tobytes() == colors.tobytes() and host[1].tobytes() == image.tobytes(),
+            "the steps one by one give another frame")
     out = ROOT / "output"
     out.mkdir(exist_ok=True)
-    bmp = out / "chip_smoke_frame_megakernel.bmp"
+    bmp = out / f"chip_smoke_frame_{'wavefront' if wavefront else 'megakernel'}.bmp"
     write_bmp(str(bmp), image)
     back = read_bmp(str(bmp))
     require(np.array_equal(back[..., ::-1], image[..., :3]), "BMP round trip")
-    emit("main_path_megakernel", width=W, height=H, bounces=cfg.max_bounces, spp=MAIN_SPP,
-         spp_reduced_from=PRODUCTION.samples_per_pixel, chunks=chunks, launches=launches,
-         launches_of_ray_query_kernels=list(others), seconds=sec,
-         msamples_per_s=W * H * MAIN_SPP / sec / 1e6,
+    emit(phase, width=W, height=H, bounces=cfg.max_bounces, spp=MAIN_SPP,
+         spp_reduced_from=PRODUCTION.samples_per_pixel, tiles=len(tiles) if wavefront else 1,
+         launches=launches, launches_expected=expected,
+         launches_of_ray_query_kernels=[ct, cw], launches_of_other_fused_kernel=other_fused,
+         seconds=sec, msamples_per_s=N * MAIN_SPP / sec / 1e6,
          scan_frame_seconds=scan_sec, speedup_vs_scan_frame=scan_sec / sec,
          peak_memory_allocated_bytes=int(peak), mean_vs_oracle=mean_ratio,
          vs_scan_frame={k: vs_scan[k] for k in ("finite_share", "close_share", "bar",
                                                 "bit_equal_share", "max_abs_err")},
          second_frame_byte_equal=True, host_steps_s=steps,
+         host_steps_sum_s=sum(v for k, v in steps.items() if k != "row_major_check"),
          bmp=str(bmp.relative_to(ROOT)), bmp_bytes=bmp.stat().st_size)
-    return launches, sec, peak
+    return launches, sec, peak, vs_scan["bit_equal_share"]
+
+
+def path_kernel_bound(scene, counts, n: int, io_bytes: int) -> dict:
+    """The bound of a path kernel's launch from its counting build's
+    counters (CM.COUNT_NAMES): the walk's visits (slab tests, triangle tests,
+    BLAS entries) and the shading calls at their counted flops, against every
+    table the kernel reads, read once (over millions of samples each row is
+    read), and ``io_bytes`` of list and output."""
+    c = dict(zip(CM.COUNT_NAMES, counts.tolist()))
+    flops = (c["slab_tests"] * NODE_FLOPS + c["tri_tests"] * TRI_FLOPS
+             + c["inst_rows"] * INST_FLOPS
+             + sum(c[k] * f for k, f in MK_FLOPS.items()))
+    nb = lambda x: 0 if x is None else x.numel() * x.element_size()
+    if scene.wide_rows is not None:
+        tables = (scene.wide_rows, scene.wide_root, scene.inst_f, scene.inst_u,
+                  scene.tri_shade, scene.sf_cam, scene.sf_light, scene.sf_tlas_offset)
+    else:
+        tables = (scene.nl8, scene.tri_pos, scene.inst_f, scene.inst_u, scene.tri_idx,
+                  scene.vattr, scene.sf_cam, scene.sf_light, scene.sf_tlas_count,
+                  scene.sf_tlas_offset)
+    table_b = sum(nb(x) for x in tables)
+    b = bound(table_b, io_bytes, 0, flops)
+    return {"pixels": n, "spp": MAIN_SPP, "flops": flops, "table_bytes": table_b,
+            "counts": c,
+            "rows_per_ray": (c["node_rows"] + c["leaf_rows"] + c["inst_rows"]) / c["rays"],
+            "rays_per_sample": c["rays"] / c["samples"],
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "bound_bytes_ms": b["bound_bytes_ms"], "bound_ops_ms": b["bound_ops_ms"]}
 
 
 def phase_megakernel_timing(cfg, scene, smi):
@@ -1138,27 +1364,41 @@ def phase_megakernel_timing(cfg, scene, smi):
     t = time_launches({"k2": lambda: CM.megakernel_cuda(cfg, scene, n, MAIN_SPP)}, reps=3)
     ms, all_ms = t["k2"]
     *_, counts = CM.megakernel_cuda(cfg, scene, n, MAIN_SPP, counts=True)
-    c = dict(zip(CM.COUNT_NAMES, counts.tolist()))
-    require(c["samples"] == n * MAIN_SPP, f"counted {c['samples']} samples")
-    flops = (c["slab_tests"] * NODE_FLOPS + c["tri_tests"] * TRI_FLOPS
-             + c["inst_rows"] * INST_FLOPS
-             + sum(c[k] * f for k, f in MK_FLOPS.items()))
-    # every table the kernel reads, once (over 16.6 M samples each row is
-    # read), and the three output planes written once
-    nb = lambda x: 0 if x is None else x.numel() * x.element_size()
-    table_b = sum(nb(x) for x in (scene.wide_rows, scene.wide_root, scene.inst_f,
-                                  scene.inst_u, scene.tri_shade, scene.sf_cam,
-                                  scene.sf_light, scene.sf_tlas_offset))
-    b = bound(table_b, 3 * 4 * n, 0, flops)
-    res = {"pixels": n, "spp": MAIN_SPP, "ms": ms, "ms_all": all_ms, "flops": flops,
-           "table_bytes": table_b, "counts": c,
-           "rows_per_ray": (c["wide_rows"] + c["leaf_rows"] + c["inst_rows"]) / c["rays"],
-           "rays_per_sample": c["rays"] / c["samples"],
-           "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-           "bound_bytes_ms": b["bound_bytes_ms"], "bound_ops_ms": b["bound_ops_ms"],
-           "roofline_share": b["bound_ms"] / ms, "card": smi}
+    res = path_kernel_bound(scene, counts, n, 3 * 4 * n)
+    require(res["counts"]["samples"] == n * MAIN_SPP, f"counted {res['counts']['samples']}")
+    res.update(ms=ms, ms_all=all_ms, roofline_share=res["bound_ms"] / ms, card=smi)
     emit("megakernel_timing", **res)
     return res
+
+
+def phase_wavefront_timing(cfg, binary, wide, smi):
+    """One wavefront launch at the main path's shape (the whole 1080p frame's
+    list, 8 spp: render_frame's one tile and one chunk) on the binary scene
+    and on the w8 scene, timed in turns with the megakernel's launch on the
+    w8 scene (L2 flushed, median of 3); the bound of each wavefront launch
+    from its counting build's counters."""
+    W, H = cfg.image_width, cfg.image_height
+    n = W * H
+    require(n <= CUDA_TILE_PIXELS and _mk_spp_chunk(n, MAIN_SPP, binary) == MAIN_SPP,
+            "the main path is one tile and one chunk")
+    idx = torch.arange(n, dtype=torch.int32, device="cuda")
+    xs, ys = idx % W, idx // W
+    t = time_launches({
+        "binary": lambda: CWF.wavefront_cuda(cfg, binary, xs, ys, MAIN_SPP),
+        "w8": lambda: CWF.wavefront_cuda(cfg, wide, xs, ys, MAIN_SPP),
+        "k2_w8": lambda: CM.megakernel_cuda(cfg, wide, n, MAIN_SPP),
+    }, reps=3)
+    out = {}
+    for name, scene in (("binary", binary), ("w8", wide)):
+        *_, counts = CWF.wavefront_cuda(cfg, scene, xs, ys, MAIN_SPP, counts=True)
+        res = path_kernel_bound(scene, counts, n, (2 * 4 + 3 * 4) * n)
+        require(res["counts"]["samples"] == n * MAIN_SPP, f"counted {res['counts']['samples']}")
+        ms, all_ms = t[name]
+        res.update(layout=name, ms=ms, ms_all=all_ms, roofline_share=res["bound_ms"] / ms,
+                   k2_w8_ms_same_call=t["k2_w8"][0], k2_w8_ms_all=t["k2_w8"][1], card=smi)
+        emit("wavefront_timing", **res)
+        out[name] = res
+    return out
 
 
 def main() -> int:
@@ -1206,18 +1446,26 @@ def main() -> int:
     oracle_mean = phase_oracle_frame(scene)
     phase_oracle_frame(wide_scenes[MAIN_LAYOUT], "oracle_frame_wide")
     phase_oracle_frame(wide_scenes[MAIN_LAYOUT], "oracle_frame_megakernel", megakernel=True)
-    motion_wide = scene_device_from_motion_golden(
-        load_golden(str(GOLDEN / "motion.gold")), wide=True, wide_layout=MAIN_LAYOUT
-    )
+    phase_oracle_frame(scene, "oracle_frame_wavefront", wavefront=True)
+    motion_g = load_golden(str(GOLDEN / "motion.gold"))
+    motion_wide = scene_device_from_motion_golden(motion_g, wide=True, wide_layout=MAIN_LAYOUT)
     mk_err = phase_megakernel_check(wide_scenes[MAIN_LAYOUT], motion_wide)
-    launches, colors, _ = phase_main_path(prod_cfg, prod_scene, oracle_mean, wide=False)
+    wf_err = phase_wavefront_check(
+        {"binary": scene, **wide_scenes},
+        {"binary": scene_device_from_motion_golden(motion_g), MAIN_LAYOUT: motion_wide},
+    )
+    launches, colors, scan_sec = phase_main_path(prod_cfg, prod_scene, oracle_mean, wide=False)
     wide_launches, wide_colors, wide_sec = phase_main_path(
         prod_cfg, prod_wide, oracle_mean, wide=True, binary_colors=colors
     )
-    mk_launches, mk_sec, mk_peak = phase_main_path_megakernel(
-        prod_cfg, prod_wide, oracle_mean, wide_colors, wide_sec
+    mk_launches, mk_sec, mk_peak, _ = phase_main_path_fused(
+        prod_cfg, prod_wide, oracle_mean, wide_colors, wide_sec, wavefront=False
+    )
+    wf_launches, wf_sec, wf_peak, wf_equal = phase_main_path_fused(
+        prod_cfg, prod_scene, oracle_mean, colors, scan_sec, wavefront=True
     )
     mk_time = phase_megakernel_timing(prod_cfg, prod_wide, smi)
+    wf_time = phase_wavefront_timing(prod_cfg, prod_scene, prod_wide, smi)
 
     emit("done", seconds=time.perf_counter() - t_start)
     # the batch launched max_bounces times of 1+max_bounces
@@ -1314,6 +1562,34 @@ def main() -> int:
             "registers_spills_timed_build":
                 built["megakernel"]["registers_spills_by_layout"]["timed"],
             "blocks_per_sm": built["megakernel"]["blocks_per_sm"],
+            "card": smi,
+        },
+        {
+            "name": "wavefront",
+            "route": "cuda",
+            "source": SOURCES["wavefront"],
+            "replaces": "pathtracing_tpu/ops/wavefront.py:83",
+            "layout": "binary",
+            "launches": wf_launches,
+            "max_abs_err": wf_err,
+            "ms": wf_time["binary"]["ms"],
+            # the scan frame's time on the same scene (main_path)
+            "plain_ms": scan_sec * 1e3,
+            "bound_ms": wf_time["binary"]["bound_ms"],
+            "bound_by": wf_time["binary"]["bound_by"],
+            "library_ms": None,  # no single PyTorch call renders a path
+            "shape": f"{prod_cfg.image_width}x{prod_cfg.image_height} list x {MAIN_SPP} spp, "
+                     f"{prod_cfg.max_bounces} bounces, one launch",
+            "w8": {k: wf_time["w8"][k] for k in ("ms", "bound_ms", "bound_by",
+                                                 "k2_w8_ms_same_call")},
+            "frame_seconds": wf_sec,
+            "msamples_per_s": prod_cfg.image_width * prod_cfg.image_height * MAIN_SPP
+                              / wf_sec / 1e6,
+            "peak_memory_allocated_bytes": int(wf_peak),
+            "frame_bit_equal_share_vs_scan": wf_equal,
+            **regs("wavefront"),
+            "registers_spills_by_layout": built["wavefront"]["registers_spills_by_layout"],
+            "blocks_per_sm": built["wavefront"]["blocks_per_sm"],
             "card": smi,
         },
     ]}), flush=True)

@@ -1,0 +1,340 @@
+// One pixel's samples of the reference's path loop, as a device function,
+// shared by the megakernel (megakernel.cu, K2: pixel slots of a row-major
+// frame, wide tables) and the wavefront kernel (wavefront.cu, K5: any (x, y)
+// list, binary or wide tables).
+//
+// trace_sample is one sample (ops/integrator.path_trace_samples):
+//   film draw; camera ray; primary closest walk; shade; conditional
+//   atmosphere draw; then per bounce: NEE draw, BSDF draw, any-hit shadow
+//   walk (when the NEE colour is not black), closest bounce walk, shade,
+//   nee_finish, MIS, conditional atmosphere draw, regularisation.
+// That is the per-lane draw order of the JAX package's megakernel and
+// wavefront loops (film; cond-atmo; per bounce nee, bsdf, cond-atmo).  A
+// path ends on a miss or after max_bounces.  The primary ray has tmin 0.
+//
+// It is a template on two policies:
+//   Walk   how a ray is walked: WideWalk<S, L, STUB> (wide_walk.cuh, the
+//          subframe's TLAS root from sf_tlas_offset) or BinaryWalk
+//          (binary_walk.cuh, the subframe's TLAS count and offset from
+//          sf_tlas_count / sf_tlas_offset);
+//   Fetch  how a closest hit is shaded: PackedFetch (one tri_shade row) or
+//          UnpackedFetch (tri_idx, vattr, tri_pos: the scan's fetch).
+// The two fetches give the same bits (tests/test_torch_shade_packed.py).
+//
+// trace_samples folds a pixel's samples [sample_base, sample_base + spp):
+// in sample order, in registers, from 0.0f, with the luminance-squared plane
+// beside them when asked; a sample one of whose walks hits the step cap is
+// abandoned (not folded) and counted.  No float atomics: two launches give
+// the same bytes, and the order is the plain version's (a sample-ordered sum
+// of path_trace_samples).
+//
+// Each subframe row index is clamped into its own table, as XLA clamps a
+// gather index; a negative sample index uses subframe 0; sample_base + s
+// wraps as int32.
+//
+// Parity: built with --fmad=false, IEEE division and square root, no
+// fast-math, no flush-to-zero (ops/cuda_build.py); shading.cuh has the rules
+// that keep a sample on the plain version's bits.
+//
+// This header's bytes are part of the hash of every library that includes it
+// (ops/cuda_build.py): an edit here rebuilds K2 and K5.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "binary_walk.cuh"
+#include "ray_common.cuh"
+#include "shading.cuh"
+#include "wide_walk.cuh"
+
+namespace ptq {
+
+// A subframe row index clamped into a table of n rows, as XLA clamps a
+// gather index (ops/integrator.camera_sample).
+__device__ __forceinline__ int clamp_row(int i, int n) { return i < 0 ? 0 : (i >= n ? n - 1 : i); }
+
+// What every sample reads besides the walk's and the fetch's tables.
+struct PathParams {
+    const float* sf_cam;    // (S, 18) f32
+    const float* sf_light;  // (S, 7) f32
+    int n_cam, n_light;
+    int spp, sample_base, width, height, max_bounces, smbs, max_steps;
+    uint32_t student_id;
+    float min_ray_dist, max_ray_dist, gamma;
+};
+
+// ---------------------------------------------------------------- walks
+
+template <int S, int L, bool STUB>
+struct WideWalk {
+    const float4* rows;         // (M, W) f32 mega-table
+    const uint32_t* wide_root;  // (K, 8) root cursors
+    const int* root_base;       // one int32, or null
+    const float4* tri_pos;      // (T, 12) f32 (stub leaves)
+    const int* inst_u;          // (I, 6) i32
+    const int* sf_tlas_offset;  // (S,) i32
+    int n_tlas;
+
+    struct Root { int offset; };
+    __device__ __forceinline__ Root root(int subframe) const {
+        return {__ldg(sf_tlas_offset + clamp_row(subframe, n_tlas))};
+    }
+    template <class Count>
+    __device__ __forceinline__ bool walk(Root r, V3 o, V3 d, bool any, float tmin,
+                                        float& tmax, int& c_inst, int& c_prim,
+                                        bool& occluded, int max_steps, Count& count) const {
+        return wide_walk<S, L, STUB, true>(rows, tri_pos, inst_u,
+                                           root_cursor(wide_root, root_base, r.offset, d), o,
+                                           d, safe_inv(d), any, tmin, tmax, c_inst, c_prim,
+                                           occluded, max_steps, count);
+    }
+};
+
+struct BinaryWalk {
+    const float4* nl8;          // (8N, 8) f32
+    const float4* tri_pos;      // (T, 12) f32
+    const float* inst_f;        // (I, 21) f32
+    const int* inst_u;          // (I, 6) i32
+    const int* sf_tlas_count;   // (S,) i32
+    const int* sf_tlas_offset;  // (S,) i32
+    int n_tlas_count, n_tlas;
+
+    struct Root { int count, offset; };
+    __device__ __forceinline__ Root root(int subframe) const {
+        return {__ldg(sf_tlas_count + clamp_row(subframe, n_tlas_count)),
+                __ldg(sf_tlas_offset + clamp_row(subframe, n_tlas))};
+    }
+    template <class Count>
+    __device__ __forceinline__ bool walk(Root r, V3 o, V3 d, bool any, float tmin,
+                                        float& tmax, int& c_inst, int& c_prim,
+                                        bool& occluded, int max_steps, Count& count) const {
+        return binary_walk<true>(nl8, tri_pos, inst_f, inst_u, r.count, r.offset, o, d,
+                                 safe_inv(d), any, tmin, tmax, c_inst, c_prim, occluded,
+                                 max_steps, count);
+    }
+};
+
+// -------------------------------------------------------------- fetches
+
+struct PackedFetch {
+    const float* tri_shade;  // (T, 48) f32
+    const float* inst_f;     // (I, 21) f32
+    const int* inst_u;       // (I, 6) i32
+    __device__ __forceinline__ HitInfo shade(const Light& light, int c_inst, int c_prim,
+                                             float thit, V3 o, V3 d) const {
+        return shade_hit_packed(tri_shade, inst_f, inst_u, light, c_inst, c_prim, thit, o, d);
+    }
+};
+
+struct UnpackedFetch {
+    const float4* tri_pos;  // (T, 12) f32
+    const int* tri_idx;     // (T, 4) i32
+    const float* vattr;     // (V, 12) f32
+    const float* inst_f;    // (I, 21) f32
+    const int* inst_u;      // (I, 6) i32
+    __device__ __forceinline__ HitInfo shade(const Light& light, int c_inst, int c_prim,
+                                             float thit, V3 o, V3 d) const {
+        return shade_hit_unpacked(tri_pos, tri_idx, vattr, inst_f, inst_u, light, c_inst,
+                                  c_prim, thit, o, d);
+    }
+};
+
+// ------------------------------------------------------------- counting
+
+// The counting builds' counters, in the order of COUNT_NAMES in
+// ops/cuda_megakernel.py.
+enum {
+    kSamples, kNodeRows, kLeafRows, kInstRows, kSlabTests, kTriTests, kRays,
+    kShadeHits, kShadeMisses, kAtmoMarches, kNeeEvals, kNeeMarches,
+    kBsdfSamples, kNCounts
+};
+
+struct NoPathCount : NoWalkCount {
+    __device__ __forceinline__ void add(int) {}
+    __device__ __forceinline__ void flush(unsigned long long*) {}
+};
+
+struct PathCount {
+    uint32_t c[kNCounts];
+    __device__ __forceinline__ PathCount() {
+#pragma unroll
+        for (int k = 0; k < kNCounts; ++k) c[k] = 0;
+    }
+    __device__ __forceinline__ void node_row(int slabs) {
+        ++c[kNodeRows];
+        c[kSlabTests] += (uint32_t)slabs;
+    }
+    __device__ __forceinline__ void leaf_row(int tris) {
+        ++c[kLeafRows];
+        c[kTriTests] += (uint32_t)tris;
+    }
+    __device__ __forceinline__ void inst_row() { ++c[kInstRows]; }
+    __device__ __forceinline__ void add(int k) { ++c[k]; }
+    __device__ __forceinline__ void flush(unsigned long long* out) {
+#pragma unroll
+        for (int k = 0; k < kNCounts; ++k)
+            if (c[k]) atomicAdd(out + k, (unsigned long long)c[k]);
+    }
+};
+
+// ---------------------------------------------------------------- paths
+
+// One sample of one pixel (ops/integrator.path_trace_samples); false when a
+// walk hit the step cap (the sample is then abandoned).
+template <class Walk, class Fetch, class Count>
+__device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
+                                             const PathParams& p, int x, int y,
+                                             int sample_index, V3& contrib, Count& count) {
+    // ---- camera_sample: seed warm-up, film/aperture draw, camera ray ----
+    const int subframe = sample_index < 0 ? 0 : sample_index / p.smbs;
+    Seed seed = pcg4d({(uint32_t)x, (uint32_t)y, (uint32_t)sample_index, p.student_id});
+    const F4 u = uniform4(seed);
+    const V2 film = sample_gaussian_weighted_disk_04(u.x, u.y);
+    const Camera cam = camera_from_row(p.sf_cam + 18 * (size_t)clamp_row(subframe, p.n_cam));
+    const Light light = light_from_row(p.sf_light + 7 * (size_t)clamp_row(subframe, p.n_light));
+    const typename Walk::Root root = w.root(subframe);
+    V3 ray_o, ray_d;
+    get_camera_ray(cam, u.z, u.w, (float)x + (film.x + 0.5f), (float)y + (film.y + 0.5f),
+                   p.width, p.height, ray_d, ray_o);
+    count.add(kSamples);
+
+    contrib = {0.0f, 0.0f, 0.0f};
+    V3 attenuation = {1.0f, 1.0f, 1.0f}, bsdf_atten = {0.0f, 0.0f, 0.0f};
+    float regularization = 1.0f, roughness = 0.0f, bsdf_pdf = 0.0f;
+    float tmin = 0.0f;  // the primary ray's (trace_ray passes 0)
+    NeeState nee;
+    bool occluded = false;
+    for (int b = 0;; ++b) {
+        // ---- the closest ray: primary (b == 0) or bounce b ----
+        float tmax = p.max_ray_dist;
+        int c_inst, c_prim;
+        bool unused;
+        count.add(kRays);
+        if (!w.walk(root, ray_o, ray_d, false, tmin, tmax, c_inst, c_prim, unused,
+                    p.max_steps, count))
+            return false;
+        const HitInfo info =
+            fe.shade(light, c_inst, c_prim, c_inst >= 0 ? tmax : -1.0f, ray_o, ray_d);
+        count.add(c_inst >= 0 ? kShadeHits : kShadeMisses);
+        V3 atmo_att, in_scatter;
+        if (b == 0) {
+            if (atmosphere_scattering(seed, light.direction, light.color, ray_o, ray_d,
+                                      info.thit, atmo_att, in_scatter))
+                count.add(kAtmoMarches);
+            contrib = (contrib + in_scatter) + atmo_att * info.m.albedo * info.emission;
+            attenuation = atmo_att;
+            roughness = info.m.roughness;
+        } else {
+            // NEE of the previous hit (its position is this ray's origin)
+            V3 nee_color;
+            if (nee_finish(nee, light, ray_o, occluded, p.max_ray_dist, nee_color))
+                count.add(kNeeMarches);
+            contrib = contrib + attenuation * nee_color;
+            // guarded divisions: pdf == 0 keeps the reference's inf
+            const float pdf_safe = bsdf_pdf == 0.0f ? 1.0f : bsdf_pdf;
+            const float mis_pdf =
+                bsdf_pdf < 0.0f
+                    ? -bsdf_pdf
+                    : (bsdf_pdf == 0.0f
+                           ? f_inf()
+                           : (info.nee_pdf * info.nee_pdf + bsdf_pdf * bsdf_pdf) / pdf_safe);
+            attenuation = attenuation * bsdf_atten;
+            if (atmosphere_scattering(seed, light.direction, light.color, ray_o, ray_d,
+                                      info.thit, atmo_att, in_scatter))
+                count.add(kAtmoMarches);
+            const float inv_mis = isinf(mis_pdf) ? 0.0f : 1.0f / mis_pdf;
+            contrib = contrib +
+                      attenuation * (in_scatter + atmo_att * info.m.albedo * info.emission) *
+                          inv_mis;
+            const float inv_abs_pdf = bsdf_pdf == 0.0f ? f_inf() : 1.0f / fabsf(pdf_safe);
+            attenuation = attenuation * atmo_att * inv_abs_pdf;
+            // path-space regularization (reference: path_tracer.hh:734-737);
+            // RECIP: gamma / pow(pdf, 0.25) is reciprocal(pow) * gamma
+            if (bsdf_pdf > 0.0f)
+                regularization =
+                    regularization *
+                    clamp_min(1.0f - (1.0f / powf(bsdf_pdf, 0.25f)) * p.gamma, 0.0f);
+            roughness = 1.0f - (1.0f - info.m.roughness) * regularization;
+        }
+        if (b == p.max_bounces || !(info.thit > 0.0f)) return true;
+
+        // ---- bounce b + 1: tangent-space view, NEE and BSDF draws ----
+        V3 view = info.tbn.vec_mul(-ray_d);
+        view.z = view.z < 1e-7f ? 1e-7f : view.z;
+        view = normalize3(view);
+        Material m = info.m;
+        m.roughness = roughness;
+        nee = nee_prepare(seed, light, info, m, view);
+        count.add(kNeeEvals);
+        const F4 ub = uniform4(seed);
+        const BsdfSample smp = sample_bsdf(ub.x, ub.y, ub.z, view, m);
+        count.add(kBsdfSamples);
+        bsdf_atten = smp.attenuation;
+        bsdf_pdf = smp.pdf;
+        ray_o = info.pos;
+        ray_d = normalize3(info.tbn.mul_vec(smp.direction));
+        tmin = p.min_ray_dist;
+
+        // ---- the any-hit shadow ray, only for a NEE colour that is not black
+        occluded = false;
+        if (!nee.black) {
+            float tmax_s = p.max_ray_dist;
+            int unused_inst, unused_prim;
+            count.add(kRays);
+            if (!w.walk(root, info.pos, nee.light_dir, true, p.min_ray_dist, tmax_s,
+                        unused_inst, unused_prim, occluded, p.max_steps, count))
+                return false;
+        }
+    }
+}
+
+// Per-pixel sums of a thread's samples, and the samples it abandoned.
+struct Sums {
+    float r, g, b, l2;
+    int truncated;
+};
+
+// Samples [p.sample_base, p.sample_base + p.spp) of pixel (x, y), folded in
+// sample order from 0.0f; the luminance-squared sum only `with_l2`.
+template <class Walk, class Fetch, class Count>
+__device__ __forceinline__ Sums trace_samples(const Walk& w, const Fetch& fe,
+                                              const PathParams& p, int x, int y,
+                                              bool with_l2, Count& count) {
+    Sums s = {0.0f, 0.0f, 0.0f, 0.0f, 0};
+    for (int k = 0; k < p.spp; ++k) {
+        // sample_base + k as int32 (wraps as XLA's add does)
+        const int sample_index = (int)((uint32_t)p.sample_base + (uint32_t)k);
+        V3 c;
+        if (!trace_sample(w, fe, p, x, y, sample_index, c, count)) {
+            ++s.truncated;
+            continue;
+        }
+        s.r = s.r + c.x;
+        s.g = s.g + c.y;
+        s.b = s.b + c.z;
+        if (with_l2) {
+            const float lum = 0.2126f * c.x + 0.7152f * c.y + 0.0722f * c.z;
+            s.l2 = s.l2 + lum * lum;
+        }
+    }
+    return s;
+}
+
+// Where a path kernel writes: one entry's sums, once.
+struct Out {
+    float *r, *g, *b, *l2;       // (n,) sums; l2 null without stats
+    int* n_truncated;            // one int32, added to
+    unsigned long long* counts;  // kNCounts, added to (counting build only)
+
+    __device__ __forceinline__ void write(int i, const Sums& s) const {
+        r[i] = s.r;
+        g[i] = s.g;
+        b[i] = s.b;
+        if (l2) l2[i] = s.l2;
+        if (s.truncated) atomicAdd(n_truncated, s.truncated);
+    }
+};
+
+}  // namespace ptq

@@ -1,14 +1,15 @@
-// Device functions shared by the ray-query kernels (ray_query.cu: the binary
-// two-level walk; wide_ray_query.cu: the wide mega-table walk): reciprocal
-// direction, octant, the watertight triangle test, the instance transform,
-// and the result record both kernels write.
+// Device functions shared by the walks (binary_walk.cuh: the binary
+// two-level walk; wide_walk.cuh: the wide mega-table walk) and every kernel
+// that runs one: reciprocal direction, octant, the watertight triangle test,
+// the instance transform, the finalize step's triangle test, the result
+// record the ray-query kernels write, and the walks' empty counting hooks.
 //
-// Both kernels must agree bit for bit with their plain PyTorch versions and
+// The kernels must agree bit for bit with their plain PyTorch versions and
 // with each other, so every expression here keeps the evaluation order of
 // ops/traversal.py and the sources are built with --fmad=false.
 //
-// This header's bytes are part of both libraries' hash (ops/cuda_build.py):
-// an edit here rebuilds both.
+// This header's bytes are part of every library's hash that includes it
+// (ops/cuda_build.py): an edit here rebuilds them.
 
 #pragma once
 
@@ -131,6 +132,23 @@ __device__ __forceinline__ void write_miss(const HitOut& out, int r) {
     out.occ[r] = 0;
 }
 
+// The finalize step's triangle test (_finalize_hit of ops/traversal.py):
+// (u, v, t, back) of a hit re-derived from its ids, by one triangle test on
+// the ray in the instance's space.  The scan's shade_hit re-derives (u, v,
+// t) by the same test and takes `back` from the finalize step, so the
+// unpacked shading fetch (shading.cuh) calls this too.
+__device__ __forceinline__ void hit_surface(
+    const float4* __restrict__ tri_pos, const float* __restrict__ inst_f,
+    const int* __restrict__ inst_u, V3 org, V3 dir, int c_inst, int c_prim,
+    float& u, float& v, float& t, bool& back) {
+    V3 bo, bd, S, p0, p1, p2;
+    int axis;
+    instance_ray(inst_f + 21 * (size_t)c_inst, org, dir, bo, bd);
+    tri_preprocess(bd, axis, S);
+    load_tri(tri_pos, __ldg(inst_u + 6 * (size_t)c_inst + 4) + c_prim, p0, p1, p2);
+    tri_intersect(bo, axis, S, p0, p1, p2, u, v, t, back);
+}
+
 // _finalize_hit of ops/traversal.py: thit = tmax; (u, v, back) once more from
 // the hit ids by one triangle test; miss -> thit -1, inst -1, prim 0.
 __device__ __forceinline__ void finalize_hit(
@@ -141,13 +159,8 @@ __device__ __forceinline__ void finalize_hit(
     float u = 0.f, v = 0.f;
     bool back = false;
     if (hitm) {
-        V3 bo, bd, S, p0, p1, p2;
-        int axis;
         float t;
-        instance_ray(inst_f + 21 * (size_t)c_inst, org, dir, bo, bd);
-        tri_preprocess(bd, axis, S);
-        load_tri(tri_pos, __ldg(inst_u + 6 * (size_t)c_inst + 4) + c_prim, p0, p1, p2);
-        tri_intersect(bo, axis, S, p0, p1, p2, u, v, t, back);
+        hit_surface(tri_pos, inst_f, inst_u, org, dir, c_inst, c_prim, u, v, t, back);
     }
     out.thit[r] = hitm ? tmax : -1.0f;
     out.bu[r] = u;
@@ -157,6 +170,18 @@ __device__ __forceinline__ void finalize_hit(
     out.back[r] = back ? 1 : 0;
     out.occ[r] = occluded ? 1 : 0;
 }
+
+// What a walk counts: nothing (the ray-query kernels, the path kernels'
+// timed builds), or its row visits and tests (the path kernels' counting
+// builds, for the bound chip_smoke.py reports).  A node row is a binary
+// node or a WIDE row (with the slab tests it needed), a leaf row a LEAF row
+// or one binary triangle test (with the triangle tests it made), an inst row
+// a BLAS entry.  The empty hooks compile away.
+struct NoWalkCount {
+    __device__ __forceinline__ void node_row(int) {}
+    __device__ __forceinline__ void leaf_row(int) {}
+    __device__ __forceinline__ void inst_row() {}
+};
 
 // Blocks of `kernel` one SM holds at once (negative: minus the CUDA error);
 // the kernels export it for the report of resident warps.

@@ -2,13 +2,10 @@
 //
 // Replaces the TPU kernel pathtracing_tpu/ops/pallas_traversal.py::_kernel
 // (launched by ray_query_pallas).  It computes the same function: for each
-// ray the one-speed state machine of ops/traversal.py::_full_step (range
-// check / BLAS pop, nl8 row read at link_off + node, slab test, accept/cancel
-// link follow, TLAS leaf -> BLAS entry through the instance's inverse
-// transform, BLAS leaf -> watertight triangle test, confirm tmin < t < tmax;
-// closest lanes shrink tmax and keep the ids, any-hit lanes set `occluded`
-// and stop), then _finalize_hit (thit = tmax; u, v, back re-derived from the
-// hit ids by one more triangle test; miss -> thit -1, inst -1, prim 0).
+// ray the one-speed state machine of ops/traversal.py::_full_step, which is
+// the walk of binary_walk.cuh (shared with the wavefront kernel,
+// wavefront.cu), then _finalize_hit (thit = tmax; u, v, back re-derived from
+// the hit ids by one more triangle test; miss -> thit -1, inst -1, prim 0).
 //
 // What bounds it on an H100: issue and latency, not device memory.  The
 // golden scene's tables (1.5 MB) sit in the 50 MB L2; a node visit reads
@@ -45,6 +42,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "binary_walk.cuh"
 #include "ray_common.cuh"
 
 namespace {
@@ -79,97 +77,14 @@ __global__ void __launch_bounds__(kBlock) ray_query_kernel(
 
     const V3 org = {ox[r], oy[r], oz[r]};
     const V3 dir = {dx[r], dy[r], dz[r]};
-    const int t_count = tlas_count[r];
-    const int t_link_off = tlas_offset[r] * 8 + octant(dir) * t_count;
-    const V3 t_inv = safe_inv(dir);
     const bool any = anyhit_lane ? anyhit_lane[r] != 0 : anyhit_all != 0;
-
     float tmax = tmax_lane ? tmax_lane[r] : tmax_all;
-    bool done = false;
-    bool occluded = false;
-    int c_inst = -1, c_prim = 0;
-
-    // TLAS cursor, and the BLAS context of the instance being walked
-    int t_node = 0;
-    bool in_blas = false;
-    int b_node = 0, b_count = 0, b_link_off = 0, b_axis = 2;
-    int tri_offset = 0, cand_inst = -1;
-    V3 b_org = {0.f, 0.f, 0.f}, b_inv = {0.f, 0.f, 0.f}, b_S = {0.f, 0.f, 0.f};
-
-    while (!done) {
-        const int count = in_blas ? b_count : t_count;
-        const int node = in_blas ? b_node : t_node;
-        if (!(node >= 0 && node < count)) {
-            // BLAS exhausted => pop to the TLAS; TLAS exhausted => done
-            // (reference: ray_query.hh:271-275)
-            if (!in_blas) break;
-            in_blas = false;
-            continue;
-        }
-        const size_t lidx = (size_t)((in_blas ? b_link_off : t_link_off) + node);
-        const float4 n0 = __ldg(nl8 + 2 * lidx);
-        const float4 n1 = __ldg(nl8 + 2 * lidx + 1);
-        const int accept = __float_as_int(n1.z);
-        const int cancel = __float_as_int(n1.w);
-
-        const V3 o = in_blas ? b_org : org;
-        const V3 inv = in_blas ? b_inv : t_inv;
-        // slab test with C fmin/fmax NaN semantics (reference:
-        // ray_query.hh:197-207); nmin = n0.xyz, nmax = (n0.w, n1.x, n1.y)
-        const float t0x = (n0.x - o.x) * inv.x;
-        const float t0y = (n0.y - o.y) * inv.y;
-        const float t0z = (n0.z - o.z) * inv.z;
-        const float t1x = (n0.w - o.x) * inv.x;
-        const float t1y = (n1.x - o.y) * inv.y;
-        const float t1z = (n1.y - o.z) * inv.z;
-        const float tnear = fmaxf(fminf(t0x, t1x),
-                                  fmaxf(fminf(t0y, t1y), fminf(t0z, t1z)));
-        const float tfar = fminf(fmaxf(t0x, t1x),
-                                 fminf(fmaxf(t0y, t1y), fmaxf(t0z, t1z)));
-        const bool hit = tnear <= tfar && tfar > tmin && tnear < tmax;
-        const bool is_leaf = accept < 0;  // top bit (reference: bvh.hh:57-63)
-        const int payload = accept & 0x7FFFFFFF;
-        const int next = (hit && !is_leaf) ? accept : cancel;
-        if (in_blas) b_node = next; else t_node = next;
-        if (!(hit && is_leaf)) continue;
-
-        if (!in_blas) {
-            // ---- enter BLAS (reference: ray_query.hh:153-182) ----
-            const int* iu = inst_u + 6 * (size_t)payload;
-            V3 bd;
-            instance_ray(inst_f + 21 * (size_t)payload, org, dir, b_org, bd);
-            b_count = __ldg(iu + 0);
-            b_link_off = __ldg(iu + 1) * 8 + octant(bd) * b_count;
-            tri_offset = __ldg(iu + 4);
-            b_inv = safe_inv(bd);
-            tri_preprocess(bd, b_axis, b_S);
-            b_node = 0;
-            cand_inst = payload;
-            in_blas = true;
-        } else {
-            // ---- triangle test (reference: ray_query.hh:225-246) ----
-            V3 p0, p1, p2;
-            load_tri(tri_pos, tri_offset + payload, p0, p1, p2);
-            float u, v, t;
-            bool back;
-            const bool ok = tri_intersect(b_org, b_axis, b_S, p0, p1, p2, u, v, t, back);
-            if (ok && t < tmax && t > tmin) {
-                if (any) {
-                    // first passing candidate ends an any-hit ray
-                    // (reference: path_tracer.hh:415-427)
-                    occluded = true;
-                    done = true;
-                } else {
-                    // closest-hit confirms every candidate
-                    // (reference: ray_query.hh:280-290)
-                    c_inst = cand_inst;
-                    c_prim = payload;
-                    tmax = t;
-                }
-            }
-        }
-    }
-
+    int c_inst, c_prim;
+    bool occluded;
+    NoWalkCount count;
+    binary_walk<false>(nl8, tri_pos, inst_f, inst_u, tlas_count[r], tlas_offset[r], org,
+                       dir, safe_inv(dir), any, tmin, tmax, c_inst, c_prim, occluded, 0,
+                       count);
     finalize_hit(tri_pos, inst_f, inst_u, org, dir, c_inst, c_prim, tmax,
                  occluded, out, r);
 }

@@ -1,6 +1,6 @@
-// Device versions of the port's shading modules, for the megakernel
-// (megakernel.cu).  Each function mirrors the tensor function named beside
-// it, which is its plain version:
+// Device versions of the port's shading modules, for the path kernels
+// (path.cuh: the megakernel K2 and the wavefront kernel K5).  Each function
+// mirrors the tensor function named beside it, which is its plain version:
 //   utils/vec.py       V3 arithmetic, normalize3, create_tangent_space, M3
 //                      products, inv_erf
 //   ops/rng.py         pcg4d, uniform4 (a masked draw is a plain `if` at the
@@ -12,8 +12,9 @@
 //   ops/bsdf.py        bsdf_eval, sample_bsdf and their helpers
 //   ops/sky.py         ray_sphere_intersection, atmosphere_attenuation,
 //                      atmosphere_scattering (8 primary x 4 secondary steps)
-//   ops/integrator.py  light_from_table, shade_hit(packed=True) from the
-//                      tri_shade row, nee_prepare, nee_finish
+//   ops/integrator.py  light_from_table, shade_hit from the tri_shade row
+//                      (packed=True) or from tri_idx, vattr and tri_pos,
+//                      nee_prepare, nee_finish
 //
 // Parity rules, so that a sample agrees with the plain version to the last
 // bit where the math library agrees:
@@ -35,8 +36,8 @@
 //   * a `torch.where(c, a, b)` whose untaken side has no effect is a branch
 //     here, and the untaken side is not computed.
 //
-// This header's bytes are part of the megakernel library's hash
-// (ops/cuda_build.py): an edit here rebuilds it.
+// This header's bytes are part of the path kernels' library hashes
+// (ops/cuda_build.py): an edit here rebuilds them.
 
 #pragma once
 
@@ -605,53 +606,43 @@ struct HitInfo {
     float emission, nee_pdf;
 };
 
-// shade_hit(packed=True): the shading fetch from the hit ids and one
-// tri_shade row (reference: path_tracer.hh:356-412).  (u, v, t, back) are
-// re-derived by the triangle test on the instance ray.  `thit` is the
-// query's: the walk's tmax on a hit, -1 on a miss.
-__device__ __forceinline__ HitInfo shade_hit_packed(
-    const float* __restrict__ tri_shade, const float* __restrict__ inst_f,
-    const int* __restrict__ inst_u, const Light& light, int c_inst, int c_prim,
-    float thit, V3 origin, V3 d) {
+// shade_hit's miss branch: the sun disk (reference: path_tracer.hh:356-366).
+// `thit` is the query's (-1 on a miss).
+__device__ __forceinline__ HitInfo shade_miss(const Light& light, float thit, V3 origin,
+                                              V3 d) {
     HitInfo h;
-    if (c_inst < 0) {
-        // ---- miss: sun disk (reference: path_tracer.hh:356-366) ----
-        const float visible = dot3(light.direction, d) > light.cos_solid_angle ? 1.0f : 0.0f;
-        const float miss_nee_pdf = visible / ((1.0f - light.cos_solid_angle) * kTwoPi);
-        const float sun_scale = miss_nee_pdf == 0.0f ? 1.0f : miss_nee_pdf;
-        h.thit = thit;
-        h.pos = origin + d * thit;
-        h.tbn = create_tangent_space({0.0f, 0.0f, 1.0f});
-        h.m.albedo = light.color * (visible * sun_scale);
-        h.m.roughness = 0.0f;
-        h.m.metallic = 0.0f;
-        h.m.transmission = 0.0f;
-        h.m.eta = 1.0f;
-        h.emission = 1.0f;
-        h.nee_pdf = miss_nee_pdf;
-        return h;
-    }
-    const float* __restrict__ fi = inst_f + 21 * (size_t)c_inst;
-    const float* __restrict__ ts =
-        tri_shade + 48 * (size_t)(__ldg(inst_u + 6 * (size_t)c_inst + 4) + c_prim);
-    V3 bo, bd, S;
-    int axis;
-    instance_ray(fi, origin, d, bo, bd);
-    tri_preprocess(bd, axis, S);
-    const V3 p0 = {__ldg(ts + 33), __ldg(ts + 34), __ldg(ts + 35)};
-    const V3 p1 = {__ldg(ts + 36), __ldg(ts + 37), __ldg(ts + 38)};
-    const V3 p2 = {__ldg(ts + 39), __ldg(ts + 40), __ldg(ts + 41)};
-    float bu, bv, dt;
-    bool back;
-    tri_intersect(bo, axis, S, p0, p1, p2, bu, bv, dt, back);
+    const float visible = dot3(light.direction, d) > light.cos_solid_angle ? 1.0f : 0.0f;
+    const float miss_nee_pdf = visible / ((1.0f - light.cos_solid_angle) * kTwoPi);
+    const float sun_scale = miss_nee_pdf == 0.0f ? 1.0f : miss_nee_pdf;
+    h.thit = thit;
+    h.pos = origin + d * thit;
+    h.tbn = create_tangent_space({0.0f, 0.0f, 1.0f});
+    h.m.albedo = light.color * (visible * sun_scale);
+    h.m.roughness = 0.0f;
+    h.m.metallic = 0.0f;
+    h.m.transmission = 0.0f;
+    h.m.eta = 1.0f;
+    h.emission = 1.0f;
+    h.nee_pdf = miss_nee_pdf;
+    return h;
+}
+
+// shade_hit's hit branch once the fetch has the triangle's three vertex
+// attribute rows a0, a1, a2 (columns: normal 0-2, albedo 3-5, alpha 6,
+// roughness 7, metallic 8, transmission 9, emission 10) and (u, v, t, back)
+// (reference: path_tracer.hh:367-412).  fi: the instance's inst_f row.
+__device__ __forceinline__ HitInfo shade_surface(
+    const float* __restrict__ fi, const float* __restrict__ a0,
+    const float* __restrict__ a1, const float* __restrict__ a2, float bu, float bv,
+    float dt, bool back, V3 origin, V3 d) {
+    HitInfo h;
     const float bw = 1.0f - bu - bv;
-    // attr = a0 * u + a1 * v + a2 * w, per column (normal 0-2, albedo 3-5,
-    // alpha 6, roughness 7, metallic 8, transmission 9, emission 10)
+    // attr = a0 * u + a1 * v + a2 * w, per column
     float attr[11];
 #pragma unroll
     for (int k = 0; k < 11; ++k) {
         if (k == 6) continue;  // alpha
-        attr[k] = __ldg(ts + k) * bu + __ldg(ts + 11 + k) * bv + __ldg(ts + 22 + k) * bw;
+        attr[k] = __ldg(a0 + k) * bu + __ldg(a1 + k) * bv + __ldg(a2 + k) * bw;
     }
     const V3 n = {attr[0], attr[1], attr[2]};
     // rotate the normal to world: mul_m3v3(rot, n) (reference: path_tracer.hh:371,392)
@@ -673,6 +664,53 @@ __device__ __forceinline__ HitInfo shade_hit_packed(
     h.emission = attr[10];
     h.nee_pdf = 0.0f;
     return h;
+}
+
+// shade_hit(packed=True): the shading fetch from the hit ids and one
+// tri_shade row (the three 11-float attribute rows, then the 9 positions).
+// (u, v, t, back) are re-derived by the triangle test on the instance ray.
+// `thit` is the query's: the walk's tmax on a hit, -1 on a miss.
+__device__ __forceinline__ HitInfo shade_hit_packed(
+    const float* __restrict__ tri_shade, const float* __restrict__ inst_f,
+    const int* __restrict__ inst_u, const Light& light, int c_inst, int c_prim,
+    float thit, V3 origin, V3 d) {
+    if (c_inst < 0) return shade_miss(light, thit, origin, d);
+    const float* __restrict__ fi = inst_f + 21 * (size_t)c_inst;
+    const float* __restrict__ ts =
+        tri_shade + 48 * (size_t)(__ldg(inst_u + 6 * (size_t)c_inst + 4) + c_prim);
+    V3 bo, bd, S;
+    int axis;
+    instance_ray(fi, origin, d, bo, bd);
+    tri_preprocess(bd, axis, S);
+    const V3 p0 = {__ldg(ts + 33), __ldg(ts + 34), __ldg(ts + 35)};
+    const V3 p1 = {__ldg(ts + 36), __ldg(ts + 37), __ldg(ts + 38)};
+    const V3 p2 = {__ldg(ts + 39), __ldg(ts + 40), __ldg(ts + 41)};
+    float bu, bv, dt;
+    bool back;
+    tri_intersect(bo, axis, S, p0, p1, p2, bu, bv, dt, back);
+    return shade_surface(fi, ts, ts + 11, ts + 22, bu, bv, dt, back, origin, d);
+}
+
+// shade_hit (the scan's default fetch): the triangle's vertex ids from
+// tri_idx, its three vattr rows (12 floats each), its positions from
+// tri_pos.  (u, v, t, back) come from the walk's finalize step
+// (ray_common.cuh, hit_surface), as the scan re-derives (u, v, t) by that
+// test and takes back from the query's result.  Binary scenes carry no
+// tri_shade rows; this is their fetch.
+__device__ __forceinline__ HitInfo shade_hit_unpacked(
+    const float4* __restrict__ tri_pos, const int* __restrict__ tri_idx,
+    const float* __restrict__ vattr, const float* __restrict__ inst_f,
+    const int* __restrict__ inst_u, const Light& light, int c_inst, int c_prim,
+    float thit, V3 origin, V3 d) {
+    if (c_inst < 0) return shade_miss(light, thit, origin, d);
+    float bu, bv, dt;
+    bool back;
+    hit_surface(tri_pos, inst_f, inst_u, origin, d, c_inst, c_prim, bu, bv, dt, back);
+    const int* __restrict__ ti =
+        tri_idx + 4 * (size_t)(__ldg(inst_u + 6 * (size_t)c_inst + 4) + c_prim);
+    return shade_surface(inst_f + 21 * (size_t)c_inst, vattr + 12 * (size_t)__ldg(ti + 0),
+                         vattr + 12 * (size_t)__ldg(ti + 1), vattr + 12 * (size_t)__ldg(ti + 2),
+                         bu, bv, dt, back, origin, d);
 }
 
 // nee_prepare -> nee_finish plumbing, split around the shadow trace.

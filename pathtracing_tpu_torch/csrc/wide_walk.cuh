@@ -1,6 +1,7 @@
 // The wide mega-table walk as a device function, shared by the wide ray-query
-// kernel (wide_ray_query.cu, K1: one ray per thread) and the megakernel
-// (megakernel.cu, K2: every ray of a path per thread).
+// kernel (wide_ray_query.cu, K1: one ray per thread) and the path kernels
+// (path.cuh: the megakernel K2 and the wavefront kernel K5, every ray of a
+// path per thread).
 //
 // It computes the JAX package's pathtracing_tpu/ops/wide_traversal.py
 // (_wide_step, _leaf_block) at its one-speed setting: per ray a stackless
@@ -29,8 +30,11 @@
 // 0 * inf occurs).  Built with --fmad=false, IEEE division, no fast-math, no
 // flush-to-zero (ops/cuda_build.py).
 //
+// The counting hooks (NoWalkCount in ray_common.cuh) and, with kCapped, the
+// step cap compile away where unused (K1).
+//
 // This header's bytes are part of the hash of every library that includes it
-// (ops/cuda_build.py): an edit here rebuilds K1 and K2.
+// (ops/cuda_build.py): an edit here rebuilds K1, K2 and K5.
 
 #pragma once
 
@@ -84,15 +88,6 @@ __device__ __forceinline__ void load_words(
         w[4 * i + 3] = __float_as_uint(v.w);
     }
 }
-
-// What a walk counts: nothing (K1, K2's timed build), or its row visits and
-// tests (K2's counting build, for the bound chip_smoke.py reports).  The
-// empty hooks compile away.
-struct NoWalkCount {
-    __device__ __forceinline__ void wide_row(int) {}
-    __device__ __forceinline__ void leaf_row(int) {}
-    __device__ __forceinline__ void inst_row() {}
-};
 
 // The TLAS root cursor of a ray: wide_root[tlas_offset - root_base][octant].
 __device__ __forceinline__ uint32_t root_cursor(
@@ -170,7 +165,7 @@ __device__ __forceinline__ bool wide_walk(
             const uint32_t start = cursor & (uint32_t)(S - 1);
             const uint32_t from_start = ~((1u << start) - 1u);
             // slab tests the walk needs: linked slots from the start slot on
-            count.wide_row(__popc(linked & from_start));
+            count.node_row(__popc(linked & from_start));
             hits &= from_start;
             if (hits == 0u) {
                 cursor = exit_link;

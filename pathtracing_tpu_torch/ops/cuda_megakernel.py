@@ -12,10 +12,12 @@ plain version.
 There is no second path to give way to: a build or launch failure, or a
 tensor the kernel does not take, raises.
 
-Build and binding: ops/cuda_build.py. The library's hash covers the three
-headers the source includes: ``ray_common.cuh`` (shared with both ray-query
-kernels), ``wide_walk.cuh`` (the walk, shared with ``wide_ray_query.cu``)
-and ``shading.cuh``.
+Build and binding: ops/cuda_build.py. The library's hash covers the headers
+the source includes: ``ray_common.cuh`` (shared with both ray-query kernels),
+``wide_walk.cuh`` (the walk, shared with ``wide_ray_query.cu``),
+``binary_walk.cuh`` (the binary walk, shared with ``ray_query.cu``),
+``shading.cuh`` and ``path.cuh`` (the per-sample path body, shared with the
+wavefront kernel ``wavefront.cu``).
 """
 
 from __future__ import annotations
@@ -30,10 +32,13 @@ from pathtracing_tpu_torch.ops.cuda_build import (
     check_tensor as _check,
 )
 from pathtracing_tpu_torch.ops.cuda_wide_traversal import check_scene as _check_wide
+from pathtracing_tpu_torch.ops.wide_traversal import _layout_of
 from pathtracing_tpu_torch.utils.vec import c32
 
 SOURCE = CSRC / "megakernel.cu"
-HEADERS = (CSRC / "ray_common.cuh", CSRC / "wide_walk.cuh", CSRC / "shading.cuh")
+PATH_HEADER = CSRC / "path.cuh"
+HEADERS = (CSRC / "ray_common.cuh", CSRC / "wide_walk.cuh", CSRC / "binary_walk.cuh",
+           CSRC / "shading.cuh", PATH_HEADER)
 
 _p, _f, _i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 LIBRARY = KernelLibrary(
@@ -51,25 +56,60 @@ LIBRARY = KernelLibrary(
     },
 )
 
-# What the counting build counts, in the kernel's order (csrc/megakernel.cu):
-# samples traced, mega-table rows visited by kind, the slab tests the WIDE
-# visits needed and the triangle tests the LEAF visits made, rays walked,
+# What the counting builds of the path kernels (K2 here, K5 in
+# ops/cuda_wavefront.py) count, in the kernels' order (csrc/path.cuh):
+# samples traced, rows visited by kind (node rows: binary nodes or WIDE rows;
+# leaf rows: LEAF rows or binary triangle tests; BLAS entries), the slab tests
+# the node rows needed and the triangle tests the leaves made, rays walked,
 # closest hits shaded as hits / misses, atmosphere marches run (scattering,
 # with a draw) and NEE transmittance marches run, BSDF evaluations (one per
 # NEE) and BSDF samples.
 COUNT_NAMES = (
-    "samples", "wide_rows", "leaf_rows", "inst_rows", "slab_tests", "tri_tests",
+    "samples", "node_rows", "leaf_rows", "inst_rows", "slab_tests", "tri_tests",
     "rays", "shade_hits", "shade_misses", "atmo_marches", "nee_evals",
     "nee_marches", "bsdf_samples",
 )
 
-# Row visits one ray may make before the walk gives up on its sample: 64x
-# the longest walk the plain walk's ``lane_steps`` show on the golden scene:
-# 81 rows, in the main path's primary batch (1920x1080, w8), which
-# chip_smoke.py's wide_kernel_check reports as longest_walk_rows beside the
-# cap (and fails if the cap is under 16x it).
-LONGEST_GOLDEN_WALK = 81
-DEFAULT_MAX_STEPS = 64 * LONGEST_GOLDEN_WALK
+INT32_MAX = (1 << 31) - 1
+
+
+def step_cap(scene) -> int:
+    """Row visits one ray may make before a path kernel gives up on its
+    sample: a bound, derived from the scene's tables, that no walk that ends
+    can pass, so that abandoning a sample flags a broken table and nothing
+    else. The wide tables when the scene carries them (the walk the kernels
+    take then), else the binary ones.
+
+    Why it bounds every walk that ends. A ray walks one TLAS and then, at
+    most once each, the BLAS of every instance it enters: each instance sits
+    in one TLAS leaf (one INST row of the mega-table, or one TLAS leaf node of
+    nl8), and a tree walk reaches each leaf at most once (below). So it walks
+    at most ``instances + 1`` trees.
+      * Binary (``nl8``, csrc/binary_walk.cuh): a tree of ``count`` nodes is
+        walked by its stackless accept/cancel links, which thread the nodes in
+        one depth-first order per octant; a walk enters each node from its
+        parent (accept) or from the subtree before it (cancel), once, so it
+        reads at most ``count`` rows, and ``count`` is at most the nodes of
+        all trees, ``nl8`` rows / 8 (each tree is stored once per octant).
+      * Wide (``wide_rows``, accel/wide.py, csrc/wide_walk.cuh): a step reads
+        the row of a cursor (row, start slot). Slots keep the octant's binary
+        depth-first order and exits link to the depth-first successor, so a
+        row is entered from its one parent slot (or predecessor's exit) at
+        start slot 0 at most once per tree walk, and then resumed only at
+        later slots (j + 1 after slot j's subtree). So a tree walk visits each
+        cursor at most once: at most rows x slots steps.
+    Hence (instances + 1) x nl8 nodes, or (instances + 1) x mega-table rows x
+    slots, clipped to int32. tests/test_torch_wavefront.py holds it above the
+    longest walk of the plain walks' ``lane_steps`` on the golden and the
+    motion scene, both table kinds.
+    """
+    trees = scene.inst_u.shape[0] + 1
+    if getattr(scene, "wide_rows", None) is not None:
+        per_tree = scene.wide_rows.shape[0] * _layout_of(scene).n_slots
+    else:
+        per_tree = scene.nl8.shape[0] // 8
+    return min(INT32_MAX, max(1, trees * per_tree))
+
 
 # Launches of the kernel since the last reset: incremented where the kernel
 # is launched and nowhere else, so a run can show that it went through it.
@@ -132,6 +172,8 @@ def megakernel_cuda(
     [0, n_pixels): slot i then renders pixel pixel_base + pixel_order[i] (the
     output stays indexed by pixel). ``counts=True`` runs the counting build
     instead and also returns its counters (int64, COUNT_NAMES' order).
+    ``max_steps``: row visits per ray before a sample is abandoned (None:
+    ``step_cap(scene)``).
 
     Returns (r, g, b, l2, n_truncated, counts): (n_pixels,) f32 sums, the
     luminance-squared sums or None, a one-element int32 tensor of abandoned
@@ -149,7 +191,7 @@ def megakernel_cuda(
         raise ValueError(f"n_pixels={n_pixels}, spp={spp}: both must be >= 0")
     if pixel_order is not None:
         _check("pixel_order", pixel_order, torch.int32, (n_pixels,), device)
-    steps = DEFAULT_MAX_STEPS if max_steps is None else int(max_steps)
+    steps = step_cap(scene) if max_steps is None else int(max_steps)
     if steps <= 0:
         raise ValueError(f"max_steps={steps}: must be > 0")
 

@@ -17,7 +17,9 @@ Differences from the TPU wrapper's interface, on purpose:
 
 Build and binding: ops/cuda_build.py (``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes``, built at first use under a
-hash-keyed name in ``build/torch_kernels/``).
+hash-keyed name in ``build/torch_kernels/``). The hash covers the two headers
+the source includes: ``ray_common.cuh`` and ``binary_walk.cuh`` (the walk,
+shared with the wavefront kernel ``wavefront.cu``).
 """
 
 from __future__ import annotations
@@ -36,11 +38,12 @@ from pathtracing_tpu_torch.utils.vec import Vec3
 
 SOURCE = CSRC / "ray_query.cu"
 HEADER = CSRC / "ray_common.cuh"
+WALK_HEADER = CSRC / "binary_walk.cuh"
 
 _p, _f, _i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 LIBRARY = KernelLibrary(
     SOURCE,
-    headers=(HEADER,),
+    headers=(HEADER, WALK_HEADER),
     symbols={
         "pt_ray_query": ([_p] * 15 + [_f, _f, _i] + [_p] * 7 + [_i, _p], _i),
         "pt_ray_query_block_size": ([], _i),

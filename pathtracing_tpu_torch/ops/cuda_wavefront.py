@@ -1,0 +1,203 @@
+"""The CUDA wavefront kernel (K5): binding and wrapper.
+
+``wavefront_cuda`` renders the per-entry sums of whole sun-NEE paths for any
+(xs, ys) pixel list with the hand-written kernel in ``csrc/wavefront.cu``
+(one thread per list entry, its samples in order; see the note at the top of
+that file for the design, the fold and the step cap), on the binary tables
+(binary walk, unpacked shading fetch) or on the wide ones (wide walk, packed
+fetch). It is the counterpart of the JAX package's ``path_trace_wavefront``
+(pathtracing_tpu/ops/wavefront.py, an XLA while-loop there);
+``ops/wavefront.path_trace_wavefront`` dispatches to it for CUDA tensors, and
+``ops/wavefront.path_trace_wavefront_plain`` is its plain version.
+
+There is no second path to give way to: a build or launch failure, or a
+tensor the kernel does not take, raises.
+
+Build and binding: ops/cuda_build.py. The library's hash covers every header
+the source includes: ``ray_common.cuh``, ``binary_walk.cuh`` (the binary walk,
+shared with ``ray_query.cu``), ``wide_walk.cuh`` (shared with
+``wide_ray_query.cu``), ``shading.cuh`` and ``path.cuh`` (the per-sample path
+body, shared with ``megakernel.cu``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pathtracing_tpu_torch.ops import cuda_megakernel as CM
+from pathtracing_tpu_torch.ops.cuda_build import (
+    CSRC,
+    KernelLibrary,
+    check_tensor as _check,
+)
+from pathtracing_tpu_torch.utils.vec import c32
+
+SOURCE = CSRC / "wavefront.cu"
+WALK_HEADER = CSRC / "binary_walk.cuh"
+HEADERS = (CSRC / "ray_common.cuh", WALK_HEADER, CSRC / "wide_walk.cuh",
+           CSRC / "shading.cuh", CM.PATH_HEADER)
+
+_p, _f, _i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+# pt_wavefront's parameters, in order (csrc/wavefront.cu)
+ARGTYPES = (
+    [_p, _i, _p, _p, _p]        # rows, width, wide_root, root_base, tri_shade
+    + [_p, _p, _p, _p, _i]      # nl8, tri_idx, vattr, sf_tlas_count, n_tlas_count
+    + [_p, _p, _p]              # tri_pos, inst_f, inst_u
+    + [_p, _i, _p, _i, _p, _i]  # sf_cam, n_cam, sf_light, n_light, sf_tlas_offset, n_tlas
+    + [_p, _p] + [_i] * 8       # xs, ys; n, spp, sample_base, width, height,
+                                # max_bounces, smbs, student_id
+    + [_f] * 3 + [_i]           # min/max ray dist, gamma; max_steps
+    + [_p] * 7                  # r, g, b, l2, n_truncated, counts, stream
+)
+LIBRARY = KernelLibrary(
+    SOURCE,
+    headers=HEADERS,
+    symbols={
+        "pt_wavefront": (ARGTYPES, _i),
+        "pt_wavefront_block_size": ([], _i),
+        "pt_wavefront_count_slots": ([], _i),
+        "pt_wavefront_occupancy": ([_i], _i),
+    },
+)
+
+# Launches of the kernel since the last reset: incremented where the kernel
+# is launched and nowhere else, so a run can show that it went through it.
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def block_size() -> int:
+    """Threads per block of the built kernel."""
+    return int(LIBRARY.load().pt_wavefront_block_size())
+
+
+def check_scene(scene, device) -> int:
+    """Raise unless the scene's tables are what the kernel takes, on
+    ``device``. A scene with wide tables is walked wide (as
+    ``ops/traversal.ray_query`` walks it), and is checked as the megakernel
+    checks it (the wide tables, the packed shading rows, the subframe tables);
+    a binary scene needs 16-byte aligned ``nl8`` and ``tri_pos``, ``inst_f``,
+    ``inst_u``, ``tri_idx``, ``vattr`` and the four subframe tables, each with
+    a row at least. Returns the row width the kernel selects by (0: binary)."""
+    if scene.lt_tris is not None:
+        raise NotImplementedError("area-light NEE comes with a later slice of the port")
+    if scene.wide_rows is not None:
+        return CM.check_scene(scene, device).w_row
+    if scene.nl5 is not None:
+        raise NotImplementedError("bf16 node tables are a later slice of the port")
+    f32, i32 = torch.float32, torch.int32
+    _check("scene.nl8", scene.nl8, f32, (scene.nl8.shape[0], 8), device)
+    _check("scene.tri_pos", scene.tri_pos, f32, (scene.tri_pos.shape[0], 12), device)
+    _check("scene.inst_f", scene.inst_f, f32, (scene.inst_f.shape[0], 21), device)
+    _check("scene.inst_u", scene.inst_u, i32, (scene.inst_u.shape[0], 6), device)
+    _check("scene.tri_idx", scene.tri_idx, i32, (scene.tri_idx.shape[0], 4), device)
+    _check("scene.vattr", scene.vattr, f32, (scene.vattr.shape[0], 12), device)
+    for name, t in (("scene.nl8", scene.nl8), ("scene.tri_pos", scene.tri_pos)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: rows are read as 16-byte vectors; "
+                             "the table must be 16-byte aligned")
+    _check("scene.sf_cam", scene.sf_cam, f32, (scene.sf_cam.shape[0], 18), device)
+    _check("scene.sf_light", scene.sf_light, f32, (scene.sf_light.shape[0], 7), device)
+    for name in ("sf_tlas_count", "sf_tlas_offset"):
+        t = getattr(scene, name)
+        _check(f"scene.{name}", t, i32, (t.shape[0],), device)
+    for name in ("sf_cam", "sf_light", "sf_tlas_count", "sf_tlas_offset"):
+        if getattr(scene, name).shape[0] == 0:
+            raise ValueError(f"scene.{name}: no subframe rows")
+    return 0
+
+
+def kernel_args(config, scene, width, xs, ys, spp, sample_base, max_steps, r, g, b, l2,
+                n_trunc, counts, stream):
+    """pt_wavefront's arguments, in ARGTYPES' order (tensors as pointers)."""
+    ptr = lambda t: None if t is None else t.data_ptr()
+    wide = width != 0
+    wide_only = lambda t: ptr(t) if wide else None
+    binary_only = lambda t: None if wide else ptr(t)
+    i32 = CM._int32
+    return (
+        wide_only(scene.wide_rows), width, wide_only(scene.wide_root),
+        wide_only(scene.wide_root_base), wide_only(scene.tri_shade),
+        binary_only(scene.nl8), binary_only(scene.tri_idx), binary_only(scene.vattr),
+        binary_only(scene.sf_tlas_count), scene.sf_tlas_count.shape[0],
+        ptr(scene.tri_pos), ptr(scene.inst_f), ptr(scene.inst_u),
+        ptr(scene.sf_cam), scene.sf_cam.shape[0], ptr(scene.sf_light),
+        scene.sf_light.shape[0], ptr(scene.sf_tlas_offset), scene.sf_tlas_offset.shape[0],
+        ptr(xs), ptr(ys), i32("n", xs.shape[0]), i32("spp", spp),
+        i32("sample_base", sample_base), config.image_width, config.image_height,
+        config.max_bounces, config.samples_per_motion_blur_step,
+        i32("student_id", config.student_id), c32(config.min_ray_dist),
+        c32(config.max_ray_dist), c32(config.path_space_regularization_gamma),
+        i32("max_steps", max_steps),
+        ptr(r), ptr(g), ptr(b), ptr(l2), ptr(n_trunc), ptr(counts), stream,
+    )
+
+
+def wavefront_cuda(
+    config,
+    scene,
+    xs,
+    ys,
+    spp: int,
+    sample_base: int = 0,
+    with_stats: bool = False,
+    max_steps: int | None = None,
+    counts: bool = False,
+):
+    """Per-entry radiance sums over samples [sample_base, sample_base + spp)
+    of pixels (xs[i], ys[i]) by the hand-written kernel. ``xs``, ``ys``:
+    (n,) int32 CUDA tensors on the scene's device. ``max_steps``: row visits
+    per ray before a sample is abandoned (None: ``CM.step_cap(scene)``).
+    ``counts=True`` runs the counting build instead and also returns its
+    counters (int64, ``CM.COUNT_NAMES``' order).
+
+    Returns (r, g, b, l2, n_truncated, counts): (n,) f32 sums, the
+    luminance-squared sums or None, a one-element int32 tensor of abandoned
+    samples, and the counters or None. Launches on PyTorch's current stream
+    and does not synchronise. Raises on a tensor of the wrong device, dtype,
+    shape or layout and on a refused launch; it never gives way to the plain
+    version.
+    """
+    global launches
+    device = scene.nl8.device
+    if device.type != "cuda":
+        raise ValueError(f"wavefront_cuda needs CUDA tensors, got {device}")
+    width = check_scene(scene, device)
+    n = xs.shape[0] if isinstance(xs, torch.Tensor) else -1
+    _check("xs", xs, torch.int32, (n,), device)
+    _check("ys", ys, torch.int32, (n,), device)
+    if spp < 0:
+        raise ValueError(f"spp={spp}: must be >= 0")
+    steps = CM.step_cap(scene) if max_steps is None else int(max_steps)
+    if steps <= 0:
+        raise ValueError(f"max_steps={steps}: must be > 0")
+
+    out = lambda: torch.empty(n, dtype=torch.float32, device=device)
+    r, g, b = out(), out(), out()
+    l2 = out() if with_stats else None
+    n_trunc = torch.zeros(1, dtype=torch.int32, device=device)
+    lib = LIBRARY.load()
+    cnt = None
+    if counts:
+        cnt = torch.zeros(lib.pt_wavefront_count_slots(), dtype=torch.int64, device=device)
+        if cnt.numel() != len(CM.COUNT_NAMES):
+            raise RuntimeError(f"kernel counts {cnt.numel()} slots, COUNT_NAMES "
+                               f"names {len(CM.COUNT_NAMES)}")
+    # The launch is asynchronous; PyTorch's allocator hands a freed block out
+    # again only in the order of the stream it was used on, and this is it.
+    with torch.cuda.device(device):
+        err = lib.pt_wavefront(*kernel_args(
+            config, scene, width, xs, ys, spp, sample_base, steps, r, g, b, l2, n_trunc,
+            cnt, torch.cuda.current_stream().cuda_stream,
+        ))
+    if err != 0:
+        raise RuntimeError(f"wavefront launch refused: cudaError {err}")
+    if n > 0:
+        launches += 1
+    return r, g, b, l2, n_trunc, cnt

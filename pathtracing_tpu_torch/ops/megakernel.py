@@ -30,10 +30,8 @@ import numpy as np
 import torch
 
 from pathtracing_tpu_torch import resolve_device
-from pathtracing_tpu_torch.ops.integrator import path_trace_samples
-from pathtracing_tpu_torch.utils.vec import Vec3, c32
-
-_LUM = (c32(0.2126), c32(0.7152), c32(0.0722))
+from pathtracing_tpu_torch.ops.wavefront import path_trace_wavefront_plain
+from pathtracing_tpu_torch.utils.vec import Vec3
 
 
 def _check_supported(scene, record: bool) -> None:
@@ -135,41 +133,28 @@ def path_trace_megakernel_plain(
     pixel_order=None,
 ):
     """The plain PyTorch version of the megakernel, on whatever device the
-    scene lies: the sample-ordered sum of ``path_trace_samples`` over the
-    mapped pixel list (one batch of n_pixels lanes per sample), each sample's
-    luminance squared summed beside it with ``with_stats``.
+    scene lies: the wavefront's plain version (the sample-ordered sum of
+    ``path_trace_samples``) over the slots' pixels, each slot's sums then put
+    at its pixel.
 
     ``pixel_order``: None or an int32 permutation tensor on the scene's
     device. Returns (r, g, b, l2 or None), (n_pixels,) f32 each, indexed by
     pixel.
     """
     dev = scene.nl8.device
-    f32, i32 = torch.float32, torch.int32
-    local = (torch.arange(n_pixels, dtype=i32, device=dev) if pixel_order is None
+    local = (torch.arange(n_pixels, dtype=torch.int32, device=dev) if pixel_order is None
              else pixel_order)
     pixel = local + pixel_base
     W = config.image_width
     xs = torch.remainder(pixel, W)
     ys = torch.div(pixel, W, rounding_mode="floor")
-    zero = lambda: torch.zeros(n_pixels, dtype=f32, device=dev)
-    r, g, b = zero(), zero(), zero()
-    l2 = zero() if with_stats else None
-    for j in range(spp):
-        si = torch.full((n_pixels,), int(sample_base) + j, dtype=i32, device=dev)
-        c = path_trace_samples(config, scene, xs, ys, si)
-        # in place: the sums are the only state that outlives a sample
-        r += c.x
-        g += c.y
-        b += c.z
-        if with_stats:
-            lum = _LUM[0] * c.x + _LUM[1] * c.y + _LUM[2] * c.z
-            l2 += lum * lum
+    sums = path_trace_wavefront_plain(config, scene, xs, ys, spp, sample_base, with_stats)
     if pixel_order is None:
-        return r, g, b, l2
+        return sums
     # slot i holds pixel local[i]: put each sum at its pixel
     idx = local.long()
     put = lambda v: None if v is None else torch.empty_like(v).index_copy_(0, idx, v)
-    return put(r), put(g), put(b), put(l2)
+    return tuple(put(v) for v in sums)
 
 
 def morton_pixel_order(width: int, height: int) -> np.ndarray:

@@ -11,7 +11,17 @@ no card; the scene's tensors must lie on that device.
 On a CUDA device a row-major [0, N) pixel list on a scene with wide tables
 renders through the megakernel (ops/megakernel.py, kernel K2), as the JAX
 package picks its megakernel on a TPU; everything else, and every render on
-the CPU, goes through the tiled scan of ``path_trace_samples``.
+the CPU, goes through the tiled scan of ``path_trace_samples``, unless the
+caller asks for the wavefront renderer (``wavefront=True``: ops/wavefront.py,
+kernel K5 on the card, any pixel list, binary or wide tables), which stays
+opt-in as in the JAX package.
+
+The two fused renderers (K2, K5) keep their sums on the device: each spp
+chunk's sums are added into one device tensor, the average divides by a
+device tensor (a true division: PyTorch's CUDA kernels divide by a Python
+scalar as a multiply by its reciprocal, which is not the host's float32
+division), and ``render_frame`` tonemaps on the device and copies the
+colours and the BGRA image back once each.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from pathtracing_tpu_torch.config import RenderConfig
 from pathtracing_tpu_torch.ops.integrator import path_trace_samples
 from pathtracing_tpu_torch.ops.megakernel import path_trace_megakernel
 from pathtracing_tpu_torch.ops.tonemap import tonemap
+from pathtracing_tpu_torch.ops.wavefront import path_trace_wavefront
 from pathtracing_tpu_torch.utils.vec import Vec3
 
 # Lanes per tile on a CUDA device. A sample is ~20,000 small eager kernels
@@ -66,6 +77,14 @@ def default_tile_pixels(device) -> int:
     return CUDA_TILE_PIXELS if torch.device(device).type == "cuda" else CPU_TILE_PIXELS
 
 
+def _tile(v, start: int, end: int, device) -> torch.Tensor:
+    """Lanes [start, end) of a pixel coordinate list (numpy, or an int32
+    tensor already on ``device``) as an int32 tensor on ``device``."""
+    if isinstance(v, torch.Tensor):
+        return v[start:end]
+    return torch.from_numpy(np.ascontiguousarray(v[start:end], np.int32)).to(device)
+
+
 def run_tiled(kernel, xs, ys, tile_pixels: int, n_channels: int, device):
     """Run a per-lane function over a pixel list in tiles of at most
     ``tile_pixels`` lanes.
@@ -81,13 +100,18 @@ def run_tiled(kernel, xs, ys, tile_pixels: int, n_channels: int, device):
     pending = []
     for start in range(0, n, tile_pixels):
         end = min(start + tile_pixels, n)
-        txs = torch.from_numpy(np.ascontiguousarray(xs[start:end], np.int32)).to(device)
-        tys = torch.from_numpy(np.ascontiguousarray(ys[start:end], np.int32)).to(device)
-        pending.append((start, end, kernel(txs, tys)))
+        pending.append((start, end, kernel(_tile(xs, start, end, device),
+                                           _tile(ys, start, end, device))))
     for start, end, res in pending:
         for k in range(n_channels):
             out[k][start:end] = res[k].cpu().numpy()
     return out
+
+
+def _bgra(c: torch.Tensor) -> torch.Tensor:
+    """(..., 3) radiance tensor -> (..., 4) uint8 BGRA on its device."""
+    b, g, r, a = tonemap(Vec3(c[..., 0], c[..., 1], c[..., 2]))
+    return torch.stack([b, g, r, a], dim=-1)
 
 
 def to_bgra(colors: np.ndarray, device=None) -> np.ndarray:
@@ -95,22 +119,34 @@ def to_bgra(colors: np.ndarray, device=None) -> np.ndarray:
     (reference: path_tracer.hh:753-771, main.cc:42-46)."""
     device = resolve_device(device)
     c = torch.from_numpy(np.ascontiguousarray(colors, np.float32)).to(device)
-    b, g, r, a = tonemap(Vec3(c[..., 0], c[..., 1], c[..., 2]))
-    return torch.stack([b, g, r, a], dim=-1).cpu().numpy()
+    return _bgra(c).cpu().numpy()
+
+
+def _row_major(xs, ys, width: int) -> bool:
+    """Whether (xs, ys) is pixels [0, N) of a row-major frame ``width``
+    wide: the full rows compared against one row's x and a column of row
+    numbers, and the last partial row, broadcast (no N-long index array)."""
+    host = lambda v: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    xs, ys = host(xs), host(ys)
+    n = len(xs)
+    if ys.shape != xs.shape or xs.ndim != 1:
+        return False
+    rows, rest = divmod(n, width)
+    full = rows * width
+    x_row = np.arange(width)
+    return bool(
+        (xs[:full].reshape(rows, width) == x_row).all()
+        and (ys[:full].reshape(rows, width) == np.arange(rows)[:, None]).all()
+        and (xs[full:] == x_row[:rest]).all()
+        and (ys[full:] == rows).all()
+    )
 
 
 def megakernel_supported(scene, xs, ys, width: int) -> bool:
     """The megakernel owns pixels [0, N) of a row-major frame and needs the
     wide tables (the JAX package's rule; area-light scenes pass it there and
     raise NotImplementedError here, as the scan does)."""
-    if getattr(scene, "wide_rows", None) is None:
-        return False
-    n = len(xs)
-    idx = np.arange(n, dtype=np.int64)
-    return bool(
-        np.array_equal(np.asarray(xs, np.int64), idx % width)
-        and np.array_equal(np.asarray(ys, np.int64), idx // width)
-    )
+    return getattr(scene, "wide_rows", None) is not None and _row_major(xs, ys, width)
 
 
 # Megakernel dispatch budgets, the JAX package's (pathtracing_tpu/render.py):
@@ -150,27 +186,111 @@ def _mk_spp_chunk(
     return limit
 
 
-def _render_megakernel(config, scene, n: int, spp: int, sample_base: int, device):
-    """Raw (n, 3) sums of pixels [0, n) by the megakernel, in spp chunks;
-    raises when the kernel abandoned samples (the output would be dark)."""
-    out = np.zeros((n, 3), np.float32)
-    chunk = _mk_spp_chunk(n, spp, scene)
-    for a in range(0, spp, chunk):
-        c = min(chunk, spp - a)
-        acc, n_trunc = path_trace_megakernel(
-            config, scene, n, c, int(sample_base) + a, return_truncated=True,
-            device=device,
-        )
-        out[:, 0] += acc.x.cpu().numpy()
-        out[:, 1] += acc.y.cpu().numpy()
-        out[:, 2] += acc.z.cpu().numpy()
-        if int(n_trunc):
-            raise RuntimeError(
-                f"megakernel step cap abandoned {int(n_trunc)} samples "
-                f"(samples [{int(sample_base) + a}, {int(sample_base) + a + c})): "
-                "output would be darkened"
-            )
+def _render_fused(config, scene, xs, ys, spp: int, sample_base: int, device,
+                  wavefront: bool, tile_pixels: int) -> torch.Tensor:
+    """Raw (N, 3) sums on ``device`` by a fused renderer: the megakernel
+    over pixels [0, N) (row-major, so xs / ys are not read), or the wavefront
+    over run_tiled's tiles of the list (numpy, or int32 tensors on the
+    device). Each tile takes one call per spp chunk (``_mk_spp_chunk``), and
+    each chunk's sums are added into the one device tensor in chunk order:
+    the host waits once, at the end, where it also learns whether the step
+    cap abandoned samples (then it raises: the output would be darkened)."""
+    n = len(xs)
+    base = int(sample_base)
+    out = torch.zeros((n, 3), dtype=torch.float32, device=device)
+    if wavefront:
+        spans = [(a, min(a + tile_pixels, n)) for a in range(0, n, tile_pixels)]
+    else:
+        spans = [(0, n)] if n else []
+    truncated = []  # (first sample, samples, one-element count tensor)
+    for start, end in spans:
+        if wavefront:
+            txs, tys = _tile(xs, start, end, device), _tile(ys, start, end, device)
+        chunk = _mk_spp_chunk(end - start, spp, scene)
+        for a in range(0, spp, chunk):
+            c = min(chunk, spp - a)
+            if wavefront:
+                acc, n_trunc = path_trace_wavefront(
+                    config, scene, txs, tys, c, base + a, return_truncated=True,
+                    device=device,
+                )
+            else:
+                acc, n_trunc = path_trace_megakernel(
+                    config, scene, n, c, base + a, return_truncated=True, device=device,
+                )
+            for k, plane in enumerate(acc):
+                out[start:end, k].add_(plane)
+            truncated.append((base + a, c, n_trunc))
+    if truncated:
+        counts = torch.cat([t for *_, t in truncated]).tolist()
+        for (first, c, _), k in zip(truncated, counts):
+            if k:
+                kind = "wavefront" if wavefront else "megakernel"
+                raise RuntimeError(
+                    f"{kind} step cap abandoned {k} samples (samples [{first}, "
+                    f"{first + c})): output would be darkened"
+                )
     return out
+
+
+def _average(out: torch.Tensor, spp: int) -> torch.Tensor:
+    """out / spp as the host's float32 division computes it: a tensor
+    divided by a tensor on its device is a true division on either device
+    (PyTorch's CUDA kernels divide by a Python scalar as a multiply by its
+    reciprocal)."""
+    return out / torch.full((1,), spp, dtype=out.dtype, device=out.device)
+
+
+def _render(
+    config: RenderConfig,
+    scene,
+    xs,
+    ys,
+    spp,
+    tile_pixels,
+    sample_base,
+    average: bool,
+    wavefront: bool,
+    megakernel,
+    device,
+    row_major: bool = False,
+) -> torch.Tensor:
+    """render_pixels on the device: (N, 3) f32 on ``device``. ``row_major``:
+    the caller built the list as pixels [0, N) of the frame (else it is
+    checked where it matters)."""
+    if scene.nl8.device != device:
+        raise ValueError(
+            f"scene is on {scene.nl8.device}, render asked for {device}"
+        )
+    spp = spp or config.samples_per_pixel
+    if tile_pixels is None:
+        tile_pixels = default_tile_pixels(device)
+
+    def supported():
+        if row_major:  # the caller built the list: only the tables decide
+            return getattr(scene, "wide_rows", None) is not None
+        return megakernel_supported(scene, xs, ys, config.image_width)
+
+    if wavefront:
+        if megakernel:
+            raise ValueError("wavefront=True and megakernel=True: pick one renderer")
+        megakernel = False
+    elif megakernel is None:
+        megakernel = device.type == "cuda" and supported()
+    elif megakernel and not supported():
+        raise ValueError(
+            "megakernel needs wide tables and a row-major [0, N) pixel list"
+        )
+    if megakernel or wavefront:
+        out = _render_fused(config, scene, xs, ys, spp, sample_base, device,
+                            wavefront, tile_pixels)
+    else:
+        kernel = lambda txs, tys: _render_tile(
+            config, scene, txs, tys, spp, int(sample_base)
+        )
+        r, g, b = run_tiled(kernel, xs, ys, tile_pixels, 3, device)
+        out = torch.from_numpy(np.stack([r, g, b], -1)).to(device)
+    return _average(out, spp) if average else out
 
 
 def render_pixels(
@@ -194,43 +314,17 @@ def render_pixels(
     row-major [0, N) pixel list, else ValueError); None picks it on a CUDA
     device when ``megakernel_supported``, and the scan otherwise (always on
     the CPU, as the JAX package picks it on a TPU only); False pins the scan.
-    tile_pixels=None resolves per device type (the scan's tiles).
-    ``device=None`` means CUDA. wavefront=True (path regeneration,
-    ops/wavefront.py) is a later slice of the port and raises
-    NotImplementedError.
+    wavefront=True renders through the wavefront renderer (ops/wavefront.py:
+    kernel K5 on a CUDA device, its plain version on the CPU; any pixel list,
+    binary or wide tables), in ``tile_pixels`` tiles; it is never picked on
+    its own. tile_pixels=None resolves per device type. ``device=None``
+    means CUDA.
     """
-    if wavefront:
-        raise NotImplementedError(
-            "wavefront=True: the path-regeneration renderer is a later slice "
-            "of the port (ops/wavefront.py)"
-        )
     device = resolve_device(device)
-    if scene.nl8.device != device:
-        raise ValueError(
-            f"scene is on {scene.nl8.device}, render asked for {device}"
-        )
-    spp = spp or config.samples_per_pixel
-    if megakernel is None:
-        megakernel = device.type == "cuda" and megakernel_supported(
-            scene, xs, ys, config.image_width
-        )
-    elif megakernel and not megakernel_supported(scene, xs, ys, config.image_width):
-        raise ValueError(
-            "megakernel needs wide tables and a row-major [0, N) pixel list"
-        )
-    if megakernel:
-        out = _render_megakernel(config, scene, len(xs), spp, sample_base, device)
-    else:
-        if tile_pixels is None:
-            tile_pixels = default_tile_pixels(device)
-        kernel = lambda txs, tys: _render_tile(
-            config, scene, txs, tys, spp, int(sample_base)
-        )
-        r, g, b = run_tiled(kernel, xs, ys, tile_pixels, 3, device)
-        out = np.stack([r, g, b], -1)
-    if average:
-        return out / np.float32(spp)
-    return out
+    return _render(
+        config, scene, xs, ys, spp, tile_pixels, sample_base, average, wavefront,
+        megakernel, device,
+    ).cpu().numpy()
 
 
 def render_frame(
@@ -244,15 +338,19 @@ def render_frame(
     """Render a full frame; returns (colors (H,W,3) f32, image (H,W,4) u8 BGRA).
 
     On a CUDA device a scene with wide tables renders through the megakernel
-    (``render_pixels``' auto-selection); ``render_pixels(..., megakernel=False)``
-    pins the scan."""
+    (``render_pixels``' auto-selection); ``wavefront=True`` renders through
+    the wavefront renderer; ``render_pixels(..., megakernel=False)`` pins the
+    scan. The colours are tonemapped on the device and each array is copied
+    back once."""
     device = resolve_device(device)
     W, H = config.image_width, config.image_height
-    idx = np.arange(W * H, dtype=np.int32)
-    xs = idx % W
-    ys = idx // W
-    colors = render_pixels(
-        config, scene, xs, ys, spp, tile_pixels, wavefront=wavefront,
-        device=device,
-    ).reshape(H, W, 3)
-    return colors, to_bgra(colors, device)
+    # the row-major list, made on the device (the megakernel reads none of
+    # it); ys takes the index's memory
+    idx = torch.arange(W * H, dtype=torch.int32, device=device)
+    xs = torch.remainder(idx, W)
+    ys = idx.div_(W, rounding_mode="floor")
+    colors = _render(
+        config, scene, xs, ys, spp, tile_pixels, 0, True, wavefront, None, device,
+        row_major=True,
+    ).view(H, W, 3)
+    return colors.cpu().numpy(), _bgra(colors).cpu().numpy()

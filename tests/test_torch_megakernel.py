@@ -235,22 +235,29 @@ def test_megakernel_wrapper_refuses_cpu_tensors_and_has_no_fallback(wide_scene):
         CM.check_scene(wide_scene._replace(sf_light=wide_scene.sf_light[:0]), cpu)
     with pytest.raises(ValueError, match="wide=True"):
         CM.check_scene(wide_scene._replace(wide_rows=None), cpu)
-    # the step cap is far above the golden scene's longest walk
-    assert CM.DEFAULT_MAX_STEPS == 64 * CM.LONGEST_GOLDEN_WALK > 0
+    # the step cap is derived from the tables (CM.step_cap): (instances + 1)
+    # trees of at most rows x slots cursors (wide) or nl8 nodes (binary)
+    binary = scene_device_from_golden(golden("scene.gold"), SMALL, device="cpu")
+    trees = wide_scene.inst_u.shape[0] + 1
+    assert CM.step_cap(wide_scene) == trees * wide_scene.wide_rows.shape[0] * 8 > 0
+    assert CM.step_cap(binary) == trees * (binary.nl8.shape[0] // 8) > 0
     assert len(CM.COUNT_NAMES) == len(set(CM.COUNT_NAMES)) == 13
 
 
 def test_k1_and_k2_share_the_walk():
     """The wide walk lives in one header that both kernels include; K1 is a
-    thin caller of it, and both libraries' hashes cover it."""
+    thin caller of it, K2 calls it through the path body of path.cuh (its
+    wide walk policy), and both libraries' hashes cover it."""
     assert CW.WALK_HEADER in CW.LIBRARY.headers and CW.WALK_HEADER in CM.LIBRARY.headers
+    assert CM.PATH_HEADER in CM.LIBRARY.headers
     k1 = CW.SOURCE.read_text()
     k2 = CM.SOURCE.read_text()
     walk = CW.WALK_HEADER.read_text()
+    path = CM.PATH_HEADER.read_text()
     assert "while (cursor != kEndTlas)" in walk
     for src in (k1, k2):
         assert '#include "wide_walk.cuh"' in src and "while (cursor" not in src
-        assert "wide_walk<" in src
+    assert "wide_walk<" in k1 and "WideWalk<" in k2 and "wide_walk<" in path
     assert "__global__" in k2 and "torch/extension.h" not in k2
 
 

@@ -18,6 +18,7 @@ from pathtracing_tpu_torch.config import TESTING
 from pathtracing_tpu_torch.ops import cuda_build
 from pathtracing_tpu_torch.ops import cuda_megakernel as CM
 from pathtracing_tpu_torch.ops import cuda_traversal as CT
+from pathtracing_tpu_torch.ops import cuda_wavefront as CWF
 from pathtracing_tpu_torch.ops import cuda_wide_traversal as CW
 from pathtracing_tpu_torch.probes import gather_probe as GP
 from pathtracing_tpu_torch.scene import golden as tgolden
@@ -126,7 +127,8 @@ def test_build_command_flags():
 
 
 @pytest.mark.parametrize(
-    "library", [CT.LIBRARY, CW.LIBRARY, GP.LIBRARY, CM.LIBRARY], ids=lambda lib: lib.name
+    "library", [CT.LIBRARY, CW.LIBRARY, GP.LIBRARY, CM.LIBRARY, CWF.LIBRARY],
+    ids=lambda lib: lib.name
 )
 def test_kernel_library_sources_and_hash(library, tmp_path):
     """Every kernel is a CUDA source of the package with a plain C interface;
@@ -253,14 +255,12 @@ def test_gather_wrapper_refusals():
 
 @pytest.mark.parametrize("kw", [{"wavefront": True}, {"megakernel": True}])
 def test_later_renderers_raise(kw):
-    """The wavefront renderer is a later slice; the megakernel is in, and
-    raises for what later slices bring (here: a scene with area-light
-    tables)."""
+    """The wavefront renderer and the megakernel are in, and raise for what
+    later slices bring (here: a scene with area-light tables)."""
     scene = tgolden.scene_device_from_golden(
         golden("scene.gold"), CFG, wide="megakernel" in kw, device="cpu"
     )
-    if "megakernel" in kw:
-        scene = scene._replace(lt_tris=torch.zeros((1, 9)))
+    scene = scene._replace(lt_tris=torch.zeros((1, 9)))
     idx = np.arange(16 * 9, dtype=np.int32)
     with pytest.raises(NotImplementedError, match="later slice"):
         trender.render_pixels(CFG, scene, idx % 16, idx // 16, device="cpu", **kw)
