@@ -13,18 +13,23 @@ per spp chunk) — at the PRODUCTION preset's geometry (1920x1080, 5 bounces)
 with spp cut from 1024 to 8 (one motion-blur step); ``render_frame(...,
 wavefront=True)`` on the binary scene, which on the card renders through the
 ``wavefront`` kernel (whole paths for any pixel list, one launch per tile and
-spp chunk); and the row-gather probe (``gather_rows`` kernel). Every kernel
-is held against its plain PyTorch version and, where there is one, against
-the C++ oracle's goldens on the way.
+spp chunk); the row-gather probe (``gather_rows`` kernel); and the gradient
+path, ``diff/render.make_fast_grad_frame_fn`` on that frame at 1 spp: the
+megakernel's record build (``megakernel_record`` kernel, K6) records the
+hit topology, and autograd through the scan's replay runs the gathers'
+backward kernels (``small_table_grad`` K7a, ``vattr_grad3`` K7b). Every
+kernel is held against its plain PyTorch version and, where there is one,
+against the C++ oracle's goldens on the way.
 Phases, one JSON object per line:
 
   device            card name + power limit (nvidia-smi), torch / CUDA versions
-  build             the five libraries of csrc/, built side by side: seconds,
+  build             the six libraries of csrc/, built side by side: seconds,
                     ptxas' registers and spills per kernel, resident blocks
                     per SM of the ray-query kernels and the path kernels;
                     wide_ray_query's and ray_query's registers and spills as
                     they were before their walks moved into wide_walk.cuh and
-                    binary_walk.cuh
+                    binary_walk.cuh, and the megakernel's timed build's as
+                    before its record build was added
   scene, wide_scene table sizes; rows and bytes of the wide tables per layout
   kernel_check      ray_query kernel vs plain version: the 4096 rays of
                     rays.gold in five modes, and the two batches the main path
@@ -89,6 +94,38 @@ Phases, one JSON object per line:
                     bound from the counting build's counters of the same
                     work; the wavefront on the binary and the w8 scene, timed
                     in turns with the megakernel
+  record_check      the megakernel's record build (K6) vs its plain version
+                    (path_trace_megakernel_plain(record=True)) on w8, w16, s8
+                    and motion.gold's scene, spp 1 and spp 3: every record
+                    plane equal, sums byte-equal to K2's; the replay of K6's
+                    records bit-equal to the direct scan with no walk
+                    launched; two launches byte-equal; with_stats,
+                    pixel_order and area lights raise
+  grad_kernel_check the gathers' backward kernels (K7a small_table_grad, K7b
+                    vattr_grad3) vs their plain versions (index_add_ in
+                    double) on the inputs of one all-fields replay chunk of
+                    the 1080p frame (the chunk with the most primary
+                    triangle hits; each K7b input labelled by its shade) and
+                    on seeded random inputs of 2,073,600 lanes with heavy
+                    duplication (rtol 1e-5, atol 1e-6 max|ref|); two
+                    launches byte-equal; times beside the plain versions,
+                    index_add_ in float (and K7a's one-hot matmul), bound by
+                    bytes; K7b timed on the shade with the fewest all-zero
+                    cotangent rows, which must be fewer than all
+  grad_slow_check   render_value_and_grad vs make_fast_grad_fn on 4,096 lanes
+                    of the 640x360 frame, binary and w8, at
+                    tests/test_diff_fast.py's bar; P1 / K1 launch counts
+  main_path_grad    make_fast_grad_frame_fn at 1920x1080, 5 bounces, 1 spp,
+                    w8: a step on every field (finite loss; finite, non-zero
+                    gradients), then 3 steps of inverse sun whose error must
+                    fall; launches of K6, K7a, K7b (and none of P1, K1, K2,
+                    K5); peak memory; a warm step; the step by its pieces
+                    (K6 record, replay without autograd, the loss's
+                    cotangent, replays under autograd, backwards)
+  record_timing     one K6 launch at that shape, timed in turns with K2's;
+                    the plain version's time, and its records and sums
+                    against K6's of that shape (every plane equal, sums
+                    byte-equal to K2's); the bound
   kernels           the per-kernel summary line
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises: the
 script exits non-zero and prints no result line. There is no CPU fallback:
@@ -116,17 +153,29 @@ from pathtracing_tpu_torch.accel.wide import (
 )
 from pathtracing_tpu_torch.config import PRODUCTION, TESTING
 from pathtracing_tpu_torch.io.bmp import read_bmp, write_bmp
+from pathtracing_tpu_torch.diff import render as diff_render
+from pathtracing_tpu_torch.diff.render import (
+    DIFFERENTIABLE_FIELDS,
+    frame_items,
+    make_fast_grad_fn,
+    make_fast_grad_frame_fn,
+    render_value_and_grad,
+    replay_value_and_grad,
+)
 from pathtracing_tpu_torch.ops import cuda_build
+from pathtracing_tpu_torch.ops import cuda_gather_grad as CG
 from pathtracing_tpu_torch.ops import cuda_megakernel as CM
 from pathtracing_tpu_torch.ops import cuda_traversal as CT
 from pathtracing_tpu_torch.ops import cuda_wavefront as CWF
 from pathtracing_tpu_torch.ops import cuda_wide_traversal as CW
 from pathtracing_tpu_torch.ops import integrator
+from pathtracing_tpu_torch.ops import megakernel as mk_module
 from pathtracing_tpu_torch.ops.megakernel import (
     morton_pixel_order,
     path_trace_megakernel,
     path_trace_megakernel_plain,
 )
+from pathtracing_tpu_torch.ops.integrator import path_trace_samples
 from pathtracing_tpu_torch.ops.tonemap import tonemap
 from pathtracing_tpu_torch.ops.traversal import ray_query, ray_query_plain, simd_efficiency
 from pathtracing_tpu_torch.ops.wavefront import (
@@ -190,6 +239,9 @@ MK_FLOPS = {
 # and binary_walk.cuh
 K1_REGISTERS = {"w8": 80, "w16": 91, "s8": 67}
 P1_REGISTERS = 52
+# the megakernel's timed build (K2) per layout, (registers, spill bytes), as
+# PRs 4 and 6 built it: the record build (K6) is a kernel of its own
+K2_TIMED = {"w8": (128, 0), "w16": (128, 172), "s8": (126, 0)}
 
 RTOL = ATOL = 1e-6  # kernel vs plain version: same ops, same order, no FMA
 # Shared memory a block could give to staged mega-table rows: the share of
@@ -199,7 +251,7 @@ EDGE_R = (1, 31, 33, 4097)  # one lane, just under / over a warp, a ragged block
 
 LIBRARIES = {"ray_query": CT.LIBRARY, "wide_ray_query": CW.LIBRARY,
              "gather_rows": GP.LIBRARY, "megakernel": CM.LIBRARY,
-             "wavefront": CWF.LIBRARY}
+             "wavefront": CWF.LIBRARY, "gather_grad": CG.LIBRARY}
 SOURCES = {k: str(lib.source.relative_to(ROOT)) for k, lib in LIBRARIES.items()}
 
 
@@ -552,7 +604,7 @@ def wavefront_by_layout(kernels) -> dict:
 
 
 def phase_build():
-    """All five libraries, one nvcc each, started together."""
+    """All six libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         list(pool.map(lambda lib: lib.build(), LIBRARIES.values()))
@@ -591,17 +643,23 @@ def phase_build():
             f"ray_query registers/spills {p1_regs}, expected {P1_REGISTERS} / 0")
     report["wavefront"]["registers_spills_by_layout"] = wavefront_by_layout(
         report["wavefront"]["kernels"])
+    mk_kernels = report["megakernel"]["kernels"]
     report["megakernel"]["registers_spills_by_layout"] = {
-        "timed": by_layout(report["megakernel"]["kernels"], "Lb0E"),
-        "counting": by_layout(report["megakernel"]["kernels"], "Lb1E"),
+        "timed": by_layout(mk_kernels, "Lb0E"),
+        "counting": by_layout(mk_kernels, "Lb1E"),
+        "record": by_layout([k for k in mk_kernels if "megakernel_record" in k["entry"]]),
     }
+    # K6 is a kernel of its own: K2's timed build compiles as before
+    k2 = report["megakernel"]["registers_spills_by_layout"]["timed"]
+    require(k2 == K2_TIMED, f"megakernel timed build {k2}, expected {K2_TIMED}")
     mk_block, wf_block = CM.block_size(), CWF.block_size()
     emit("build", seconds=sec, flags=list(cuda_build.NVCC_FLAGS), libraries=report,
          sms=sms, block=CT.block_size(), megakernel_block=mk_block, wavefront_block=wf_block,
          resident_warps_per_sm={k: v * CT.block_size() // 32 for k, v in occ.items()},
          megakernel_resident_warps_per_sm={k: v * mk_block // 32 for k, v in mk_occ.items()},
          wavefront_resident_warps_per_sm={k: v * wf_block // 32 for k, v in wf_occ.items()},
-         wide_ray_query_registers_unchanged=True, ray_query_registers_unchanged=True)
+         wide_ray_query_registers_unchanged=True, ray_query_registers_unchanged=True,
+         megakernel_timed_registers_unchanged=True)
     return report
 
 
@@ -1326,7 +1384,7 @@ def phase_main_path_fused(cfg, scene, oracle_mean, scan_colors, scan_sec, wavefr
     return launches, sec, peak, vs_scan["bit_equal_share"]
 
 
-def path_kernel_bound(scene, counts, n: int, io_bytes: int) -> dict:
+def path_kernel_bound(scene, counts, n: int, io_bytes: int, spp: int = MAIN_SPP) -> dict:
     """The bound of a path kernel's launch from its counting build's
     counters (CM.COUNT_NAMES): the walk's visits (slab tests, triangle tests,
     BLAS entries) and the shading calls at their counted flops, against every
@@ -1346,7 +1404,7 @@ def path_kernel_bound(scene, counts, n: int, io_bytes: int) -> dict:
                   scene.sf_tlas_offset)
     table_b = sum(nb(x) for x in tables)
     b = bound(table_b, io_bytes, 0, flops)
-    return {"pixels": n, "spp": MAIN_SPP, "flops": flops, "table_bytes": table_b,
+    return {"pixels": n, "spp": spp, "flops": flops, "table_bytes": table_b,
             "counts": c,
             "rows_per_ray": (c["node_rows"] + c["leaf_rows"] + c["inst_rows"]) / c["rays"],
             "rays_per_sample": c["rays"] / c["samples"],
@@ -1399,6 +1457,511 @@ def phase_wavefront_timing(cfg, binary, wide, smi):
         emit("wavefront_timing", **res)
         out[name] = res
     return out
+
+
+# ------------------------------------------------------------ the gradient path
+
+GRAD_SPP = 1  # the frame gradient's samples per pixel: 1 spp at 1080p fits one card
+SUN_STEPS = 3
+SUN_LR = 0.5  # plain gradient descent on sf_light; renormalised after each step
+SUN_PERTURB = np.array([0.25, -0.1, 0.2], np.float32)  # examples/inverse_fast.py's
+GRAD_RTOL = 1e-5  # K7 vs its plain version: sums in another order; atol 1e-6 max|ref|
+
+
+def records_equal(tag, got, ref) -> dict:
+    """Two record sets (prim_rec, bounce_recs) equal, key by key, exactly.
+    Returns the mismatch counts (all 0, or the check raised)."""
+    out = {}
+    for part, a, b in (("prim", got[0], ref[0]), ("bounce", got[1], ref[1])):
+        require(a.keys() == b.keys(), f"{tag}: record keys {a.keys()} vs {b.keys()}")
+        for k in a:
+            require(a[k].shape == b[k].shape and a[k].dtype == b[k].dtype,
+                    f"{tag}: {part}.{k} {a[k].shape} {a[k].dtype} vs {b[k].shape} {b[k].dtype}")
+            out[f"{part}.{k}"] = int((a[k] != b[k]).sum())
+    require(not any(out.values()), f"{tag}: record planes differ {out}")
+    return out
+
+
+def phase_record_check(wide_scenes, motion_wide):
+    """The megakernel's record build (K6) against its plain version
+    (path_trace_megakernel_plain(record=True): the scan's records, rows not
+    reached zero) on the golden 640x360 frame in w8, w16, s8 and on
+    motion.gold's scene, at spp 1 and spp 3 from sample 5: every record plane
+    equal, the sums byte-equal to K2's (the timed build) on the same items,
+    and within the JAX bar of the plain version's. The replay of K6's
+    records through path_trace_samples(replay=) gives radiance bit-equal to
+    the direct scan on the same items (w8, spp 1). Two launches byte-equal;
+    with_stats, pixel_order and area lights raise."""
+    cfg = TESTING
+    n = cfg.image_width * cfg.image_height
+    cases = [(name, wide_scenes[name]) for name in LAYOUTS] + [("motion_w8", motion_wide)]
+    results = []
+    for tag, scene in cases:
+        for spp, base in ((1, 0), (3, 5)):
+            (acc, recs, n_trunc) = path_trace_megakernel(
+                cfg, scene, n, spp, base, record=True, return_truncated=True, device="cuda")
+            (pr, pg, pb), precs = path_trace_megakernel_plain(
+                cfg, scene, n, spp, base, record=True)
+            r2, g2, b2, _, t2, _ = CM.megakernel_cuda(cfg, scene, n, spp, base)
+            torch.cuda.synchronize()
+            require(int(n_trunc[0]) == 0 and int(t2[0]) == 0, f"{tag}: samples abandoned")
+            mism = records_equal(f"{tag} spp{spp}", recs, precs)
+            k2_equal = all(torch.equal(a, b) for a, b in zip(acc, (r2, g2, b2)))
+            require(k2_equal, f"{tag} spp{spp}: K6 sums differ from K2's")
+            cmp = mk_compare(f"{tag} spp{spp}", tuple(acc), (pr, pg, pb), spp, base, 0,
+                             cfg.image_width)
+            results.append({"case": f"{tag} spp{spp} base{base}", "items": n * spp,
+                            "record_mismatches": sum(mism.values()),
+                            "sums_byte_equal_k2": k2_equal,
+                            "bit_equal_share_vs_plain": cmp["bit_equal_share"],
+                            "max_abs_err_vs_plain": cmp["max_abs_err"],
+                            "primary_hits": int(recs[0]["hit"].sum()),
+                            "bounce_hits": int(recs[1]["hit"].sum()),
+                            "shadow_occluded": int(recs[1]["occ"].sum())})
+    # the replay of K6's records: the direct scan's radiance, bit for bit,
+    # and no walk launched
+    scene = wide_scenes[MAIN_LAYOUT]
+    xs, ys, si = frame_items(cfg, n, 1, 0, torch.device("cuda"))
+    _, recs = path_trace_megakernel(cfg, scene, n, 1, record=True, device="cuda")
+    direct = path_trace_samples(cfg, scene, xs, ys, si)
+    CT.reset_launches()
+    CW.reset_launches()
+    replayed = path_trace_samples(cfg, scene, xs, ys, si, replay=recs)
+    torch.cuda.synchronize()
+    replay_walks = CT.launches + CW.launches
+    replay_equal = all(torch.equal(a, b) for a, b in zip(direct, replayed))
+    require(replay_equal, "the replay of K6's records differs from the direct scan")
+    require(replay_walks == 0, f"the replay launched {replay_walks} walks")
+    _, again = path_trace_megakernel(cfg, scene, n, 1, record=True, device="cuda")
+    records_equal("two launches", again, recs)
+    raised = {}
+    for what, kw, exc in (("with_stats", dict(with_stats=True), ValueError),
+                          ("pixel_order", dict(pixel_order=np.arange(n)), ValueError),
+                          ("area_lights", dict(lit=True), NotImplementedError)):
+        sc = scene._replace(lt_tris=torch.zeros((1, 9), device="cuda")) if kw.pop("lit", 0) \
+            else scene
+        try:
+            path_trace_megakernel(cfg, sc, n, 1, record=True, device="cuda", **kw)
+        except exc as e:
+            raised[what] = type(e).__name__
+    require(len(raised) == 3, f"record error paths: only {raised} raised")
+    for r in results:
+        emit("record_check", **r)
+    emit("record_check", part="summary", cases=len(results),
+         record_mismatches=sum(r["record_mismatches"] for r in results),
+         sums_byte_equal_k2=all(r["sums_byte_equal_k2"] for r in results),
+         min_bit_equal_share_vs_plain=min(r["bit_equal_share_vs_plain"] for r in results),
+         replay_bit_equal_direct=replay_equal, replay_walk_launches=replay_walks,
+         two_launches_byte_equal=True, error_paths_raised=raised)
+    return max(r["max_abs_err_vs_plain"] for r in results)
+
+
+def capture_gather_grads(cfg, scene, records, xs, ys, si, part):
+    """The (idx, g) and (ti3, g) the backward kernels receive in one
+    all-fields replay of the items ``part`` (a slice): the wrappers are
+    wrapped to keep a copy of their inputs, and call through. Each K7b input
+    is labelled by its shade, 0 the primary and b the shade of bounce b, from
+    the forward's order of the vattr gathers: the backward gets the very
+    index tensor the forward saved."""
+    seen = {"small": [], "vattr": []}
+    orig_s, orig_v = CG.small_table_grad_cuda, CG.vattr_grad3_cuda
+    orig_gather = integrator.vattr_gather3
+    shade_of = {}  # data_ptr of a forward's ti3 -> its shade
+
+    def spy_gather(vattr, ti3):
+        shade_of[ti3.data_ptr()] = len(shade_of)
+        return orig_gather(vattr, ti3)
+
+    def spy_s(idx, g, rows):
+        seen["small"].append((idx.clone(), g.clone(), rows))
+        return orig_s(idx, g, rows)
+
+    def spy_v(ti3, g, rows):
+        seen["vattr"].append((shade_of[ti3.data_ptr()], ti3.clone(), g.clone(), rows))
+        return orig_v(ti3, g, rows)
+
+    CG.small_table_grad_cuda, CG.vattr_grad3_cuda = spy_s, spy_v
+    integrator.vattr_gather3 = spy_gather
+    try:
+        recs = ({k: v[part] for k, v in records[0].items()},
+                {k: v[:, part] for k, v in records[1].items()})
+        replay_value_and_grad(cfg, scene, xs[part], ys[part], si[part], recs, None,
+                              DIFFERENTIABLE_FIELDS)
+        torch.cuda.synchronize()
+    finally:
+        CG.small_table_grad_cuda, CG.vattr_grad3_cuda = orig_s, orig_v
+        integrator.vattr_gather3 = orig_gather
+    require(sorted(s for s, *_ in seen["vattr"]) == list(range(len(shade_of))),
+            f"K7b inputs of shades {[s for s, *_ in seen['vattr']]} of {len(shade_of)}")
+    return seen
+
+
+def grad_compare(tag, got, ref) -> float:
+    """K7 against its plain version: within rtol GRAD_RTOL, atol 1e-6 max|ref|.
+    Returns the max abs error."""
+    scale = float(ref.abs().max())
+    err = (got - ref).abs()
+    ok = bool((err <= GRAD_RTOL * ref.abs() + 1e-6 * scale).all())
+    require(ok and bool(torch.isfinite(got).all() == torch.isfinite(ref).all()),
+            f"{tag}: max abs err {float(err.max())} (max |ref| {scale})")
+    return float(err.max())
+
+
+def zero_row_share(g) -> float:
+    """The share of a K7b input's 12-float cotangent rows that are all zero
+    (the kernel skips exact zeros)."""
+    return float((g.reshape(-1, g.shape[-1]) == 0).all(-1).float().mean())
+
+
+def phase_grad_kernel_check(cfg, scene, smi):
+    """K7a and K7b against their plain versions (index_add_ in double) on the frame's
+    real inputs, captured from one all-fields replay chunk of the 1080p frame
+    (the shape the main path gives them; of the main path's chunks, the one
+    whose primary rays hit the most triangles), and on seeded random inputs
+    of the whole frame's 2,073,600 lanes with heavy duplication; two
+    launches byte-equal; times (L2 flushed, median of 5) beside the plain
+    versions, the one PyTorch call (index_add_ in float) and, for K7a, the
+    one-hot matmul of the JAX package's rule; the bound by bytes. K7b is
+    timed on the captured shade with the fewest all-zero cotangent rows: a
+    lane's row of a shade is non-zero only where that shade's ray hit a
+    triangle (a miss lane reads triangle 0's rows, and the shading takes
+    its values from the sun instead)."""
+    n = cfg.image_width * cfg.image_height
+    items = n * GRAD_SPP
+    xs, ys, si = frame_items(cfg, n, GRAD_SPP, 0, torch.device("cuda"))
+    _, records = path_trace_megakernel(cfg, scene, n, GRAD_SPP, record=True, device="cuda")
+    chunk = min(items, diff_render.REPLAY_CHUNK)
+    spans = [(a, min(items, a + chunk)) for a in range(0, items, chunk)]
+    # triangle hits per chunk: the primary ray's, and each bounce row's
+    hits = [{"items": [a, b], "primary_hits": int(records[0]["hit"][a:b].sum()),
+             "bounce_hits": records[1]["hit"][:, a:b].sum(1).tolist()} for a, b in spans]
+    pick = max(range(len(spans)), key=lambda i: hits[i]["primary_hits"])
+    seen = capture_gather_grads(cfg, scene, records, xs, ys, si, slice(*spans[pick]))
+    require(len(seen["small"]) == 2 and len(seen["vattr"]) == 1 + cfg.max_bounces,
+            f"captured {len(seen['small'])} K7a and {len(seen['vattr'])} K7b inputs")
+    shades = {sh: {"zero_row_share": zero_row_share(g),
+                   "hit_lanes": int(hits[pick]["primary_hits"] if sh == 0
+                                    else hits[pick]["bounce_hits"][sh - 1])}
+              for sh, _, g, _ in seen["vattr"]}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    R = n
+    # 80 % of the lanes on 3 hot rows, the rest spread over the table
+    hot = lambda shape, hi: torch.where(
+        torch.rand(shape, device="cuda", generator=gen) < 0.8,
+        torch.randint(0, 3, shape, device="cuda", generator=gen),
+        torch.randint(0, hi, shape, device="cuda", generator=gen)).to(torch.int32)
+    S = 32  # the golden subframe tables' rows at the TESTING preset (1 here)
+    V = scene.vattr.shape[0]
+    g3 = torch.randn((R, 3, 12), device="cuda", generator=gen)
+    g3[torch.rand(R, device="cuda", generator=gen) < 0.5] = 0.0
+    small_cases = [(f"frame sf_{'cam' if g.shape[1] == 18 else 'light'}", idx, g, rows)
+                   for idx, g, rows in seen["small"]]
+    small_cases.append(("random 2073600x18", hot((R,), S),
+                        torch.randn((R, 18), device="cuda", generator=gen), S))
+    vattr_cases = [(f"frame shade {sh}", t, g, rows) for sh, t, g, rows in seen["vattr"]]
+    vattr_cases.append(("random 2073600x3x12", hot((R, 3), V), g3, V))
+    errs = {"small_table_grad": [], "vattr_grad3": []}
+    for tag, idx, g, rows in small_cases:
+        a = CG.small_table_grad_cuda(idx, g, rows)
+        b = CG.small_table_grad_cuda(idx, g, rows)
+        torch.cuda.synchronize()
+        require(torch.equal(a, b), f"K7a {tag}: two launches differ")
+        errs["small_table_grad"].append(
+            grad_compare(f"K7a {tag}", a, integrator.small_table_grad_plain(idx, g, rows)))
+    for tag, t3, g, rows in vattr_cases:
+        a = CG.vattr_grad3_cuda(t3, g, rows)
+        b = CG.vattr_grad3_cuda(t3, g, rows)
+        torch.cuda.synchronize()
+        require(torch.equal(a, b), f"K7b {tag}: two launches differ")
+        errs["vattr_grad3"].append(
+            grad_compare(f"K7b {tag}", a, integrator.vattr_grad3_plain(t3, g, rows)))
+    # timing at the main path's shape: the chunk's sf_cam input, and the
+    # shade whose cotangent has the fewest all-zero rows
+    idx, g, rows = seen["small"][0] if seen["small"][0][1].shape[1] == 18 else seen["small"][1]
+    timed_shade, t3, gv, vrows = min(seen["vattr"], key=lambda c: shades[c[0]]["zero_row_share"])
+    require(shades[timed_shade]["zero_row_share"] < 1.0,
+            f"every captured K7b cotangent is all zero: {shades}")
+    # the one PyTorch call for each: index_add_ in float (and for K7a the
+    # JAX rule's one-hot matmul); the plain versions add in double
+    onehot = lambda: (idx.long()[:, None] == torch.arange(rows, device="cuda")[None]).float().T @ g
+    index_add = lambda i, x, r: torch.zeros((r, x.shape[-1]), device="cuda").index_add_(
+        0, i.reshape(-1).long(), x.reshape(-1, x.shape[-1]))
+    t = time_launches({
+        "k7a": lambda: CG.small_table_grad_cuda(idx, g, rows),
+        "k7a_plain": lambda: integrator.small_table_grad_plain(idx, g, rows),
+        "k7a_index_add": lambda: index_add(idx, g, rows),
+        "k7a_onehot_matmul": onehot,
+        "k7b": lambda: CG.vattr_grad3_cuda(t3, gv, vrows),
+        "k7b_plain": lambda: integrator.vattr_grad3_plain(t3, gv, vrows),
+        "k7b_index_add": lambda: index_add(t3, gv, vrows),
+        "k7b_sort": lambda: torch.sort(t3.reshape(-1), stable=True),
+    })
+    res = {}
+    for name, key, rb, out_b, adds in (
+        ("small_table_grad", "k7a", idx.numel() * 4 + g.numel() * 4, rows * g.shape[1] * 4,
+         g.numel()),
+        ("vattr_grad3", "k7b", t3.numel() * 4 + gv.numel() * 4, vrows * gv.shape[2] * 4,
+         gv.numel()),
+    ):
+        b = bound(0, rb + out_b, 0, adds)
+        res[name] = {"ms": t[key][0], "ms_all": t[key][1],
+                     "plain_ms": t[key + "_plain"][0], "library_ms": t[key + "_index_add"][0],
+                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                     "bytes": rb + out_b, "max_abs_err": max(errs[name]),
+                     "max_abs_err_by_case": errs[name], "card": smi}
+    res["small_table_grad"].update(shape=f"idx ({idx.numel()},), g {tuple(g.shape)}, "
+                                         f"S = {rows}",
+                                   onehot_matmul_ms=t["k7a_onehot_matmul"][0])
+    res["vattr_grad3"].update(shape=f"ti3 {tuple(t3.shape)}, g {tuple(gv.shape)}, V = {vrows}",
+                              sort_ms=t["k7b_sort"][0], timed_shade=timed_shade,
+                              zero_row_share=shades[timed_shade]["zero_row_share"],
+                              shades=shades)
+    for r in res.values():
+        r.update(chunk=hits[pick]["items"])
+    emit("grad_kernel_check", part="chunks", chunk_triangle_hits=hits, captured_chunk=pick)
+    for name, r in res.items():
+        emit("grad_kernel_check", kernel=name, cases=len(errs[name]),
+             rtol=GRAD_RTOL, atol_over_max_ref=1e-6, two_launches_byte_equal=True, **r)
+    return res
+
+
+def phase_grad_slow_check(binary, wide):
+    """render_value_and_grad on the card against make_fast_grad_fn on 4,096
+    lanes of the golden 640x360 frame (rows 200 on, 4 bounces), binary and
+    w8, at tests/test_diff_fast.py's bar; the fast path's record pass walks
+    with P1 / K1, which shows in their counts."""
+    cfg = TESTING
+    lanes = 4096
+    pix = torch.arange(lanes, dtype=torch.int32, device="cuda") + 200 * cfg.image_width
+    xs, ys = pix % cfg.image_width, pix // cfg.image_width
+    si = torch.zeros(lanes, dtype=torch.int32, device="cuda")
+    out = {}
+    for name, scene in (("binary", binary), ("w8", wide)):
+        counts = {}
+        for path, fn in (("slow", lambda: render_value_and_grad(cfg, scene, xs, ys, si)),
+                         ("fast", lambda: make_fast_grad_fn(cfg)(scene, xs, ys, si))):
+            for mod in (CT, CW, CG):
+                mod.reset_launches()
+            t0 = time.perf_counter()
+            loss, grads = fn()
+            torch.cuda.synchronize()
+            counts[path] = {"seconds": time.perf_counter() - t0, "loss": float(loss),
+                            "p1": CT.launches, "k1": CW.launches,
+                            "k7a": CG.small_table_launches, "k7b": CG.vattr_launches,
+                            "grads": grads}
+        slow, fast = counts["slow"]["grads"], counts["fast"]["grads"]
+        require(abs(counts["fast"]["loss"] - counts["slow"]["loss"])
+                <= 1e-4 * abs(counts["slow"]["loss"]), f"{name}: losses differ")
+        worst = {}
+        for k in DIFFERENTIABLE_FIELDS:
+            a, b = slow[k].double(), fast[k].double()
+            scale = float(a.abs().max())
+            require(bool(torch.isfinite(b).all()) and scale > 0, f"{name} {k}: not finite / zero")
+            ok = bool(((b - a).abs() <= 2e-2 * a.abs() + 2e-2 * scale + 1e-9).all())
+            sup = abs(int((a.abs() > 1e-12).sum()) - int((b.abs() > 1e-12).sum()))
+            require(ok and sup <= 2, f"{name} {k}: fast vs slow beyond the bar (support {sup})")
+            worst[k] = float(((b - a).abs() / (2e-2 * a.abs() + 2e-2 * scale + 1e-9)).max())
+        walk = "p1" if name == "binary" else "k1"
+        expect = 1 + cfg.max_bounces
+        require(counts["fast"][walk] == expect and counts["slow"][walk] == expect,
+                f"{name}: {walk} launches {counts['fast'][walk]} / {counts['slow'][walk]}, "
+                f"expected {expect}")
+        for c in counts.values():
+            c.pop("grads")
+        out[name] = counts
+        emit("grad_slow_check", scene=name, lanes=lanes, bounces=cfg.max_bounces,
+             bar="rtol 2e-2, atol 2e-2 max|ref|, support within 2", worst_err_over_bar=worst,
+             **counts)
+    return out
+
+
+def phase_record_timing(cfg, scene, smi):
+    """One K6 launch at the main path's shape (the 1080p frame, GRAD_SPP spp:
+    make_fast_grad_frame_fn's record pass), timed in turns with K2's timed
+    build on the same items (L2 flushed, median of 3); the plain version's
+    time (the scan with records, host clock to a synchronise) and its
+    result, which K6's records of the same call must equal on every plane,
+    with K6's sums byte-equal to K2's and within the JAX bar of the plain
+    version's (their max abs error is the kernels line's); the bound: K2's
+    from the counting build's counters of the same work, plus the record
+    planes' bytes written once."""
+    n = cfg.image_width * cfg.image_height
+    t = time_launches({"k6": lambda: CM.megakernel_record_cuda(cfg, scene, n, GRAD_SPP),
+                       "k2": lambda: CM.megakernel_cuda(cfg, scene, n, GRAD_SPP)}, reps=3)
+    *_, counts = CM.megakernel_cuda(cfg, scene, n, GRAD_SPP, counts=True)
+    items = n * GRAD_SPP
+    rec_bytes = items * 8 + cfg.max_bounces * items * 9
+    res = path_kernel_bound(scene, counts, n, 3 * 4 * n + rec_bytes, spp=GRAD_SPP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (pr, pg, pb), precs = path_trace_megakernel_plain(cfg, scene, n, GRAD_SPP, record=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    acc, recs, n_trunc = path_trace_megakernel(
+        cfg, scene, n, GRAD_SPP, record=True, return_truncated=True, device="cuda")
+    r2, g2, b2, _, t2, _ = CM.megakernel_cuda(cfg, scene, n, GRAD_SPP)
+    torch.cuda.synchronize()
+    require(int(n_trunc[0]) == 0 and int(t2[0]) == 0, "1080p record: samples abandoned")
+    mism = records_equal("1080p record", recs, precs)
+    k2_equal = all(torch.equal(a, b) for a, b in zip(acc, (r2, g2, b2)))
+    require(k2_equal, "1080p record: K6 sums differ from K2's")
+    cmp = mk_compare("1080p record", tuple(acc), (pr, pg, pb), GRAD_SPP, 0, 0, cfg.image_width)
+    res.update(ms=t["k6"][0], ms_all=t["k6"][1], k2_ms_same_call=t["k2"][0],
+               k2_ms_all=t["k2"][1], plain_ms=plain_ms, record_bytes=rec_bytes,
+               roofline_share=res["bound_ms"] / t["k6"][0],
+               record_mismatches=mism, sums_byte_equal_k2=k2_equal,
+               bit_equal_share_vs_plain=cmp["bit_equal_share"],
+               max_abs_err=cmp["max_abs_err"], primary_hits=int(recs[0]["hit"].sum()),
+               bounce_hits=int(recs[1]["hit"].sum()), shadow_occluded=int(recs[1]["occ"].sum()),
+               card=smi)
+    emit("record_timing", **res)
+    return res
+
+
+def split_step(cfg, n, scene):
+    """One all-fields step through make_fast_grad_frame_fn, timed by its
+    pieces: the record pass, the replays without autograd and under autograd
+    (path_trace_samples in diff/render, told apart by whether autograd is
+    on) and the backwards (the torch.autograd.grad calls given a cotangent;
+    the one without is the loss's cotangent per lane), each wrapped to time
+    it on the host's clock between two synchronises, and the whole step.
+    Returns (seconds by piece, the step's loss)."""
+    split = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            key = name(a, k) if callable(name) else name
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    orig = {"rec": mk_module.path_trace_megakernel, "pts": diff_render.path_trace_samples,
+            "grad": torch.autograd.grad}
+    mk_module.path_trace_megakernel = timed("k6_record", orig["rec"])
+    diff_render.path_trace_samples = timed(
+        lambda a, k: "replay_autograd" if torch.is_grad_enabled() else "replay_no_grad",
+        orig["pts"])
+    torch.autograd.grad = timed(
+        lambda a, k: "backward" if (a[2:3] or [k.get("grad_outputs")])[0] is not None
+        else "loss_cotangent",
+        orig["grad"])
+    try:
+        loss, _ = timed("step", make_fast_grad_frame_fn(cfg, n, GRAD_SPP))(scene)
+    finally:
+        mk_module.path_trace_megakernel = orig["rec"]
+        diff_render.path_trace_samples = orig["pts"]
+        torch.autograd.grad = orig["grad"]
+    require(set(split) == {"k6_record", "replay_no_grad", "loss_cotangent", "replay_autograd",
+                           "backward", "step"}, f"split step pieces {sorted(split)}")
+    return split, loss
+
+
+def phase_main_path_grad(cfg, scene, smi):
+    """The gradient path at full width: make_fast_grad_frame_fn on the
+    1920x1080 frame, 5 bounces, GRAD_SPP spp, the w8 golden scene. One step
+    with every field (finite loss; finite, non-zero gradients on every
+    field), then SUN_STEPS steps of inverse sun (examples/inverse_fast.py:
+    target = K2 under the true sun, mean squared error, the sun perturbed by
+    SUN_PERTURB, plain gradient descent at SUN_LR, renormalised), whose sun
+    error must fall. The counts are set to 0 just before the first step and
+    read just after the last: K6 once a step; K7a twice (sf_cam, sf_light)
+    per replay chunk in the all-fields step and once in a sun step; K7b
+    1 + max_bounces times per chunk, only in the all-fields step; no P1, K1,
+    K2 or K5. Then the all-fields step twice more: warm, through the entry
+    point (what each step of a training loop pays; the first step also pays
+    first calls), and by its pieces (split_step)."""
+    n = cfg.image_width * cfg.image_height
+    dev = torch.device("cuda")
+    chunks = -(-n * GRAD_SPP // diff_render.REPLAY_CHUNK)
+    acc = path_trace_megakernel(cfg, scene, n, GRAD_SPP, device="cuda")
+    target = torch.stack(list(acc), -1) / GRAD_SPP
+    idx = torch.arange(n * GRAD_SPP, device=dev) % n
+
+    def mse(c):
+        return torch.mean((torch.stack(list(c), -1) - target[idx]) ** 2)
+
+    counters = (CT, CW, CM, CWF, CG)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counters:
+        mod.reset_launches()
+    all_fn = make_fast_grad_frame_fn(cfg, n, GRAD_SPP)
+    t0 = time.perf_counter()
+    loss, grads = all_fn(scene)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    all_counts = {"k6": CM.record_launches, "k7a": CG.small_table_launches,
+                  "k7b": CG.vattr_launches, "p1": CT.launches, "k1": CW.launches,
+                  "k2": CM.launches, "k5": CWF.launches}
+    peak = torch.cuda.max_memory_allocated()
+    require(bool(torch.isfinite(loss)), f"all-fields loss {float(loss)}")
+    stats = {}
+    for k in DIFFERENTIABLE_FIELDS:
+        g = grads[k]
+        require(g.shape == getattr(scene, k).shape, f"{k}: gradient shape {g.shape}")
+        require(bool(torch.isfinite(g).all()), f"{k}: non-finite gradient on the full frame")
+        nz = int((g != 0).sum())
+        require(nz > 0, f"{k}: all-zero gradient on the full frame")
+        stats[k] = {"nonzero": nz, "max_abs": float(g.abs().max())}
+    want = {"k6": 1, "k7a": 2 * chunks, "k7b": (1 + cfg.max_bounces) * chunks,
+            "p1": 0, "k1": 0, "k2": 0, "k5": 0}
+    require(all_counts == want, f"all-fields step launches {all_counts}, expected {want}")
+
+    # inverse sun
+    norm = lambda v: v / np.linalg.norm(v)
+    sf0 = scene.sf_light.cpu().numpy()
+    true_dir = sf0[0, 0:3].copy()
+    bad = sf0.copy()
+    bad[0, 0:3] = norm(true_dir + SUN_PERTURB)
+    cur = scene._replace(sf_light=torch.from_numpy(bad).to(dev))
+    err = lambda v: float(np.degrees(np.arccos(np.clip(np.dot(norm(v), norm(true_dir)), -1, 1))))
+    sun_fn = make_fast_grad_frame_fn(cfg, n, GRAD_SPP, fields=("sf_light",), loss_fn=mse)
+    errs, losses, secs = [err(bad[0, 0:3])], [], []
+    for _ in range(SUN_STEPS):
+        t0 = time.perf_counter()
+        sl, sg = sun_fn(cur)
+        g = sg["sf_light"].cpu().numpy()
+        secs.append(time.perf_counter() - t0)
+        require(np.isfinite(g).all() and np.isfinite(float(sl)), "inverse sun: not finite")
+        nxt = cur.sf_light.cpu().numpy() - SUN_LR * g
+        nxt[:, 0:3] = norm(nxt[0, 0:3])
+        cur = cur._replace(sf_light=torch.from_numpy(nxt.astype(np.float32)).to(dev))
+        losses.append(float(sl))
+        errs.append(err(nxt[0, 0:3]))
+    total = {"k6": CM.record_launches, "k7a": CG.small_table_launches,
+             "k7b": CG.vattr_launches, "p1": CT.launches, "k1": CW.launches,
+             "k2": CM.launches, "k5": CWF.launches}
+    want_total = {"k6": 1 + SUN_STEPS, "k7a": 2 * chunks + SUN_STEPS * chunks,
+                  "k7b": (1 + cfg.max_bounces) * chunks, "p1": 0, "k1": 0, "k2": 0, "k5": 0}
+    require(total == want_total, f"main path launches {total}, expected {want_total}")
+    require(errs[-1] < errs[0], f"the sun error did not fall: {errs}")
+
+    # the all-fields step again, warm (what each step of a training loop
+    # pays), then once more by its pieces
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_warm, _ = all_fn(scene)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    split, split_loss_s = split_step(cfg, n, scene)
+    for name, l in (("warm", loss_warm), ("split", split_loss_s)):
+        require(float(l) == float(loss), f"the {name} step's loss {float(l)} != {float(loss)}")
+    res = {"width": cfg.image_width, "height": cfg.image_height, "bounces": cfg.max_bounces,
+           "spp": GRAD_SPP, "items": n * GRAD_SPP, "replay_chunk": diff_render.REPLAY_CHUNK,
+           "chunks": chunks, "loss": float(loss), "grad_stats": stats,
+           "all_fields_step_seconds": step_s, "all_fields_warm_step_seconds": warm_s,
+           "all_fields_launches": all_counts,
+           "split_seconds": split, "split_sum_seconds": sum(v for k, v in split.items()
+                                                            if k != "step"),
+           "peak_memory_allocated_bytes": int(peak), "sun_lr": SUN_LR,
+           "sun_perturb": SUN_PERTURB.tolist(), "sun_error_deg": errs, "sun_losses": losses,
+           "sun_step_seconds": secs, "launches": total, "card": smi}
+    emit("main_path_grad", **res)
+    return res
 
 
 def main() -> int:
@@ -1466,6 +2029,11 @@ def main() -> int:
     )
     mk_time = phase_megakernel_timing(prod_cfg, prod_wide, smi)
     wf_time = phase_wavefront_timing(prod_cfg, prod_scene, prod_wide, smi)
+    rec_err = phase_record_check(wide_scenes, motion_wide)
+    grad_k = phase_grad_kernel_check(prod_cfg, prod_wide, smi)
+    phase_grad_slow_check(scene, wide_scenes[MAIN_LAYOUT])
+    grad = phase_main_path_grad(prod_cfg, prod_wide, smi)
+    rec_time = phase_record_timing(prod_cfg, prod_wide, smi)
 
     emit("done", seconds=time.perf_counter() - t_start)
     # the batch launched max_bounces times of 1+max_bounces
@@ -1590,6 +2158,63 @@ def main() -> int:
             **regs("wavefront"),
             "registers_spills_by_layout": built["wavefront"]["registers_spills_by_layout"],
             "blocks_per_sm": built["wavefront"]["blocks_per_sm"],
+            "card": smi,
+        },
+        {
+            "name": "megakernel_record",
+            "route": "cuda",
+            "source": SOURCES["megakernel"],
+            "replaces": "pathtracing_tpu/ops/megakernel.py:554",
+            "layout": MAIN_LAYOUT,
+            "launches": grad["launches"]["k6"],
+            # at the main path's shape: records equal exactly; the sums
+            # against the plain version's (record_check's smaller cases beside)
+            "max_abs_err": rec_time["max_abs_err"],
+            "max_abs_err_record_check": rec_err,
+            "ms": rec_time["ms"],
+            "plain_ms": rec_time["plain_ms"],
+            "bound_ms": rec_time["bound_ms"],
+            "bound_by": rec_time["bound_by"],
+            "library_ms": None,  # no single PyTorch call renders a path
+            "shape": f"{prod_cfg.image_width}x{prod_cfg.image_height} x {GRAD_SPP} spp, "
+                     f"{prod_cfg.max_bounces} bounces, one launch, records",
+            "k2_ms_same_call": rec_time["k2_ms_same_call"],
+            "registers_spills_by_layout":
+                built["megakernel"]["registers_spills_by_layout"]["record"],
+            "card": smi,
+        },
+        {
+            "name": "small_table_grad",
+            "route": "cuda",
+            "source": str(CG.SOURCE.relative_to(ROOT)),
+            "replaces": "pathtracing_tpu/ops/integrator.py:55",
+            "launches": grad["launches"]["k7a"],
+            "max_abs_err": grad_k["small_table_grad"]["max_abs_err"],
+            "ms": grad_k["small_table_grad"]["ms"],
+            "plain_ms": grad_k["small_table_grad"]["plain_ms"],  # index_add_ in double
+            "bound_ms": grad_k["small_table_grad"]["bound_ms"],
+            "bound_by": grad_k["small_table_grad"]["bound_by"],
+            "library_ms": grad_k["small_table_grad"]["library_ms"],
+            "onehot_matmul_ms": grad_k["small_table_grad"]["onehot_matmul_ms"],
+            "shape": grad_k["small_table_grad"]["shape"],
+            **regs("gather_grad"),
+            "card": smi,
+        },
+        {
+            "name": "vattr_grad3",
+            "route": "cuda",
+            "source": str(CG.SOURCE.relative_to(ROOT)),
+            "replaces": "pathtracing_tpu/ops/integrator.py:132",
+            "launches": grad["launches"]["k7b"],
+            "max_abs_err": grad_k["vattr_grad3"]["max_abs_err"],
+            "ms": grad_k["vattr_grad3"]["ms"],  # the wrapper: sort (glue) + the kernel
+            "plain_ms": grad_k["vattr_grad3"]["plain_ms"],
+            "bound_ms": grad_k["vattr_grad3"]["bound_ms"],
+            "bound_by": grad_k["vattr_grad3"]["bound_by"],
+            "library_ms": grad_k["vattr_grad3"]["library_ms"],
+            "sort_ms": grad_k["vattr_grad3"]["sort_ms"],
+            "shape": grad_k["vattr_grad3"]["shape"],
+            **regs("gather_grad"),
             "card": smi,
         },
     ]}), flush=True)

@@ -53,3 +53,9 @@ def scene_from_jax(fields: dict[str, np.ndarray], device=None) -> SceneDevice:
             if k not in _LATER and fields.get(k) is not None
         }
     )
+
+
+def grads_to_numpy(grads: dict) -> dict[str, np.ndarray]:
+    """A gradient dict (field -> tensor, diff/render.py) as numpy arrays on
+    the host, to compare with the JAX package's by field name."""
+    return {k: v.detach().cpu().numpy() for k, v in grads.items()}

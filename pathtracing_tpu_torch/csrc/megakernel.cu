@@ -44,6 +44,13 @@
 // the bound.  It is a separate instantiation: the timed kernel counts
 // nothing.
 //
+// The record build (K6, megakernel_record) is a third: the same paths, plus
+// each work item's hit topology for the fast gradients' replay
+// (diff/render.make_fast_grad_frame_fn; JAX: path_trace_megakernel with
+// record=True, pathtracing_tpu/ops/megakernel.py:554, capture :330-375).
+// Per work item it adds 8 B of stores to K2's work, and 9 B per bounce row
+// its path reaches.
+//
 // Parity: built with --fmad=false, IEEE division and square root, no
 // fast-math, no flush-to-zero (ops/cuda_build.py); shading.cuh has the rules
 // that keep a sample on the plain version's bits.
@@ -85,11 +92,32 @@ __global__ void __launch_bounds__(kBlock) megakernel(WideWalk<S, L, STUB> w, Pac
     count.flush(o.counts);
 }
 
+// The record build (K6): the same paths and sums as the timed build, bit
+// for bit, plus each work item's hit topology (path.cuh's ItemRecord).  Slot
+// i renders pixel pixel_base + i (records are indexed by work item, and the
+// replay assumes that map: no pixel order).  A kernel of its own, so the
+// timed build's code and registers do not change.
+template <int S, int L, bool STUB>
+__global__ void __launch_bounds__(kBlock) megakernel_record(WideWalk<S, L, STUB> w,
+                                                            PackedFetch fe, PathParams p,
+                                                            Slots sl, Out o,
+                                                            ItemRecord rec0) {
+    const int slot = blockIdx.x * kBlock + threadIdx.x;
+    if (slot >= sl.n_pixels) return;
+    const int pixel = sl.pixel_base + slot;
+    NoPathCount count;
+    ItemRecord rec = rec0;
+    rec.slot = slot;
+    o.write(slot, trace_samples(w, fe, p, pixel % p.width, pixel / p.width, false, count, rec));
+}
+
 template <int S, int L, bool STUB>
 int launch(const WideWalk<S, L, STUB>& w, const PackedFetch& fe, const PathParams& p,
-           const Slots& sl, const Out& o, cudaStream_t s) {
+           const Slots& sl, const Out& o, const ItemRecord* rec, cudaStream_t s) {
     const dim3 grid((unsigned)((sl.n_pixels + kBlock - 1) / kBlock)), block(kBlock);
-    if (o.counts)
+    if (rec)
+        megakernel_record<S, L, STUB><<<grid, block, 0, s>>>(w, fe, p, sl, o, *rec);
+    else if (o.counts)
         megakernel<S, L, STUB, true><<<grid, block, 0, s>>>(w, fe, p, sl, o);
     else
         megakernel<S, L, STUB, false><<<grid, block, 0, s>>>(w, fe, p, sl, o);
@@ -109,8 +137,12 @@ WideWalk<S, L, STUB> wide_walk_of(const void* rows, const void* wide_root,
 // Plain C interface for ctypes.  Launches on `stream`, does not synchronise,
 // allocates nothing.  `width` (f32 per mega-table row) selects the layout.
 // Adds abandoned samples to *n_truncated, and with a non-null `counts` runs
-// the counting build, which adds its counters there.  Returns the launch's
-// cudaError_t (0 = accepted), or -1 for a width no layout has.
+// the counting build, which adds its counters there.  With a non-null
+// `rec_pk_p` it runs the record build (K6), which writes the records into
+// the five planes (zeroed by the caller; n_pixels * spp items, sample-major):
+// primary pk and prim (n_items,), bounce pk, prim and occ (max_bounces *
+// n_items,).  Returns the launch's cudaError_t (0 = accepted), -1 for a
+// width no layout has, -2 for records asked with counts, l2 or a pixel order.
 extern "C" int pt_megakernel(
     const void* rows, int width, const void* wide_root, const void* root_base,
     const void* tri_pos, const void* inst_f, const void* inst_u, const void* tri_shade,
@@ -119,7 +151,9 @@ extern "C" int pt_megakernel(
     int spp, int sample_base, int pixel_base, int image_width, int image_height,
     int max_bounces, int smbs, int student_id, float min_ray_dist, float max_ray_dist,
     float gamma, int max_steps, void* out_r, void* out_g, void* out_b, void* out_l2,
-    void* n_truncated, void* counts, void* stream) {
+    void* n_truncated, void* counts, void* rec_pk_p, void* rec_prim_p, void* rec_pk_b,
+    void* rec_prim_b, void* rec_occ_b, void* stream) {
+    if (rec_pk_p && (counts || out_l2 || pixel_order)) return -2;
     if (n_pixels <= 0) return 0;
     const PackedFetch fe = {(const float*)tri_shade, (const float*)inst_f, (const int*)inst_u};
     const PathParams p = {(const float*)sf_cam, (const float*)sf_light, n_cam, n_light,
@@ -128,13 +162,16 @@ extern "C" int pt_megakernel(
     const Slots sl = {(const int*)pixel_order, n_pixels, pixel_base};
     const Out o = {(float*)out_r, (float*)out_g, (float*)out_b, (float*)out_l2,
                    (int*)n_truncated, (unsigned long long*)counts};
+    const ItemRecord rec = {(int*)rec_pk_p, (int*)rec_prim_p, (int*)rec_pk_b,
+                            (int*)rec_prim_b, (uint8_t*)rec_occ_b, n_pixels * spp, n_pixels,
+                            0, 0};
     cudaStream_t s = (cudaStream_t)stream;
 #define PT_MK_LAUNCH(S, L, STUB)                                                   \
     if (width == Layout<S, L, STUB>::kWidth)                                       \
         return launch<S, L, STUB>(wide_walk_of<S, L, STUB>(rows, wide_root, root_base, \
                                                            tri_pos, inst_u,        \
                                                            sf_tlas_offset, n_tlas), \
-                                  fe, p, sl, o, s);
+                                  fe, p, sl, o, rec_pk_p ? &rec : nullptr, s);
     PT_MK_LAUNCH(8, 4, false)   // w8
     PT_MK_LAUNCH(16, 8, false)  // w16
     PT_MK_LAUNCH(8, 8, true)    // s8

@@ -36,8 +36,11 @@
 // fast-math, no flush-to-zero (ops/cuda_build.py); shading.cuh has the rules
 // that keep a sample on the plain version's bits.
 //
+// It is also a template on a record policy (NoRecord, or ItemRecord for the
+// megakernel's record build K6, below).
+//
 // This header's bytes are part of the hash of every library that includes it
-// (ops/cuda_build.py): an edit here rebuilds K2 and K5.
+// (ops/cuda_build.py): an edit here rebuilds K2 (and K6) and K5.
 
 #pragma once
 
@@ -179,14 +182,71 @@ struct PathCount {
     }
 };
 
+// -------------------------------------------------------------- records
+
+// The record build (K6: the fast gradients' record pass,
+// diff/render.make_fast_grad_frame_fn) writes each sample's hit topology
+// beside its radiance, in the scan's record format (ops/integrator
+// path_trace_samples(record=True)) packed as the JAX package's megakernel
+// packs it: pk = (inst << 2) | (back << 1) | hit, and prim (0 on a miss).
+// Work item k * n_slots + slot is sample k of pixel slot `slot` (sample-major,
+// as JAX).  Indexing contract: the closest hit of iteration 0 goes to the
+// primary planes; that of iteration b >= 1 (bounce ray b) to bounce row
+// b - 1; the sun shadow ray traced at the end of iteration b to occ row b.
+//
+// Rows not reached keep zero: a path stops on a miss or at max_bounces, and
+// traces the shadow ray only for a NEE colour that is not black, and the
+// planes are zeroed by the caller; the kernel writes only the rows its path
+// reaches (occ = 0 for a black NEE colour, as the scan's untraced lane).  A
+// replay never reads those rows: its active mask comes from the re-derived
+// thit.  ops/megakernel.path_trace_megakernel_plain(record=True) applies the
+// same rule to the scan's records, so the two compare exactly on every row.
+// A sample abandoned at the step cap keeps the rows it wrote.
+struct NoRecord {
+    __device__ __forceinline__ void begin(int) {}
+    __device__ __forceinline__ void closest(int, int, int, const HitInfo&) {}
+    __device__ __forceinline__ void shadow(int, bool) {}
+};
+
+struct ItemRecord {
+    int* pk_p;         // (n_items,) i32: the primary hits
+    int* prim_p;       // (n_items,) i32
+    int* pk_b;         // (max_bounces * n_items,) i32: bounce rows
+    int* prim_b;       // (max_bounces * n_items,) i32
+    uint8_t* occ_b;    // (max_bounces * n_items,) u8
+    int n_items, n_slots, slot;
+    size_t item;
+
+    __device__ __forceinline__ void begin(int k) { item = (size_t)k * n_slots + slot; }
+    __device__ __forceinline__ void closest(int b, int c_inst, int c_prim, const HitInfo& info) {
+        const bool hit = c_inst >= 0;
+        // back = hit && eta > 1: shade_hit's eta is 1.5 on a back face
+        const int pk = (int)(((uint32_t)c_inst << 2) | (hit && info.m.eta > 1.0f ? 2u : 0u) |
+                             (hit ? 1u : 0u));
+        const int prim = hit ? c_prim : 0;
+        if (b == 0) {
+            pk_p[item] = pk;
+            prim_p[item] = prim;
+        } else {
+            const size_t i = (size_t)(b - 1) * n_items + item;
+            pk_b[i] = pk;
+            prim_b[i] = prim;
+        }
+    }
+    __device__ __forceinline__ void shadow(int b, bool occluded) {
+        occ_b[(size_t)b * n_items + item] = occluded ? 1 : 0;
+    }
+};
+
 // ---------------------------------------------------------------- paths
 
 // One sample of one pixel (ops/integrator.path_trace_samples); false when a
 // walk hit the step cap (the sample is then abandoned).
-template <class Walk, class Fetch, class Count>
+template <class Walk, class Fetch, class Count, class Rec>
 __device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
                                              const PathParams& p, int x, int y,
-                                             int sample_index, V3& contrib, Count& count) {
+                                             int sample_index, V3& contrib, Count& count,
+                                             Rec& rec) {
     // ---- camera_sample: seed warm-up, film/aperture draw, camera ray ----
     const int subframe = sample_index < 0 ? 0 : sample_index / p.smbs;
     Seed seed = pcg4d({(uint32_t)x, (uint32_t)y, (uint32_t)sample_index, p.student_id});
@@ -218,6 +278,7 @@ __device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
         const HitInfo info =
             fe.shade(light, c_inst, c_prim, c_inst >= 0 ? tmax : -1.0f, ray_o, ray_d);
         count.add(c_inst >= 0 ? kShadeHits : kShadeMisses);
+        rec.closest(b, c_inst, c_prim, info);
         V3 atmo_att, in_scatter;
         if (b == 0) {
             if (atmosphere_scattering(seed, light.direction, light.color, ray_o, ray_d,
@@ -287,6 +348,7 @@ __device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
                         unused_inst, unused_prim, occluded, p.max_steps, count))
                 return false;
         }
+        rec.shadow(b, occluded);
     }
 }
 
@@ -298,16 +360,19 @@ struct Sums {
 
 // Samples [p.sample_base, p.sample_base + p.spp) of pixel (x, y), folded in
 // sample order from 0.0f; the luminance-squared sum only `with_l2`.
-template <class Walk, class Fetch, class Count>
+// With an ItemRecord `rec`, the record build (K6) also writes each sample's
+// hit topology; the other builds pass NoRecord, whose hooks are empty.
+template <class Walk, class Fetch, class Count, class Rec>
 __device__ __forceinline__ Sums trace_samples(const Walk& w, const Fetch& fe,
                                               const PathParams& p, int x, int y,
-                                              bool with_l2, Count& count) {
+                                              bool with_l2, Count& count, Rec& rec) {
     Sums s = {0.0f, 0.0f, 0.0f, 0.0f, 0};
     for (int k = 0; k < p.spp; ++k) {
         // sample_base + k as int32 (wraps as XLA's add does)
         const int sample_index = (int)((uint32_t)p.sample_base + (uint32_t)k);
         V3 c;
-        if (!trace_sample(w, fe, p, x, y, sample_index, c, count)) {
+        rec.begin(k);
+        if (!trace_sample(w, fe, p, x, y, sample_index, c, count, rec)) {
             ++s.truncated;
             continue;
         }
@@ -320,6 +385,14 @@ __device__ __forceinline__ Sums trace_samples(const Walk& w, const Fetch& fe,
         }
     }
     return s;
+}
+
+template <class Walk, class Fetch, class Count>
+__device__ __forceinline__ Sums trace_samples(const Walk& w, const Fetch& fe,
+                                              const PathParams& p, int x, int y,
+                                              bool with_l2, Count& count) {
+    NoRecord none;
+    return trace_samples(w, fe, p, x, y, with_l2, count, none);
 }
 
 // Where a path kernel writes: one entry's sums, once.

@@ -26,8 +26,11 @@ class CameraParams(NamedTuple):
 
 
 def camera_from_table(sf_cam: Array, idx: Array) -> CameraParams:
-    """Gather per-ray camera rows from the (S,18) subframe table."""
-    c = sf_cam[idx]  # (R, 18)
+    """Gather per-ray camera rows from the (S,18) subframe table, through
+    ``small_table_gather`` (its transpose is the K7a kernel on the card)."""
+    from pathtracing_tpu_torch.ops.integrator import small_table_gather
+
+    c = small_table_gather(sf_cam, idx)  # (R, 18)
     return CameraParams(
         orientation=Mat3(
             Vec3(c[:, 0], c[:, 1], c[:, 2]),

@@ -7,7 +7,9 @@ the fold and the step cap). It is the counterpart of the JAX package's
 ``path_trace_megakernel`` (pathtracing_tpu/ops/megakernel.py, an XLA
 while-loop there); ``ops/megakernel.path_trace_megakernel`` dispatches to it
 for CUDA tensors, and ``ops/megakernel.path_trace_megakernel_plain`` is its
-plain version.
+plain version. ``megakernel_record_cuda`` runs the kernel's record build (K6:
+the same paths, plus each work item's hit topology for the fast gradients),
+which ``path_trace_megakernel(record=True)`` dispatches to.
 
 There is no second path to give way to: a build or launch failure, or a
 tensor the kernel does not take, raises.
@@ -23,6 +25,7 @@ wavefront kernel ``wavefront.cu``).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -47,7 +50,7 @@ LIBRARY = KernelLibrary(
     symbols={
         "pt_megakernel": (
             [_p, _i] + [_p] * 6 + [_p, _i] * 3 + [_p] + [_i] * 9 + [_f] * 3 + [_i]
-            + [_p] * 7,
+            + [_p] * 12,
             _i,
         ),
         "pt_megakernel_block_size": ([], _i),
@@ -111,14 +114,17 @@ def step_cap(scene) -> int:
     return min(INT32_MAX, max(1, trees * per_tree))
 
 
-# Launches of the kernel since the last reset: incremented where the kernel
-# is launched and nowhere else, so a run can show that it went through it.
+# Launches of the kernel (timed and counting builds) and of its record build
+# (K6) since the last reset: incremented where the kernel is launched and
+# nowhere else, so a run can show that it went through it.
 launches = 0
+record_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, record_launches
     launches = 0
+    record_launches = 0
 
 
 def block_size() -> int:
@@ -153,6 +159,21 @@ def _int32(name, v) -> int:
     return v
 
 
+class RecordPlanes(NamedTuple):
+    """The record build's output: int32 planes of packed hits, pk = (inst <<
+    2) | (back << 1) | hit, and prim ids: ``pk_p``, ``prim_p`` (n_items,) for
+    the primary rays, ``pk_b``, ``prim_b`` (max_bounces * n_items,) for the
+    bounce rays, and ``occ_b`` (max_bounces * n_items,) uint8 for the sun
+    shadow rays; item k * n_pixels + slot is sample k of slot ``slot``. Rows
+    a path never reached are 0 (csrc/path.cuh, ItemRecord)."""
+
+    pk_p: torch.Tensor
+    prim_p: torch.Tensor
+    pk_b: torch.Tensor
+    prim_b: torch.Tensor
+    occ_b: torch.Tensor
+
+
 def megakernel_cuda(
     config,
     scene,
@@ -167,6 +188,7 @@ def megakernel_cuda(
 ):
     """Per-pixel radiance sums over samples [sample_base, sample_base + spp)
     of pixels pixel_base + [0, n_pixels) by the hand-written kernel.
+    (``megakernel_record_cuda`` runs its record build.)
 
     ``pixel_order``: None, or an int32 CUDA tensor holding a permutation of
     [0, n_pixels): slot i then renders pixel pixel_base + pixel_order[i] (the
@@ -182,7 +204,36 @@ def megakernel_cuda(
     shape or layout and on a refused launch; it never gives way to the plain
     version.
     """
-    global launches
+    r, g, b, l2, n_trunc, cnt, _ = _launch(
+        config, scene, n_pixels, spp, sample_base, pixel_base, with_stats, pixel_order,
+        max_steps, counts, False)
+    return r, g, b, l2, n_trunc, cnt
+
+
+def megakernel_record_cuda(
+    config,
+    scene,
+    n_pixels: int,
+    spp: int,
+    sample_base: int = 0,
+    pixel_base: int = 0,
+    max_steps: int | None = None,
+):
+    """The record build (K6): the kernel's paths and sums, bit for bit, and
+    each work item's hit topology. Slot i renders pixel pixel_base + i.
+
+    Returns (r, g, b, n_truncated, RecordPlanes). Launches on PyTorch's
+    current stream and does not synchronise; raises as ``megakernel_cuda``
+    does, and for more than 2**31 - 1 records."""
+    r, g, b, _, n_trunc, _, planes = _launch(
+        config, scene, n_pixels, spp, sample_base, pixel_base, False, None, max_steps,
+        False, True)
+    return r, g, b, n_trunc, planes
+
+
+def _launch(config, scene, n_pixels, spp, sample_base, pixel_base, with_stats,
+            pixel_order, max_steps, counts, record):
+    global launches, record_launches
     device = scene.nl8.device
     if device.type != "cuda":
         raise ValueError(f"megakernel_cuda needs CUDA tensors, got {device}")
@@ -207,6 +258,16 @@ def megakernel_cuda(
         if cnt.numel() != len(COUNT_NAMES):
             raise RuntimeError(f"kernel counts {cnt.numel()} slots, COUNT_NAMES "
                                f"names {len(COUNT_NAMES)}")
+    planes = None
+    if record:
+        # zeroed: the kernel writes only the rows a path reaches
+        n_items = n_pixels * spp
+        _int32("records", max(1, config.max_bounces) * n_items)
+        zeros = lambda k, dt=torch.int32: torch.zeros(k, dtype=dt, device=device)
+        B = config.max_bounces
+        planes = RecordPlanes(zeros(n_items), zeros(n_items), zeros(B * n_items),
+                              zeros(B * n_items), zeros(B * n_items, torch.uint8))
+    rec = planes if planes is not None else (None,) * 5
     # The launch is asynchronous; PyTorch's allocator hands a freed block out
     # again only in the order of the stream it was used on, and this is it.
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -224,11 +285,14 @@ def megakernel_cuda(
             config.samples_per_motion_blur_step, _int32("student_id", config.student_id),
             c32(config.min_ray_dist), c32(config.max_ray_dist),
             c32(config.path_space_regularization_gamma), _int32("max_steps", steps),
-            ptr(r), ptr(g), ptr(b), ptr(l2), ptr(n_trunc), ptr(cnt),
+            ptr(r), ptr(g), ptr(b), ptr(l2), ptr(n_trunc), ptr(cnt), *map(ptr, rec),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"megakernel launch refused: cudaError {err}")
     if n_pixels > 0:
-        launches += 1
-    return r, g, b, l2, n_trunc, cnt
+        if record:
+            record_launches += 1
+        else:
+            launches += 1
+    return r, g, b, l2, n_trunc, cnt, planes

@@ -16,6 +16,12 @@ nothing in the loop asks the device for a value: no ``.item()``, no
 
 Dead lanes carry inf/NaN by design, like the reference's dead paths: they are
 masked at every accumulation, never cleaned, and never used as an index.
+
+Gradients (diff/render.py) run PyTorch's autograd through this code; the
+ray queries stay outside the graph. ``record=`` / ``replay=`` are the fast
+gradients' two passes, and the two gathers whose transposes the JAX package
+writes by hand (``small_table_gather``, ``vattr_gather3``) are autograd
+Functions whose backward is a kernel on the card (K7a, K7b).
 """
 
 from __future__ import annotations
@@ -65,11 +71,89 @@ class LightParams(NamedTuple):
     cos_solid_angle: Array
 
 
+def small_table_grad_plain(idx: Array, g: Array, n_rows: int) -> Array:
+    """The transpose of ``table[idx]`` for a table of ``n_rows`` rows:
+    ``out[s, c] = sum of g[r, c] over r with idx[r] == s`` (the JAX
+    package's ``_stg_bwd``, ``onehot(idx)^T @ g``, written as one
+    ``index_add_``). The plain version of the K7a kernel. Adds in double
+    and rounds once, as the kernel does: a frame's millions of float
+    cotangents cancel on some rows, where a float sum's rounding error
+    would reach the result's last digits, in an order-dependent way."""
+    out = torch.zeros((n_rows, g.shape[1]), dtype=torch.float64, device=g.device)
+    return out.index_add_(0, idx.long(), g.double()).to(g.dtype)
+
+
+def vattr_grad3_plain(ti3: Array, g: Array, n_rows: int) -> Array:
+    """The transpose of ``vattr[ti3]`` (R, 3, C) for a table of ``n_rows``
+    rows: one scatter-add of the 3R cotangent rows (the JAX package's
+    ``_vg3_bwd``), in double as ``small_table_grad_plain``. The plain
+    version of the K7b kernel."""
+    out = torch.zeros((n_rows, g.shape[-1]), dtype=torch.float64, device=g.device)
+    flat = g.reshape(-1, g.shape[-1]).double()
+    return out.index_add_(0, ti3.reshape(-1).long(), flat).to(g.dtype)
+
+
+class SmallTableGather(torch.autograd.Function):
+    """``table[idx]`` for the tiny per-subframe tables (sf_light (S, 7),
+    sf_cam (S, 18)), whose transpose is a sum of R cotangent rows into S
+    rows: every lane of a frame lands on one of a few rows. The backward is
+    the K7a kernel for CUDA tensors (ops/cuda_gather_grad.py: block partials
+    in lane order, then the partials in block order; deterministic, no
+    float atomics) and ``small_table_grad_plain`` for CPU tensors. ``idx``
+    gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        g = g.contiguous()
+        if g.is_cuda:
+            from pathtracing_tpu_torch.ops.cuda_gather_grad import small_table_grad_cuda
+
+            return small_table_grad_cuda(idx, g, ctx.n_rows), None
+        return small_table_grad_plain(idx, g, ctx.n_rows), None
+
+
+class VattrGather3(torch.autograd.Function):
+    """``vattr[ti3]`` (R, 3, 12): the three vertex rows of each lane's
+    triangle in one gather, so that the transpose is one sum of 3R rows
+    (the JAX package's ``_vattr_gather3``). Miss lanes all read the rows of
+    triangle 0, so a few rows receive most addends (zeros). The backward is
+    the K7b kernel for CUDA tensors (ops/cuda_gather_grad.py: a stable sort
+    of the indices, then each run of equal indices summed in order;
+    deterministic, no float atomics) and ``vattr_grad3_plain`` for CPU
+    tensors. ``ti3`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, vattr, ti3):
+        ctx.save_for_backward(ti3)
+        ctx.n_rows = vattr.shape[0]
+        return vattr[ti3]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ti3,) = ctx.saved_tensors
+        g = g.contiguous()
+        if g.is_cuda:
+            from pathtracing_tpu_torch.ops.cuda_gather_grad import vattr_grad3_cuda
+
+            return vattr_grad3_cuda(ti3, g, ctx.n_rows), None
+        return vattr_grad3_plain(ti3, g, ctx.n_rows), None
+
+
 def small_table_gather(table: Array, idx: Array) -> Array:
-    """``table[idx]`` for the tiny per-subframe tables (sf_light (S,7),
-    sf_cam (S,18)). Forward only: the JAX package's custom transpose of this
-    gather comes with the gradient slice of the port."""
-    return table[idx]
+    """``table[idx]`` with the transpose of ``SmallTableGather``."""
+    return SmallTableGather.apply(table, idx)
+
+
+def vattr_gather3(vattr: Array, ti3: Array) -> Array:
+    """``vattr[ti3]`` with the transpose of ``VattrGather3``."""
+    return VattrGather3.apply(vattr, ti3)
 
 
 def light_from_table(sf_light: Array, idx: Array) -> LightParams:
@@ -152,7 +236,8 @@ def shade_hit(
         tp = ts_row[:, 33:42]
     else:
         ti = scene.tri_idx[tri_row]  # (R, 4) absolute vertex ids
-        a012 = scene.vattr[ti[:, 0:3]]  # (R, 3, 12)
+        # one (R, 3) gather: its transpose is one sum of 3R rows
+        a012 = vattr_gather3(scene.vattr, ti[:, 0:3].contiguous())  # (R, 3, 12)
         a0 = a012[:, 0]
         a1 = a012[:, 1]
         a2 = a012[:, 2]
@@ -340,6 +425,41 @@ def camera_sample(config: RenderConfig, scene, xs, ys, sample_index):
     return seed, subframe, light, tlas_count, tlas_offset, ray_o, ray_dir
 
 
+def _rec_of(hit: RayHit, occluded) -> dict:
+    """A hit record (the JAX package's ``_rec_of``): the closest hit's
+    topology and the shadow ray's occlusion."""
+    return {
+        "hit": hit.thit >= 0,
+        "inst": hit.inst,
+        "prim": hit.prim,
+        "back": hit.back,
+        "occ": occluded,
+    }
+
+
+def _hit_of(rec: dict) -> RayHit:
+    """The RayHit a replay shades in place of a ray query (the JAX
+    package's ``_hit_of``): shade_hit re-derives (u, v, t) of a hit from its
+    ids, so only the ids and the hit/miss sign are taken."""
+    one = torch.ones_like(rec["inst"], dtype=torch.float32)
+    return RayHit(
+        thit=torch.where(rec["hit"], one, -one),
+        bary_u=0.0 * one, bary_v=0.0 * one, bary_w=one,
+        inst=rec["inst"],
+        prim=rec["prim"],
+        back=rec["back"],
+    )
+
+
+def _stack_records(recs: list, like: dict) -> dict:
+    """Per-bounce record dicts -> one dict of (B, R) tensors (the shape of
+    the JAX package's ``lax.scan`` output; (0, R) for no bounce, with the
+    dtypes of the record ``like``)."""
+    if not recs:
+        return {k: v[None][:0] for k, v in like.items()}
+    return {k: torch.stack([r[k] for r in recs]) for k in recs[0]}
+
+
 def path_trace_samples(
     config: RenderConfig,
     scene,
@@ -356,22 +476,57 @@ def path_trace_samples(
     subframe 0, reference: path_tracer.hh:655-657). All on the scene's
     device.
 
-    This slice covers the default sun-NEE trace. The JAX package's
-    ``query_shade`` override (geometry sharding), ``record``/``replay``
-    (two-pass gradients) and area-light NEE (scenes packed with light
-    tables) are later slices and raise NotImplementedError.
+    record/replay: the fast gradients' two passes (diff/render.py).
+    ``record=True`` also returns the hit topology, ``(contribution,
+    (prim_rec, recs))``: ``prim_rec`` a dict of (R,) tensors (``hit``,
+    ``inst``, ``prim``, ``back``, ``occ``; occ all False) for the primary
+    ray, ``recs`` the same keys as (max_bounces, R) tensors, row b for bounce
+    ray b + 1 and the sun shadow ray traced beside it. ``replay=<records>``
+    runs the same radiance computation with every ray query replaced by a
+    lookup in those records: traversal is outside the autograd graph anyway
+    (ray_query runs under no_grad), so differentiating the replay gives the
+    same gradients, with no walk in the graph. Shading, RNG threading and
+    the conditional atmosphere draws are recomputed bit for bit (the
+    atmosphere predicate reads the re-derived thit in both passes).
+
+    The JAX package's ``query_shade`` override (geometry sharding) and
+    area-light NEE (scenes packed with light tables) are later slices and
+    raise NotImplementedError, as record/replay with either does in JAX.
     """
+    contribution, prim_rec, recs, _, _ = _path_trace(
+        config, scene, xs, ys, sample_index, query_shade, record, replay)
+    return (contribution, (prim_rec, recs)) if record else contribution
+
+
+def path_trace_samples_masked_records(config: RenderConfig, scene, xs, ys, sample_index):
+    """``path_trace_samples(record=True)`` with every record row a path
+    never reached set to zero: a bounce row where the lane was inactive,
+    and an ``occ`` entry where no shadow ray was traced (inactive lane, or
+    a NEE colour that was black). That is the rule of the megakernel's
+    record build (K6, csrc/path.cuh), which writes only the rows its path
+    reaches into zeroed planes. Returns (contribution, (prim_rec, recs))."""
+    contribution, prim_rec, recs, active, shadow = _path_trace(
+        config, scene, xs, ys, sample_index, None, True, None)
+    masked = {}
+    for k, v in recs.items():
+        keep = shadow if k == "occ" else active
+        masked[k] = torch.where(keep, v, torch.zeros((), dtype=v.dtype, device=v.device))
+    return contribution, (prim_rec, masked)
+
+
+def _path_trace(config, scene, xs, ys, sample_index, query_shade, record, replay):
+    """path_trace_samples' body. Returns (contribution, prim_rec, recs,
+    active, shadow_active): the last four only with ``record`` (else None),
+    ``active`` / ``shadow_active`` the (B, R) masks of the lanes that traced
+    the bounce / shadow ray of each row."""
     if query_shade is not None:
         raise NotImplementedError(
             "query_shade overrides come with the sharding slice of the port"
         )
-    if record or replay is not None:
-        raise NotImplementedError(
-            "record/replay come with the gradient slice of the port"
-        )
     if scene.lt_tris is not None:
         raise NotImplementedError(
-            "area-light NEE comes with a later slice of the port"
+            "area-light NEE comes with a later slice of the port (record/replay "
+            "gradients support the default sun-NEE trace only)"
         )
 
     seed, subframe, light, tlas_count, tlas_offset, ray_o, ray_dir = (
@@ -379,9 +534,19 @@ def path_trace_samples(
     )
 
     all_active = torch.ones_like(xs, dtype=torch.bool)
-    info = trace_ray(
-        scene, light, tlas_count, tlas_offset, ray_o, ray_dir, 0.0, all_active
-    )
+    prim_rec = None
+    if replay is not None:
+        info = shade_hit(scene, light, _hit_of(replay[0]), ray_o, ray_dir)
+    elif record:
+        phit, _ = ray_query(
+            scene, tlas_count, tlas_offset, ray_o, ray_dir, 0.0, 1e9, all_active
+        )
+        prim_rec = _rec_of(phit, torch.zeros_like(all_active))
+        info = shade_hit(scene, light, phit, ray_o, ray_dir)
+    else:
+        info = trace_ray(
+            scene, light, tlas_count, tlas_offset, ray_o, ray_dir, 0.0, all_active
+        )
 
     one = torch.ones_like(ray_dir.x)
     zero = torch.zeros_like(ray_dir.x)
@@ -408,8 +573,9 @@ def path_trace_samples(
         torch.ones(R, dtype=torch.bool, device=xs.device),
         torch.zeros(R, dtype=torch.bool, device=xs.device),
     )
+    recs, actives, shadows = [], [], []
 
-    for _ in range(config.max_bounces):
+    for b in range(config.max_bounces):
         active = active & (info.thit > 0)
 
         # tangent-space view (reference: path_tracer.hh:700-702)
@@ -435,23 +601,32 @@ def path_trace_samples(
         ray_dir = where3(active, new_dir, ray_dir)
         ray_o = where3(active, new_o, ray_o)
 
-        # One ray query per bounce: the any-hit shadow ray and the
-        # closest-hit bounce ray trace together (per-lane anyhit mask). RNG
-        # order is untouched — both draws above happen before either trace
-        # result is consumed.
-        hit2, occ2 = ray_query(
-            scene,
-            tlas_count2,
-            tlas_offset2,
-            cat3(info_now.pos, ray_o),
-            cat3(nee.light_dir, ray_dir),
-            config.min_ray_dist,
-            config.max_ray_dist,
-            cat(nee.shadow_active, active),
-            anyhit=anyhit2,
-        )
-        occluded = occ2[:R]
-        bounce_hit = RayHit(*(a[R:] for a in hit2))
+        if replay is not None:
+            rec = {k: v[b] for k, v in replay[1].items()}
+            occluded = rec["occ"]
+            bounce_hit = _hit_of(rec)
+        else:
+            # One ray query per bounce: the any-hit shadow ray and the
+            # closest-hit bounce ray trace together (per-lane anyhit mask).
+            # RNG order is untouched — both draws above happen before either
+            # trace result is consumed.
+            hit2, occ2 = ray_query(
+                scene,
+                tlas_count2,
+                tlas_offset2,
+                cat3(info_now.pos, ray_o),
+                cat3(nee.light_dir, ray_dir),
+                config.min_ray_dist,
+                config.max_ray_dist,
+                cat(nee.shadow_active, active),
+                anyhit=anyhit2,
+            )
+            occluded = occ2[:R]
+            bounce_hit = RayHit(*(a[R:] for a in hit2))
+        if record:
+            recs.append(_rec_of(bounce_hit, occluded))
+            actives.append(active)
+            shadows.append(nee.shadow_active)
         info = shade_hit(scene, light, bounce_hit, ray_o, ray_dir)
 
         nee_color = nee_finish(nee, light, info_now, occluded, active, config)
@@ -461,6 +636,7 @@ def path_trace_samples(
 
         bsdf_pdf = sample.pdf
         # guarded divisions: pdf==0 lanes keep the reference's inf value
+        # and take no gradient (inf is a where-constant)
         pdf_safe = torch.where(bsdf_pdf == 0, 1.0, bsdf_pdf)
         mis_pdf = torch.where(
             bsdf_pdf < 0,
@@ -508,4 +684,8 @@ def path_trace_samples(
         )
         roughness = 1.0 - (1.0 - info.roughness) * regularization
 
-    return contribution
+    if not record:
+        return contribution, None, None, None, None
+    stack = lambda masks: torch.stack(masks) if masks else all_active[None][:0]
+    return (contribution, prim_rec, _stack_records(recs, prim_rec), stack(actives),
+            stack(shadows))

@@ -15,9 +15,9 @@ not taken: ``lanes``, ``leaf_every``, ``service_div``, ``hot_k`` and
 ``return_periods`` schedule the SIMD loop, whose results the JAX package's
 own tests prove invariant to them; a CUDA thread leaves its own loop, so
 there is nothing for them to schedule (the decision ``ray_query`` and
-``wide_ray_query`` record for their walks). ``record=True`` (the gradient
-slice) and scenes with area-light tables (the area-light slice) raise
-NotImplementedError.
+``wide_ray_query`` record for their walks). ``record=True`` (the fast
+gradients' record pass) runs the kernel's record build K6 on CUDA. Scenes
+with area-light tables (the area-light slice) raise NotImplementedError.
 
 The fold: per pixel, the samples are added in sample order, from 0, in both
 versions, so the kernel's sums are deterministic and fold as the plain
@@ -30,19 +30,26 @@ import numpy as np
 import torch
 
 from pathtracing_tpu_torch import resolve_device
-from pathtracing_tpu_torch.ops.wavefront import path_trace_wavefront_plain
+from pathtracing_tpu_torch.ops.integrator import path_trace_samples_masked_records
+from pathtracing_tpu_torch.ops.wavefront import _wrap_int32, path_trace_wavefront_plain
 from pathtracing_tpu_torch.utils.vec import Vec3
 
 
-def _check_supported(scene, record: bool) -> None:
-    if record:
-        raise NotImplementedError(
-            "path_trace_megakernel(record=True): the hit records of the fast "
-            "gradients come with the gradient slice of the port"
-        )
+def _check_supported(scene, record: bool, spp: int, with_stats: bool,
+                     pixel_order) -> None:
     if scene.lt_tris is not None:
         raise NotImplementedError(
-            "area-light NEE comes with a later slice of the port"
+            "area-light NEE comes with a later slice of the port (the record "
+            "mode supports the sun-NEE path only)"
+        )
+    if record and spp < 1:
+        raise ValueError(f"record mode needs spp >= 1, got {spp}")
+    if record and with_stats:
+        raise ValueError("record mode excludes with_stats")
+    if record and pixel_order is not None:
+        raise ValueError(
+            "record mode indexes records by item; the replay assumes the "
+            "identity item -> pixel map (no pixel_order)"
         )
     if scene.wide_rows is None or scene.tri_shade is None:
         raise ValueError(
@@ -96,14 +103,36 @@ def path_trace_megakernel(
     (x, y, sample index) only); the order only changes which pixels a warp
     renders together.
 
+    record: the fast gradients' record pass (diff/render.
+    make_fast_grad_frame_fn). Also returns the hit topology of every work
+    item ``k * n_pixels + slot`` (sample k, sample-major), ``(sums,
+    (prim_rec, bounce_recs))`` in the scan's record format
+    (``path_trace_samples(record=True)``: dicts of (n_items,) and
+    (max_bounces, n_items) tensors), with every row a path never reached
+    zero (csrc/path.cuh, ItemRecord). On CUDA the record build of the
+    kernel (K6) renders; not with ``with_stats`` or ``pixel_order``.
+
     Needs the wide tables (``wide=True``). ``device=None`` means CUDA and
     raises when there is no card; the scene must lie on the device. On CUDA
     the kernel renders (or the call raises); on the CPU the plain version.
     """
-    _check_supported(scene, record)
+    _check_supported(scene, record, spp, with_stats, pixel_order)
     device = resolve_device(device)
     if scene.wide_rows.device != device:
         raise ValueError(f"scene is on {scene.wide_rows.device}, render asked for {device}")
+    if record:
+        if device.type == "cuda":
+            from pathtracing_tpu_torch.ops.cuda_megakernel import megakernel_record_cuda
+
+            r, g, b, n_truncated, planes = megakernel_record_cuda(
+                config, scene, n_pixels, spp, sample_base, pixel_base)
+            records = unpack_records(planes, config.max_bounces, n_pixels * spp)
+        else:
+            (r, g, b), records = path_trace_megakernel_plain(
+                config, scene, n_pixels, spp, sample_base, pixel_base, record=True)
+            n_truncated = torch.zeros(1, dtype=torch.int32, device=device)
+        out = (Vec3(r, g, b), records)
+        return out + (n_truncated,) if return_truncated else out
     order = _order_tensor(pixel_order, n_pixels, device)
     if device.type == "cuda":
         from pathtracing_tpu_torch.ops.cuda_megakernel import megakernel_cuda
@@ -131,6 +160,7 @@ def path_trace_megakernel_plain(
     pixel_base: int = 0,
     with_stats: bool = False,
     pixel_order=None,
+    record: bool = False,
 ):
     """The plain PyTorch version of the megakernel, on whatever device the
     scene lies: the wavefront's plain version (the sample-ordered sum of
@@ -139,7 +169,10 @@ def path_trace_megakernel_plain(
 
     ``pixel_order``: None or an int32 permutation tensor on the scene's
     device. Returns (r, g, b, l2 or None), (n_pixels,) f32 each, indexed by
-    pixel.
+    pixel. ``record=True`` (no stats, no order) returns ((r, g, b),
+    (prim_rec, bounce_recs)): the same sums and the scan's records with every
+    row a path never reached set to zero
+    (``path_trace_samples_masked_records``), the record build's rule.
     """
     dev = scene.nl8.device
     local = (torch.arange(n_pixels, dtype=torch.int32, device=dev) if pixel_order is None
@@ -148,6 +181,8 @@ def path_trace_megakernel_plain(
     W = config.image_width
     xs = torch.remainder(pixel, W)
     ys = torch.div(pixel, W, rounding_mode="floor")
+    if record:
+        return _plain_records(config, scene, xs, ys, spp, sample_base)
     sums = path_trace_wavefront_plain(config, scene, xs, ys, spp, sample_base, with_stats)
     if pixel_order is None:
         return sums
@@ -155,6 +190,45 @@ def path_trace_megakernel_plain(
     idx = local.long()
     put = lambda v: None if v is None else torch.empty_like(v).index_copy_(0, idx, v)
     return tuple(put(v) for v in sums)
+
+
+def _plain_records(config, scene, xs, ys, spp, sample_base):
+    """The record mode of the plain version over the slots' pixels (xs, ys):
+    the sample-ordered sums and the masked scan records, sample-major."""
+    n = xs.shape[0]
+    zero = lambda: torch.zeros(n, dtype=torch.float32, device=xs.device)
+    r, g, b = zero(), zero(), zero()
+    prims, bounces = [], []
+    for k in range(spp):
+        si = torch.full((n,), _wrap_int32(sample_base + k), dtype=torch.int32,
+                        device=xs.device)
+        c, (p, rb) = path_trace_samples_masked_records(config, scene, xs, ys, si)
+        r, g, b = r + c.x, g + c.y, b + c.z
+        prims.append(p)
+        bounces.append(rb)
+    cat = lambda recs, dim: {key: torch.cat([rec[key] for rec in recs], dim)
+                             for key in recs[0]}
+    return (r, g, b), (cat(prims, 0), cat(bounces, 1))
+
+
+def unpack_records(planes, max_bounces: int, n_items: int):
+    """The record build's packed planes (ops/cuda_megakernel.RecordPlanes)
+    in the scan's record format: (prim_rec, bounce_recs), dicts of
+    (n_items,) and (max_bounces, n_items) tensors. ``pk >> 2`` is
+    arithmetic, so a miss keeps inst -1; the primary occ is all False."""
+
+    def unpack(pk, prim, occ):
+        return {
+            "hit": (pk & 1) != 0,
+            "inst": pk >> 2,
+            "prim": prim,
+            "back": (pk & 2) != 0,
+            "occ": occ,
+        }
+
+    prim_rec = unpack(planes.pk_p, planes.prim_p, torch.zeros_like(planes.pk_p, dtype=torch.bool))
+    bounce = unpack(planes.pk_b, planes.prim_b, planes.occ_b != 0)
+    return prim_rec, {k: v.view(max_bounces, n_items) for k, v in bounce.items()}
 
 
 def morton_pixel_order(width: int, height: int) -> np.ndarray:

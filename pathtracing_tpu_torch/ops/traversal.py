@@ -259,6 +259,10 @@ def _tri_vertices(tp):
     )
 
 
+# The walk is discrete: it runs outside the autograd graph, with no
+# gradient into or out of it (the JAX package's stop_gradient on
+# traversal). shade_hit re-derives (u, v, t) differentiably.
+@torch.no_grad()
 def ray_query(
     scene,
     tlas_count: Array,
@@ -303,6 +307,7 @@ def ray_query(
     )
 
 
+@torch.no_grad()
 def ray_query_plain(
     scene,
     tlas_count: Array,

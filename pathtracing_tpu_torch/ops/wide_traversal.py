@@ -354,6 +354,10 @@ def _wide_init(R, active, tmax0, root, device) -> _WideTravState:
     )
 
 
+# The walk is discrete: it runs outside the autograd graph, with no
+# gradient into or out of it (the JAX package's stop_gradient on
+# traversal). shade_hit re-derives (u, v, t) differentiably.
+@torch.no_grad()
 def wide_ray_query(
     scene,
     tlas_count,
@@ -388,6 +392,7 @@ def wide_ray_query(
     )
 
 
+@torch.no_grad()
 def wide_ray_query_plain(
     scene,
     tlas_count,

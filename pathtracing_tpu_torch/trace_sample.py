@@ -17,8 +17,17 @@ same time with the profiler on. Neither is clipped: busy time above either
 wall time raises. Then the number of device kernels and the kernels that
 take most device time, with the ray-query kernel's share singled out.
 ``--wide`` packs the scene with the wide-BVH mega-table (layout w8), so the
-ray queries go through the wide kernel; nothing else changes. CUDA only; it
-raises without a card.
+ray queries go through the wide kernel; nothing else changes.
+
+``--grad`` profiles one chunk of the frame gradient instead
+(``diff/render.make_fast_grad_frame_fn``'s pass 2 at 1 spp, every field):
+the megakernel's record build (K6) records the 1080p frame once, outside
+the profile, and the profiled step is the autograd replay of the frame's
+last ``--lanes`` items (default ``REPLAY_CHUNK``, the bottom rows, where the
+geometry is) and its backward. The wide tables are implied. The output then
+also gives the share of the gathers' backward kernels (K7a, K7b).
+
+CUDA only; it raises without a card.
 """
 
 from __future__ import annotations
@@ -34,7 +43,14 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from pathtracing_tpu_torch.config import PRODUCTION
+from pathtracing_tpu_torch.diff.render import (
+    DIFFERENTIABLE_FIELDS,
+    REPLAY_CHUNK,
+    frame_items,
+    replay_value_and_grad,
+)
 from pathtracing_tpu_torch.ops.integrator import path_trace_samples
+from pathtracing_tpu_torch.ops.megakernel import path_trace_megakernel
 from pathtracing_tpu_torch.render import CUDA_TILE_PIXELS
 from pathtracing_tpu_torch.scene.golden import scene_device_from_golden
 from pathtracing_tpu_torch.utils.goldenio import load_golden
@@ -44,25 +60,39 @@ GOLDEN = pathlib.Path(__file__).resolve().parent.parent / "tests" / "golden"
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument(
-        "--lanes", type=int,
-        default=min(CUDA_TILE_PIXELS, PRODUCTION.image_width * PRODUCTION.image_height),
-    )
+    n_frame = PRODUCTION.image_width * PRODUCTION.image_height
+    ap.add_argument("--lanes", type=int, default=None)
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
     ap.add_argument("--wide", action="store_true",
                     help="pack the scene with the wide-BVH mega-table")
+    ap.add_argument("--grad", action="store_true",
+                    help="profile one replay chunk of the frame gradient")
     args = ap.parse_args()
+    wide = args.wide or args.grad
+    lanes = args.lanes or (REPLAY_CHUNK if args.grad else min(CUDA_TILE_PIXELS, n_frame))
 
     cfg = dataclasses.replace(PRODUCTION, samples_per_pixel=8)
     scene = scene_device_from_golden(
-        load_golden(str(GOLDEN / "scene.gold")), cfg, wide=args.wide
+        load_golden(str(GOLDEN / "scene.gold")), cfg, wide=wide
     )
-    idx = torch.arange(args.lanes, dtype=torch.int32, device="cuda")
-    xs, ys = idx % cfg.image_width, idx // cfg.image_width
-    si = torch.zeros_like(xs)
+    if args.grad:
+        xs, ys, si = frame_items(cfg, n_frame, 1, 0, torch.device("cuda"))
+        _, (prim, bounce) = path_trace_megakernel(cfg, scene, n_frame, 1, record=True)
+        part = slice(n_frame - lanes, n_frame)
+        xs, ys, si = xs[part], ys[part], si[part]
+        records = ({k: v[part] for k, v in prim.items()},
+                   {k: v[:, part] for k, v in bounce.items()})
+    else:
+        idx = torch.arange(lanes, dtype=torch.int32, device="cuda")
+        xs, ys = idx % cfg.image_width, idx // cfg.image_width
+        si = torch.zeros_like(xs)
 
     def sample():
-        path_trace_samples(cfg, scene, xs, ys, si)
+        if args.grad:
+            replay_value_and_grad(cfg, scene, xs, ys, si, records, None,
+                                  DIFFERENTIABLE_FIELDS)
+        else:
+            path_trace_samples(cfg, scene, xs, ys, si)
         torch.cuda.synchronize()
 
     sample()  # warm-up: builds the kernel, fills the allocator's pools
@@ -96,13 +126,14 @@ def main() -> None:
             "the two runs do not belong together or the trace is wrong"
         )
     rq_ms = sum(r[2] for r in device if "ray_query_kernel" in r[0])
+    k7_ms = sum(r[2] for r in device if "stg_" in r[0] or "vg3_" in r[0])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(json.dumps({
-        "card": smi, "lanes": args.lanes, "bounces": cfg.max_bounces,
-        "wide": args.wide,
+        "card": smi, "lanes": lanes, "bounces": cfg.max_bounces,
+        "wide": wide, "grad": args.grad,
         "sample_wall_ms": wall_ms,
         "profiled_sample_wall_ms": profiled_wall_ms,
         "device_busy_ms": busy_ms,
@@ -111,8 +142,10 @@ def main() -> None:
         "device_kernels": sum(r[1] for r in device),
         "ray_query_kernel_ms": rq_ms,
         "ray_query_share_of_busy": rq_ms / busy_ms,
+        "gather_grad_kernels_ms": k7_ms,
+        "gather_grad_share_of_busy": k7_ms / busy_ms,
         "top_kernels": [
-            {"name": k[:80], "count": c, "ms": ms} for k, c, ms in device[:8]
+            {"name": k[:80], "count": c, "ms": ms} for k, c, ms in device[:12]
         ],
     }))
 

@@ -161,9 +161,16 @@ def test_production_config_runs_and_subframe_rows_bound(scenes, motion):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"query_shade": lambda *a: None}, {"record": True}, {"replay": ((), ())}]
+    "kw", [{"query_shade": lambda *a: None}, {"record": True, "lit": True},
+           {"replay": ((), ()), "lit": True}]
 )
 def test_later_slices_raise(scenes, kw):
+    """query_shade (the sharding slice) raises; record/replay are ported and
+    raise, as in JAX, on a scene with area-light tables (a later slice)."""
+    kw = dict(kw)
+    scene = scenes[0]
+    if kw.pop("lit", False):
+        scene = scene._replace(lt_tris=torch.zeros((1, 9)))
     z = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(NotImplementedError):
-        path_trace_samples(TESTING, scenes[0], z, z, z, **kw)
+        path_trace_samples(TESTING, scene, z, z, z, **kw)

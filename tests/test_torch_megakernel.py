@@ -195,8 +195,9 @@ def test_megakernel_error_paths(monkeypatch, wide_scene, small_xy):
                               megakernel=True, device="cpu")
     with pytest.raises(ValueError, match="wide=True"):
         tmk.path_trace_megakernel(SMALL, binary, 4, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="gradient slice"):
-        tmk.path_trace_megakernel(SMALL, wide_scene, 4, 1, record=True, device="cpu")
+    with pytest.raises(ValueError, match="with_stats"):
+        tmk.path_trace_megakernel(SMALL, wide_scene, 4, 1, record=True, with_stats=True,
+                                  device="cpu")
     lit = wide_scene._replace(lt_tris=torch.zeros((1, 9)))
     with pytest.raises(NotImplementedError, match="area-light"):
         tmk.path_trace_megakernel(SMALL, lit, 4, 1, device="cpu")
