@@ -25,11 +25,12 @@ Phases, one JSON object per line:
   device            card name + power limit (nvidia-smi), torch / CUDA versions
   build             the six libraries of csrc/, built side by side: seconds,
                     ptxas' registers and spills per kernel, resident blocks
-                    per SM of the ray-query kernels and the path kernels;
-                    wide_ray_query's and ray_query's registers and spills as
-                    they were before their walks moved into wide_walk.cuh and
-                    binary_walk.cuh, and the megakernel's timed build's as
-                    before its record build was added
+                    per SM of the ray-query kernels and the path kernels'
+                    first design; wide_ray_query's and ray_query's registers
+                    and spills as they were before their walks moved into
+                    wide_walk.cuh and binary_walk.cuh, and the path kernels'
+                    timed builds (K2 and K5, first design and wide block) as
+                    recorded in K2_TIMED and K5_TIMED
   scene, wide_scene table sizes; rows and bytes of the wide tables per layout
   kernel_check      ray_query kernel vs plain version: the 4096 rays of
                     rays.gold in five modes, and the two batches the main path
@@ -126,6 +127,20 @@ Phases, one JSON object per line:
                     the plain version's time, and its records and sums
                     against K6's of that shape (every plane equal, sums
                     byte-equal to K2's); the bound
+  phase_split       the path kernels' phase-cycle build at 1080p x 8 spp (K2
+                    on w8, K5 on binary and w8; the first design and the wide
+                    block): each phase's share of the summed clock64() cycles
+                    (camera/RNG, closest walk, shadow walk, shading fetch,
+                    atmosphere, NEE, sample_bsdf, other); sums byte-equal to
+                    the timed build's
+  design_timing     the path kernels' two designs (first: 128 threads a
+                    block; wide: 512, one block an SM) in one call, in turns,
+                    L2 flushed: K2 w8/w16/s8 and K5 binary/w8 at 1080p x 8
+                    spp on the row-major frame, K2 w8 with a Morton and with
+                    a shuffled pixel_order, K5 w8 and binary on a shuffled
+                    list, K6 at 1080p x 1 spp; median and spread of 5; their
+                    sums byte-equal; registers, spills and resident blocks
+                    of each design; the design the wrapper takes
   kernels           the per-kernel summary line
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises: the
 script exits non-zero and prints no result line. There is no CPU fallback:
@@ -135,6 +150,7 @@ without a CUDA device it exits 2 at once. Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import pathlib
 import subprocess
@@ -239,9 +255,18 @@ MK_FLOPS = {
 # and binary_walk.cuh
 K1_REGISTERS = {"w8": 80, "w16": 91, "s8": 67}
 P1_REGISTERS = 52
-# the megakernel's timed build (K2) per layout, (registers, spill bytes), as
-# PRs 4 and 6 built it: the record build (K6) is a kernel of its own
-K2_TIMED = {"w8": (128, 0), "w16": (128, 172), "s8": (126, 0)}
+# the path kernels' timed builds per design and table kind, (registers,
+# spill bytes): K2's first design as it was first built (the record build K6
+# and the phase-cycle build are kernels of their own), its wide block (512
+# threads a block: at most 128 registers), and K5's
+K2_TIMED = {
+    "first": {"w8": (128, 0), "w16": (128, 172), "s8": (126, 0)},
+    "wide": {"w8": (128, 0), "w16": (128, 36), "s8": (126, 0)},
+}
+K5_TIMED = {
+    "first": {"binary": (115, 0), "w8": (128, 0), "w16": (128, 172), "s8": (126, 0)},
+    "wide": {"binary": (116, 0), "w8": (128, 0), "w16": (128, 0), "s8": (126, 0)},
+}
 
 RTOL = ATOL = 1e-6  # kernel vs plain version: same ops, same order, no FMA
 # Shared memory a block could give to staged mega-table rows: the share of
@@ -571,35 +596,52 @@ def capture_main_path_queries(cfg, scene, n):
 LAYOUT_MANGLED = {"w8": "ILi8ELi4ELb0E", "w16": "ILi16ELi8ELb0E", "s8": "ILi8ELi8ELb1E"}
 
 
-def by_layout(kernels, suffix="") -> dict:
+def by_layout(kernels) -> dict:
     """ptxas' report of a layout-templated kernel per layout: {layout:
-    (registers, spill bytes)}. ``suffix``: a further template argument that
-    picks one build (the megakernel's timed build is ``Lb0E``)."""
+    (registers, spill bytes)}."""
     out = {}
     for name, tag in LAYOUT_MANGLED.items():
-        hit = [k for k in kernels if tag + suffix in k["entry"]]
-        require(len(hit) == 1, f"{name}: {len(hit)} kernels match {tag}{suffix}")
+        hit = [k for k in kernels if tag in k["entry"]]
+        require(len(hit) == 1, f"{name}: {len(hit)} kernels match {tag}")
         k = hit[0]
         out[name] = (k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"])
     return out
 
 
-# the wavefront kernel's walk policy per layout, as mangled in its name
+# the wavefront kernel's walk policy per table kind, as mangled in its name
 WALK_MANGLED = {"binary": "10BinaryWalk", **{k: "8WideWalk" + v for k, v in LAYOUT_MANGLED.items()}}
+# the path kernels' builds: (kernel, threads a block, count policy as
+# mangled; "" for none)
+MK_BUILDS = {
+    "first": ("megakernel", 128, "11NoPathCount"),
+    "wide": ("megakernel", 512, "11NoPathCount"),
+    "counting": ("megakernel", 128, "9PathCount"),
+    "phases_first": ("megakernel", 128, "10PhaseClock"),
+    "phases_wide": ("megakernel", 512, "10PhaseClock"),
+    "record_first": ("megakernel_record", 128, ""),
+    "record_wide": ("megakernel_record", 512, ""),
+}
+WF_BUILDS = {k: ("wavefront", *v[1:]) for k, v in MK_BUILDS.items() if "record" not in k}
+# the megakernel's layout arguments follow its first two template arguments
+MK_LAYOUT_TAGS = {k: v[1:] for k, v in LAYOUT_MANGLED.items()}
 
 
-def wavefront_by_layout(kernels) -> dict:
-    """ptxas' report of the wavefront kernel per layout: {layout: {"timed" |
-    "counting": (registers, spill bytes)}} (its third template argument is
-    the counting flag, after the fetch policy)."""
+def path_builds(kernels, builds, tags) -> dict:
+    """ptxas' report of a path kernel per build and table kind: {build:
+    {kind: (registers, spill bytes)}}; a kernel is picked by its name and
+    first template argument as mangled (length, name, threads), its table
+    kind's tag and its count policy."""
     out = {}
-    for name, tag in WALK_MANGLED.items():
-        out[name] = {}
-        for build, flag in (("timed", "FetchELb0E"), ("counting", "FetchELb1E")):
-            hit = [k for k in kernels if tag in k["entry"] and flag in k["entry"]]
-            require(len(hit) == 1, f"wavefront {name} {build}: {len(hit)} kernels match")
+    for build, (name, threads, count) in builds.items():
+        out[build] = {}
+        head = f"{len(name)}{name}ILi{threads}E"
+        for kind, tag in tags.items():
+            hit = [k for k in kernels if head in k["entry"]
+                   and tag in k["entry"] and count in k["entry"]]
+            require(len(hit) == 1, f"{name} {build} {kind}: {len(hit)} kernels match "
+                                   f"{head} {tag} {count} in {[k['entry'] for k in kernels]}")
             k = hit[0]
-            out[name][build] = (k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"])
+            out[build][kind] = (k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"])
     return out
 
 
@@ -621,9 +663,10 @@ def phase_build():
     occ = {"ray_query": CT.LIBRARY.load().pt_ray_query_occupancy()}
     for name, lay in LAYOUTS.items():
         occ[name] = CW.LIBRARY.load().pt_wide_ray_query_occupancy(lay.w_row)
-    mk_occ = {name: CM.LIBRARY.load().pt_megakernel_occupancy(lay.w_row)
+    # the path kernels' first design (both designs' are in design_timing)
+    mk_occ = {name: CM.LIBRARY.load().pt_megakernel_occupancy(lay.w_row, 0)
               for name, lay in LAYOUTS.items()}
-    wf_occ = {name: CWF.LIBRARY.load().pt_wavefront_occupancy(w)
+    wf_occ = {name: CWF.LIBRARY.load().pt_wavefront_occupancy(w, 0)
               for name, w in (("binary", 0), *((k, v.w_row) for k, v in LAYOUTS.items()))}
     require(all(v > 0 for v in [*occ.values(), *mk_occ.values(), *wf_occ.values()]),
             f"occupancy query failed: {occ} {mk_occ} {wf_occ}")
@@ -641,25 +684,25 @@ def phase_build():
     p1_regs = [(k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"]) for k in p1]
     require(p1_regs == [(P1_REGISTERS, 0)],
             f"ray_query registers/spills {p1_regs}, expected {P1_REGISTERS} / 0")
-    report["wavefront"]["registers_spills_by_layout"] = wavefront_by_layout(
-        report["wavefront"]["kernels"])
-    mk_kernels = report["megakernel"]["kernels"]
-    report["megakernel"]["registers_spills_by_layout"] = {
-        "timed": by_layout(mk_kernels, "Lb0E"),
-        "counting": by_layout(mk_kernels, "Lb1E"),
-        "record": by_layout([k for k in mk_kernels if "megakernel_record" in k["entry"]]),
-    }
-    # K6 is a kernel of its own: K2's timed build compiles as before
-    k2 = report["megakernel"]["registers_spills_by_layout"]["timed"]
-    require(k2 == K2_TIMED, f"megakernel timed build {k2}, expected {K2_TIMED}")
+    wf = path_builds(report["wavefront"]["kernels"], WF_BUILDS, WALK_MANGLED)
+    mk = path_builds(report["megakernel"]["kernels"], MK_BUILDS, MK_LAYOUT_TAGS)
+    report["wavefront"]["registers_spills_by_layout"] = wf
+    report["megakernel"]["registers_spills_by_layout"] = mk
+    # the instruments (counting, phase-cycle and record builds) are kernels
+    # of their own: the timed builds compile as recorded
+    k2 = {d: mk[d] for d in K2_TIMED}
+    require(k2 == K2_TIMED, f"megakernel timed builds {k2}, expected {K2_TIMED}")
+    k5 = {d: wf[d] for d in K5_TIMED}
+    require(k5 == K5_TIMED, f"wavefront timed builds {k5}, expected {K5_TIMED}")
     mk_block, wf_block = CM.block_size(), CWF.block_size()
     emit("build", seconds=sec, flags=list(cuda_build.NVCC_FLAGS), libraries=report,
          sms=sms, block=CT.block_size(), megakernel_block=mk_block, wavefront_block=wf_block,
          resident_warps_per_sm={k: v * CT.block_size() // 32 for k, v in occ.items()},
          megakernel_resident_warps_per_sm={k: v * mk_block // 32 for k, v in mk_occ.items()},
          wavefront_resident_warps_per_sm={k: v * wf_block // 32 for k, v in wf_occ.items()},
+         wide_block=CM.block_size("wide"),
          wide_ray_query_registers_unchanged=True, ray_query_registers_unchanged=True,
-         megakernel_timed_registers_unchanged=True)
+         path_kernel_timed_registers_as_recorded=True)
     return report
 
 
@@ -1439,8 +1482,7 @@ def phase_wavefront_timing(cfg, binary, wide, smi):
     n = W * H
     require(n <= CUDA_TILE_PIXELS and _mk_spp_chunk(n, MAIN_SPP, binary) == MAIN_SPP,
             "the main path is one tile and one chunk")
-    idx = torch.arange(n, dtype=torch.int32, device="cuda")
-    xs, ys = idx % W, idx // W
+    xs, ys = frame_list(cfg)
     t = time_launches({
         "binary": lambda: CWF.wavefront_cuda(cfg, binary, xs, ys, MAIN_SPP),
         "w8": lambda: CWF.wavefront_cuda(cfg, wide, xs, ys, MAIN_SPP),
@@ -1456,6 +1498,142 @@ def phase_wavefront_timing(cfg, binary, wide, smi):
                    k2_w8_ms_same_call=t["k2_w8"][0], k2_w8_ms_all=t["k2_w8"][1], card=smi)
         emit("wavefront_timing", **res)
         out[name] = res
+    return out
+
+
+# ------------------------------------------------- the path kernels' designs
+
+# The pixel orders the design timing runs each path kernel on: "row_major"
+# (render_frame's one tile, the main path), "morton" (morton_pixel_order,
+# K2's documented option) and "shuffled" (no two adjacent slots near each
+# other on screen).
+ORDER_SEED = 8  # the shuffled order's permutation
+
+
+@functools.lru_cache(maxsize=None)
+def order_tensor(W, H, order):
+    """A W x H frame's pixel ids in ``order``, int32 on the card, or None
+    for the row-major frame. Made once per order, so that a timed launch
+    does not time making it on the host."""
+    if order == "row_major":
+        return None
+    if order == "morton":
+        return torch.from_numpy(morton_pixel_order(W, H)).cuda()
+    gen = torch.Generator().manual_seed(ORDER_SEED)
+    return torch.randperm(W * H, generator=gen).to(torch.int32).cuda()
+
+
+@functools.lru_cache(maxsize=None)
+def list_tensors(W, H, order):
+    """The W x H frame's (xs, ys) list on the card in ``order``, made once."""
+    perm = order_tensor(W, H, order)
+    idx = torch.arange(W * H, dtype=torch.int32, device="cuda") if perm is None else perm
+    return idx % W, idx // W
+
+
+def frame_order(cfg, order):
+    """The frame's pixel ids in ``order``, int32 on the card, or None for
+    the row-major frame."""
+    return order_tensor(cfg.image_width, cfg.image_height, order)
+
+
+def frame_list(cfg, order="row_major"):
+    """The 1080p frame's (xs, ys) list on the card in ``order``: row-major
+    is render_frame's one tile."""
+    return list_tensors(cfg.image_width, cfg.image_height, order)
+
+
+def path_launch(kernel, cfg, scene, spp=MAIN_SPP, order="row_major", **kw):
+    """One launch of a path kernel over the whole frame (K2: the slots, with
+    ``order`` as its pixel_order; K5: the list in ``order``; K6: K2's record
+    build, row-major), returning the wrapper's tuple."""
+    n = cfg.image_width * cfg.image_height
+    if kernel == "megakernel":
+        return CM.megakernel_cuda(cfg, scene, n, spp, pixel_order=frame_order(cfg, order), **kw)
+    if kernel == "megakernel_record":
+        require(order == "row_major", "the record build takes no pixel order")
+        return CM.megakernel_record_cuda(cfg, scene, n, spp, **kw)
+    xs, ys = frame_list(cfg, order)
+    return CWF.wavefront_cuda(cfg, scene, xs, ys, spp, **kw)
+
+
+def phase_split(cfg, scenes, smi):
+    """The phase-cycle build (csrc/path.cuh, PhaseClock) at the main path's
+    shape (1080p x 8 spp): each thread's clock64() cycles per phase, summed
+    over the threads, for K2 on w8 and K5 on the binary and the w8 tables, in
+    the first design and in the wide block; each phase's share of the summed
+    cycles. The sums of the same launch are held to the timed build's, byte
+    for byte."""
+    out = {}
+    for kernel, kind in (("megakernel", "w8"), ("wavefront", "binary"), ("wavefront", "w8")):
+        scene = scenes[kind]
+        res = {}
+        for design in ("first", "wide"):
+            timed = path_launch(kernel, cfg, scene, _design=design)
+            got = path_launch(kernel, cfg, scene, _design=design, phases=True)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(timed[:3], got[:3])),
+                    f"{kernel} {kind} {design}: the phase build's sums differ")
+            cyc = dict(zip(CM.PHASE_NAMES, got[5].tolist()))
+            total = sum(cyc.values())
+            require(total > 0 and all(v >= 0 for v in cyc.values()), f"phase cycles {cyc}")
+            res[design] = {
+                "cycles": cyc, "total_cycles": total,
+                "share": {k: v / total for k, v in cyc.items()},
+                "walk_share": (cyc["closest_walk"] + cyc["shadow_walk"]) / total,
+            }
+        emit("phase_split", kernel=kernel, table=kind, pixels=cfg.image_width * cfg.image_height,
+             spp=MAIN_SPP, **res, card=smi)
+        out[f"{kernel}_{kind}"] = res
+    return out
+
+
+# The design timing's cases: (path kernel, table kind, pixel order). K2 on
+# the three wide layouts and K5 on the binary tables and w8, row-major as the
+# main path runs them; K2 w8 in a Morton and a shuffled pixel_order and K5 on
+# a shuffled list, the traffic the wrappers also take; K6 on w8.
+DESIGN_CASES = (
+    ("megakernel", "w8", "row_major"), ("megakernel", "w16", "row_major"),
+    ("megakernel", "s8", "row_major"), ("megakernel", "w8", "morton"),
+    ("megakernel", "w8", "shuffled"), ("wavefront", "binary", "row_major"),
+    ("wavefront", "w8", "row_major"), ("wavefront", "binary", "shuffled"),
+    ("wavefront", "w8", "shuffled"), ("megakernel_record", "w8", "row_major"),
+)
+
+
+def phase_design_timing(cfg, scenes, built, smi, reps=5):
+    """The path kernels' two designs in this call, on this card: one launch
+    of each DESIGN_CASES case at the main path's shape (1080p x 8 spp; K6 at
+    1080p x 1 spp), the designs taking turns, L2 flushed before each launch;
+    median and spread of ``reps``. The designs' sums are held to each
+    other's, byte for byte. Each case also reports both designs' registers,
+    spills, threads a block and resident blocks, and the design the wrapper
+    takes."""
+    out = {}
+    for kernel, kind, order in DESIGN_CASES:
+        scene = scenes[kind]
+        spp = GRAD_SPP if kernel == "megakernel_record" else MAIN_SPP
+        fns = {d: (lambda d=d: path_launch(kernel, cfg, scene, spp=spp, order=order, _design=d))
+               for d in CM.DESIGNS}
+        sums = {d: torch.cat([x.view(torch.int32) for x in fn()[:3]]) for d, fn in fns.items()}
+        require(all(torch.equal(v, sums["first"]) for v in sums.values()),
+                f"{kernel} {kind} {order}: the designs' sums differ")
+        t = time_launches(fns, reps=reps)
+        res = {d: {"ms": ms, "ms_all": all_ms, "spread": (min(all_ms), max(all_ms)),
+                   "vs_first": ms / t["first"][0]} for d, (ms, all_ms) in t.items()}
+        width = 0 if kind == "binary" else LAYOUTS[kind].w_row
+        lib = CWF if kernel == "wavefront" else CM
+        occ = getattr(lib.LIBRARY.load(), f"pt_{lib.LIBRARY.name}_occupancy")
+        regs = built[lib.LIBRARY.name]["registers_spills_by_layout"]
+        shape = {d: {"registers_spills": regs[("record_" if kernel == "megakernel_record"
+                                               else "") + d][kind],
+                     "block": lib.block_size(d), "blocks_per_sm": occ(width, i)}
+                 for i, d in enumerate(CM.DESIGNS)}
+        require(all(v["blocks_per_sm"] >= 1 for v in shape.values()), f"{kernel}: {shape}")
+        emit("design_timing", kernel=kernel, table=kind, order=order, spp=spp, **res,
+             shape=shape, wrapper_design=CM.DESIGN_BY_WIDTH[width], card=smi)
+        out[f"{kernel}_{kind}_{order}"] = res
     return out
 
 
@@ -1964,6 +2142,21 @@ def phase_main_path_grad(cfg, scene, smi):
     return res
 
 
+def design_summary(kernel, designs, split) -> dict:
+    """A path kernel's designs for the kernels line: per table kind and
+    pixel order the design the wrapper takes and both designs' times in this
+    call; the phase split of its main path."""
+    out = {}
+    for name, kind, order in DESIGN_CASES:
+        if name == kernel:
+            res = designs[f"{kernel}_{kind}_{order}"]
+            width = 0 if kind == "binary" else LAYOUTS[kind].w_row
+            out[f"{kind}_{order}"] = {"design": CM.DESIGN_BY_WIDTH[width],
+                                      **{f"{d}_ms": res[d]["ms"] for d in CM.DESIGNS}}
+    return {"designs": out, "phase_split": {k: v for k, v in split.items()
+                                            if k.startswith(kernel + "_")}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2034,6 +2227,15 @@ def main() -> int:
     phase_grad_slow_check(scene, wide_scenes[MAIN_LAYOUT])
     grad = phase_main_path_grad(prod_cfg, prod_wide, smi)
     rec_time = phase_record_timing(prod_cfg, prod_wide, smi)
+    # the path kernels' designs: where the cycles go, and the two designs
+    # timed in this call
+    prod_kinds = {"binary": prod_scene, MAIN_LAYOUT: prod_wide}
+    for lay in LAYOUTS:
+        if lay not in prod_kinds:
+            prod_kinds[lay] = scene_device_from_golden(scene_g, prod_cfg, wide=True,
+                                                       wide_layout=lay)
+    split = phase_split(prod_cfg, prod_kinds, smi)
+    designs = phase_design_timing(prod_cfg, prod_kinds, built, smi)
 
     emit("done", seconds=time.perf_counter() - t_start)
     # the batch launched max_bounces times of 1+max_bounces
@@ -2127,9 +2329,10 @@ def main() -> int:
                               / mk_sec / 1e6,
             "peak_memory_allocated_bytes": int(mk_peak),
             **regs("megakernel"),
-            "registers_spills_timed_build":
-                built["megakernel"]["registers_spills_by_layout"]["timed"],
-            "blocks_per_sm": built["megakernel"]["blocks_per_sm"],
+            "registers_spills_timed_builds": {
+                d: built["megakernel"]["registers_spills_by_layout"][d] for d in K2_TIMED},
+            "blocks_per_sm_first_design": built["megakernel"]["blocks_per_sm"],
+            **design_summary("megakernel", designs, split),
             "card": smi,
         },
         {
@@ -2157,7 +2360,8 @@ def main() -> int:
             "frame_bit_equal_share_vs_scan": wf_equal,
             **regs("wavefront"),
             "registers_spills_by_layout": built["wavefront"]["registers_spills_by_layout"],
-            "blocks_per_sm": built["wavefront"]["blocks_per_sm"],
+            "blocks_per_sm_first_design": built["wavefront"]["blocks_per_sm"],
+            **design_summary("wavefront", designs, split),
             "card": smi,
         },
         {
@@ -2179,8 +2383,11 @@ def main() -> int:
             "shape": f"{prod_cfg.image_width}x{prod_cfg.image_height} x {GRAD_SPP} spp, "
                      f"{prod_cfg.max_bounces} bounces, one launch, records",
             "k2_ms_same_call": rec_time["k2_ms_same_call"],
-            "registers_spills_by_layout":
-                built["megakernel"]["registers_spills_by_layout"]["record"],
+            "registers_spills_by_layout": {
+                d: built["megakernel"]["registers_spills_by_layout"][f"record_{d}"]
+                for d in CM.DESIGNS},
+            "design_timing_w8": {d: designs["megakernel_record_w8_row_major"][d]["ms"]
+                                 for d in CM.DESIGNS},
             "card": smi,
         },
         {

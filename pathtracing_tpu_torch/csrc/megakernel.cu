@@ -35,21 +35,36 @@
 // (~1.5 MB) sit in L2 and the output is 12-16 B per pixel; a sample is ~11
 // dependent walks of tens of row visits each plus ~1,000 flops of shading
 // per bounce (the atmosphere march dominates), and a warp runs as long as
-// its longest path.  This first design keeps it simple: no queue, no
-// regrouping of rays between bounces; registers and spills are reported by
-// the build (chip_smoke.py), not chased.
+// its longest path.
 //
-// The counting build (kCount) adds each thread's row visits, tests and
-// shading calls into a uint64 array at its end; chip_smoke.py turns them into
-// the bound.  It is a separate instantiation: the timed kernel counts
-// nothing.
+// Two designs, one body, one thread per slot: the kernel is a template on
+// its threads a block.  The first design runs 128 threads a block, four
+// blocks an SM at 128 registers.  The wide block runs 512 threads, one
+// block an SM: the same 16 warps, but on 512 adjacent slots, so the rays an
+// SM holds at once are coherent and share the rows in its L1 (the first
+// design's four blocks on an SM are launched 132 blocks apart).  A slot's
+// samples run in one thread in sample order and its sums are written once
+// in both, so both give the same bytes.  The wrapper picks the design per
+// layout (ops/cuda_megakernel.DESIGN_BY_WIDTH): on the card the wide block
+// is the faster on every layout (PERF.md).  Staging the hottest mega-table
+// rows in the wide block's shared memory was slower than the same block
+// without it (the hot rows are in L1 already), and a persistent grid of
+// 512-thread blocks taking slots at a static stride was slower than both;
+// neither is kept.
 //
-// The record build (K6, megakernel_record) is a third: the same paths, plus
-// each work item's hit topology for the fast gradients' replay
-// (diff/render.make_fast_grad_frame_fn; JAX: path_trace_megakernel with
-// record=True, pathtracing_tpu/ops/megakernel.py:554, capture :330-375).
-// Per work item it adds 8 B of stores to K2's work, and 9 B per bounce row
-// its path reaches.
+// The counting build (PathCount) adds each thread's row visits, tests and
+// shading calls into a uint64 array at its end; chip_smoke.py turns them
+// into the bound.  The phase-cycle build (PhaseClock) adds each thread's
+// clock64() cycles per phase of the path.  Both are instruments, separate
+// instantiations: the timed kernels count nothing.
+//
+// The record build (K6, megakernel_record, in the same two designs) is
+// the same paths, plus each work item's hit topology for the fast
+// gradients' replay (diff/render.make_fast_grad_frame_fn; JAX:
+// path_trace_megakernel with record=True,
+// pathtracing_tpu/ops/megakernel.py:554, capture :330-375).  Per work item
+// it adds 8 B of stores to K2's work, and 9 B per bounce row its path
+// reaches.
 //
 // Parity: built with --fmad=false, IEEE division and square root, no
 // fast-math, no flush-to-zero (ops/cuda_build.py); shading.cuh has the rules
@@ -57,8 +72,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "binary_walk.cuh"
 #include "path.cuh"
@@ -70,7 +83,8 @@ namespace {
 
 using namespace ptq;
 
-constexpr int kBlock = 128;
+constexpr int kBlock = 128;      // the first design: four blocks an SM
+constexpr int kWideBlock = 512;  // the wide block: one block an SM
 
 // The frame's pixel slots: slot i renders pixel pixel_base + pixel_order[i]
 // (or pixel_base + i) of a row-major frame `width` pixels wide.
@@ -79,31 +93,35 @@ struct Slots {
     int n_pixels, pixel_base;
 };
 
-template <int S, int L, bool STUB, bool kCount>
-__global__ void __launch_bounds__(kBlock) megakernel(WideWalk<S, L, STUB> w, PackedFetch fe,
-                                                     PathParams p, Slots sl, Out o) {
-    const int slot = blockIdx.x * kBlock + threadIdx.x;
-    if (slot >= sl.n_pixels) return;
+template <class Count, class Walk>
+__device__ __forceinline__ void render_slot(const Walk& w, const PackedFetch& fe,
+                                            const PathParams& p, const Slots& sl, const Out& o,
+                                            int slot) {
     const int local = sl.pixel_order ? __ldg(sl.pixel_order + slot) : slot;
     const int pixel = sl.pixel_base + local;
-    typename std::conditional<kCount, PathCount, NoPathCount>::type count;
-    o.write(local, trace_samples(w, fe, p, pixel % p.width, pixel / p.width,
-                                 o.l2 != nullptr, count));
+    Count count;
+    o.write(local, trace_samples(w, fe, p, pixel % p.width, pixel / p.width, o.l2 != nullptr,
+                                 count));
     count.flush(o.counts);
+}
+
+// One slot per thread, kThreads a block.
+template <int kThreads, int S, int L, bool STUB, class Count>
+__global__ void __launch_bounds__(kThreads) megakernel(WideWalk<S, L, STUB> w, PackedFetch fe,
+                                                       PathParams p, Slots sl, Out o) {
+    const int slot = blockIdx.x * kThreads + threadIdx.x;
+    if (slot < sl.n_pixels) render_slot<Count>(w, fe, p, sl, o, slot);
 }
 
 // The record build (K6): the same paths and sums as the timed build, bit
 // for bit, plus each work item's hit topology (path.cuh's ItemRecord).  Slot
 // i renders pixel pixel_base + i (records are indexed by work item, and the
-// replay assumes that map: no pixel order).  A kernel of its own, so the
-// timed build's code and registers do not change.
-template <int S, int L, bool STUB>
-__global__ void __launch_bounds__(kBlock) megakernel_record(WideWalk<S, L, STUB> w,
-                                                            PackedFetch fe, PathParams p,
-                                                            Slots sl, Out o,
-                                                            ItemRecord rec0) {
-    const int slot = blockIdx.x * kBlock + threadIdx.x;
-    if (slot >= sl.n_pixels) return;
+// replay assumes that map: no pixel order).  Kernels of their own, so the
+// timed builds' code and registers do not change.
+template <class Walk>
+__device__ __forceinline__ void record_slot(const Walk& w, const PackedFetch& fe,
+                                            const PathParams& p, const Slots& sl, const Out& o,
+                                            const ItemRecord& rec0, int slot) {
     const int pixel = sl.pixel_base + slot;
     NoPathCount count;
     ItemRecord rec = rec0;
@@ -111,17 +129,43 @@ __global__ void __launch_bounds__(kBlock) megakernel_record(WideWalk<S, L, STUB>
     o.write(slot, trace_samples(w, fe, p, pixel % p.width, pixel / p.width, false, count, rec));
 }
 
+template <int kThreads, int S, int L, bool STUB>
+__global__ void __launch_bounds__(kThreads) megakernel_record(WideWalk<S, L, STUB> w,
+                                                              PackedFetch fe, PathParams p,
+                                                              Slots sl, Out o, ItemRecord rec0) {
+    const int slot = blockIdx.x * kThreads + threadIdx.x;
+    if (slot < sl.n_pixels) record_slot(w, fe, p, sl, o, rec0, slot);
+}
+
+// The build a launch asks for.
+enum Build { kTimed, kCounting, kPhases, kRecord };
+
+// One design's kernels: kThreads a block.
+template <int kThreads, int S, int L, bool STUB>
+int launch_design(const WideWalk<S, L, STUB>& w, const PackedFetch& fe, const PathParams& p,
+                  const Slots& sl, const Out& o, const ItemRecord& rec, Build build,
+                  cudaStream_t s) {
+    const dim3 grid((unsigned)((sl.n_pixels + kThreads - 1) / kThreads)), block(kThreads);
+    if (build == kRecord)
+        megakernel_record<kThreads, S, L, STUB><<<grid, block, 0, s>>>(w, fe, p, sl, o, rec);
+    else if (build == kCounting)
+        megakernel<kThreads, S, L, STUB, PathCount><<<grid, block, 0, s>>>(w, fe, p, sl, o);
+    else if (build == kPhases)
+        megakernel<kThreads, S, L, STUB, PhaseClock><<<grid, block, 0, s>>>(w, fe, p, sl, o);
+    else
+        megakernel<kThreads, S, L, STUB, NoPathCount><<<grid, block, 0, s>>>(w, fe, p, sl, o);
+    return (int)cudaGetLastError();
+}
+
+// The counting build runs the first design (an instrument); the others the
+// design asked for.
 template <int S, int L, bool STUB>
 int launch(const WideWalk<S, L, STUB>& w, const PackedFetch& fe, const PathParams& p,
-           const Slots& sl, const Out& o, const ItemRecord* rec, cudaStream_t s) {
-    const dim3 grid((unsigned)((sl.n_pixels + kBlock - 1) / kBlock)), block(kBlock);
-    if (rec)
-        megakernel_record<S, L, STUB><<<grid, block, 0, s>>>(w, fe, p, sl, o, *rec);
-    else if (o.counts)
-        megakernel<S, L, STUB, true><<<grid, block, 0, s>>>(w, fe, p, sl, o);
-    else
-        megakernel<S, L, STUB, false><<<grid, block, 0, s>>>(w, fe, p, sl, o);
-    return (int)cudaGetLastError();
+           const Slots& sl, const Out& o, const ItemRecord& rec, Build build, int design,
+           cudaStream_t s) {
+    if (build == kCounting || design == kFirst)
+        return launch_design<kBlock>(w, fe, p, sl, o, rec, build, s);
+    return launch_design<kWideBlock>(w, fe, p, sl, o, rec, build, s);
 }
 
 template <int S, int L, bool STUB>
@@ -136,13 +180,17 @@ WideWalk<S, L, STUB> wide_walk_of(const void* rows, const void* wide_root,
 
 // Plain C interface for ctypes.  Launches on `stream`, does not synchronise,
 // allocates nothing.  `width` (f32 per mega-table row) selects the layout.
-// Adds abandoned samples to *n_truncated, and with a non-null `counts` runs
-// the counting build, which adds its counters there.  With a non-null
-// `rec_pk_p` it runs the record build (K6), which writes the records into
-// the five planes (zeroed by the caller; n_pixels * spp items, sample-major):
-// primary pk and prim (n_items,), bounce pk, prim and occ (max_bounces *
-// n_items,).  Returns the launch's cudaError_t (0 = accepted), -1 for a
-// width no layout has, -2 for records asked with counts, l2 or a pixel order.
+// Adds abandoned samples to *n_truncated.  With a non-null `counts` it runs
+// the counting build, which adds its counters there; with a non-null
+// `phases` the phase-cycle build, which adds kNPhases cycle sums there.
+// With a non-null `rec_pk_p` it runs the record build (K6), which writes the
+// records into the five planes (zeroed by the caller; n_pixels * spp items,
+// sample-major): primary pk and prim (n_items,), bounce pk, prim and occ
+// (max_bounces * n_items,).  `design`: 0 the first design, 1 the wide block;
+// the counting build runs the first design.  Returns the launch's
+// cudaError_t (0 = accepted), -1 for a width no layout has, -2 for records
+// asked with counts, phases, l2 or a pixel order, counts with phases, or a
+// design that does not exist.
 extern "C" int pt_megakernel(
     const void* rows, int width, const void* wide_root, const void* root_base,
     const void* tri_pos, const void* inst_f, const void* inst_u, const void* tri_shade,
@@ -151,9 +199,10 @@ extern "C" int pt_megakernel(
     int spp, int sample_base, int pixel_base, int image_width, int image_height,
     int max_bounces, int smbs, int student_id, float min_ray_dist, float max_ray_dist,
     float gamma, int max_steps, void* out_r, void* out_g, void* out_b, void* out_l2,
-    void* n_truncated, void* counts, void* rec_pk_p, void* rec_prim_p, void* rec_pk_b,
-    void* rec_prim_b, void* rec_occ_b, void* stream) {
-    if (rec_pk_p && (counts || out_l2 || pixel_order)) return -2;
+    void* n_truncated, void* counts, void* phases, int design, void* rec_pk_p,
+    void* rec_prim_p, void* rec_pk_b, void* rec_prim_b, void* rec_occ_b, void* stream) {
+    if (rec_pk_p && (counts || phases || out_l2 || pixel_order)) return -2;
+    if ((counts && phases) || design < kFirst || design > kWide) return -2;
     if (n_pixels <= 0) return 0;
     const PackedFetch fe = {(const float*)tri_shade, (const float*)inst_f, (const int*)inst_u};
     const PathParams p = {(const float*)sf_cam, (const float*)sf_light, n_cam, n_light,
@@ -161,17 +210,18 @@ extern "C" int pt_megakernel(
                           max_steps, (uint32_t)student_id, min_ray_dist, max_ray_dist, gamma};
     const Slots sl = {(const int*)pixel_order, n_pixels, pixel_base};
     const Out o = {(float*)out_r, (float*)out_g, (float*)out_b, (float*)out_l2,
-                   (int*)n_truncated, (unsigned long long*)counts};
+                   (int*)n_truncated, (unsigned long long*)(phases ? phases : counts)};
     const ItemRecord rec = {(int*)rec_pk_p, (int*)rec_prim_p, (int*)rec_pk_b,
                             (int*)rec_prim_b, (uint8_t*)rec_occ_b, n_pixels * spp, n_pixels,
                             0, 0};
+    const Build build = rec_pk_p ? kRecord : (counts ? kCounting : (phases ? kPhases : kTimed));
     cudaStream_t s = (cudaStream_t)stream;
 #define PT_MK_LAUNCH(S, L, STUB)                                                   \
     if (width == Layout<S, L, STUB>::kWidth)                                       \
         return launch<S, L, STUB>(wide_walk_of<S, L, STUB>(rows, wide_root, root_base, \
                                                            tri_pos, inst_u,        \
                                                            sf_tlas_offset, n_tlas), \
-                                  fe, p, sl, o, rec_pk_p ? &rec : nullptr, s);
+                                  fe, p, sl, o, rec, build, design, s);
     PT_MK_LAUNCH(8, 4, false)   // w8
     PT_MK_LAUNCH(16, 8, false)  // w16
     PT_MK_LAUNCH(8, 8, true)    // s8
@@ -179,18 +229,27 @@ extern "C" int pt_megakernel(
     return -1;
 }
 
-extern "C" int pt_megakernel_block_size(void) { return kBlock; }
+extern "C" int pt_megakernel_block_size(int design) {
+    return design == kFirst ? kBlock : kWideBlock;
+}
 
 extern "C" int pt_megakernel_count_slots(void) { return kNCounts; }
 
-// Blocks of the layout's (timed) kernel one SM holds at once (negative: the
-// CUDA error), or 0 for a width no layout has.
-extern "C" int pt_megakernel_occupancy(int width) {
-    if (width == Layout<8, 4, false>::kWidth)
-        return resident_blocks_per_sm(megakernel<8, 4, false, false>, kBlock);
-    if (width == Layout<16, 8, false>::kWidth)
-        return resident_blocks_per_sm(megakernel<16, 8, false, false>, kBlock);
-    if (width == Layout<8, 8, true>::kWidth)
-        return resident_blocks_per_sm(megakernel<8, 8, true, false>, kBlock);
+extern "C" int pt_megakernel_phase_slots(void) { return kNPhases; }
+
+// Blocks of the layout's timed kernel in `design` one SM holds at once
+// (negative: the CUDA error), or 0 for a width no layout has.
+extern "C" int pt_megakernel_occupancy(int width, int design) {
+#define PT_MK_OCC(S, L, STUB)                                                              \
+    if (width == Layout<S, L, STUB>::kWidth)                                               \
+        return design == kFirst                                                            \
+                   ? resident_blocks_per_sm(megakernel<kBlock, S, L, STUB, NoPathCount>,   \
+                                            kBlock)                                        \
+                   : resident_blocks_per_sm(megakernel<kWideBlock, S, L, STUB, NoPathCount>, \
+                                            kWideBlock);
+    PT_MK_OCC(8, 4, false)
+    PT_MK_OCC(16, 8, false)
+    PT_MK_OCC(8, 8, true)
+#undef PT_MK_OCC
     return 0;
 }

@@ -37,7 +37,10 @@
 // that keep a sample on the plain version's bits.
 //
 // It is also a template on a record policy (NoRecord, or ItemRecord for the
-// megakernel's record build K6, below).
+// megakernel's record build K6, below), and on a count policy: nothing (the
+// timed builds), the counting builds' counters (PathCount), or the
+// phase-cycle build's clocks (PhaseClock: each thread's clock64() cycles in
+// each phase of the path; an instrument, like the counters).
 //
 // This header's bytes are part of the hash of every library that includes it
 // (ops/cuda_build.py): an edit here rebuilds K2 (and K6) and K5.
@@ -154,8 +157,21 @@ enum {
     kBsdfSamples, kNCounts
 };
 
+// The phase-cycle build's phases, in the order of PHASE_NAMES in
+// ops/cuda_megakernel.py: camera and RNG draws (the film draw, the camera
+// ray, the BSDF draw), the closest walks, the shadow walks, the shading
+// fetch, the atmosphere marches, nee_prepare and nee_finish, sample_bsdf, and
+// the rest (the path's own arithmetic, the fold, the write).
+enum {
+    kPhCamera, kPhClosest, kPhShadow, kPhShade, kPhAtmo, kPhNee, kPhBsdf, kPhOther,
+    kNPhases
+};
+
+// Every count policy has the walks' hooks, `add`, `phase` and `flush`; the
+// empty ones compile away.
 struct NoPathCount : NoWalkCount {
     __device__ __forceinline__ void add(int) {}
+    __device__ __forceinline__ void phase(int) {}
     __device__ __forceinline__ void flush(unsigned long long*) {}
 };
 
@@ -165,6 +181,7 @@ struct PathCount {
 #pragma unroll
         for (int k = 0; k < kNCounts; ++k) c[k] = 0;
     }
+    __device__ __forceinline__ void phase(int) {}
     __device__ __forceinline__ void node_row(int slabs) {
         ++c[kNodeRows];
         c[kSlabTests] += (uint32_t)slabs;
@@ -179,6 +196,31 @@ struct PathCount {
 #pragma unroll
         for (int k = 0; k < kNCounts; ++k)
             if (c[k]) atomicAdd(out + k, (unsigned long long)c[k]);
+    }
+};
+
+// The phase-cycle build: phase(k) adds the cycles since the last mark to
+// phase k.  A thread's cycles are its warp's while the thread is in the
+// phase, stalls and waits at divergence included; flush adds the thread's
+// sums into kNPhases uint64 (the counting builds' flush).
+struct PhaseClock : NoPathCount {
+    unsigned long long acc[kNPhases];
+    long long last;
+    __device__ __forceinline__ PhaseClock() {
+#pragma unroll
+        for (int k = 0; k < kNPhases; ++k) acc[k] = 0;
+        last = clock64();
+    }
+    __device__ __forceinline__ void phase(int k) {
+        const long long now = clock64();
+        acc[k] += (unsigned long long)(now - last);
+        last = now;
+    }
+    __device__ __forceinline__ void flush(unsigned long long* out) {
+        phase(kPhOther);
+#pragma unroll
+        for (int k = 0; k < kNPhases; ++k)
+            if (acc[k]) atomicAdd(out + k, acc[k]);
     }
 };
 
@@ -248,6 +290,7 @@ __device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
                                              int sample_index, V3& contrib, Count& count,
                                              Rec& rec) {
     // ---- camera_sample: seed warm-up, film/aperture draw, camera ray ----
+    count.phase(kPhOther);
     const int subframe = sample_index < 0 ? 0 : sample_index / p.smbs;
     Seed seed = pcg4d({(uint32_t)x, (uint32_t)y, (uint32_t)sample_index, p.student_id});
     const F4 u = uniform4(seed);
@@ -259,6 +302,7 @@ __device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
     get_camera_ray(cam, u.z, u.w, (float)x + (film.x + 0.5f), (float)y + (film.y + 0.5f),
                    p.width, p.height, ray_d, ray_o);
     count.add(kSamples);
+    count.phase(kPhCamera);
 
     contrib = {0.0f, 0.0f, 0.0f};
     V3 attenuation = {1.0f, 1.0f, 1.0f}, bsdf_atten = {0.0f, 0.0f, 0.0f};
@@ -272,26 +316,32 @@ __device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
         int c_inst, c_prim;
         bool unused;
         count.add(kRays);
-        if (!w.walk(root, ray_o, ray_d, false, tmin, tmax, c_inst, c_prim, unused,
-                    p.max_steps, count))
-            return false;
+        const bool walked = w.walk(root, ray_o, ray_d, false, tmin, tmax, c_inst, c_prim,
+                                   unused, p.max_steps, count);
+        count.phase(kPhClosest);
+        if (!walked) return false;
         const HitInfo info =
             fe.shade(light, c_inst, c_prim, c_inst >= 0 ? tmax : -1.0f, ray_o, ray_d);
         count.add(c_inst >= 0 ? kShadeHits : kShadeMisses);
+        count.phase(kPhShade);
         rec.closest(b, c_inst, c_prim, info);
         V3 atmo_att, in_scatter;
         if (b == 0) {
+            count.phase(kPhOther);
             if (atmosphere_scattering(seed, light.direction, light.color, ray_o, ray_d,
                                       info.thit, atmo_att, in_scatter))
                 count.add(kAtmoMarches);
+            count.phase(kPhAtmo);
             contrib = (contrib + in_scatter) + atmo_att * info.m.albedo * info.emission;
             attenuation = atmo_att;
             roughness = info.m.roughness;
         } else {
             // NEE of the previous hit (its position is this ray's origin)
             V3 nee_color;
+            count.phase(kPhOther);
             if (nee_finish(nee, light, ray_o, occluded, p.max_ray_dist, nee_color))
                 count.add(kNeeMarches);
+            count.phase(kPhNee);
             contrib = contrib + attenuation * nee_color;
             // guarded divisions: pdf == 0 keeps the reference's inf
             const float pdf_safe = bsdf_pdf == 0.0f ? 1.0f : bsdf_pdf;
@@ -302,9 +352,11 @@ __device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
                            ? f_inf()
                            : (info.nee_pdf * info.nee_pdf + bsdf_pdf * bsdf_pdf) / pdf_safe);
             attenuation = attenuation * bsdf_atten;
+            count.phase(kPhOther);
             if (atmosphere_scattering(seed, light.direction, light.color, ray_o, ray_d,
                                       info.thit, atmo_att, in_scatter))
                 count.add(kAtmoMarches);
+            count.phase(kPhAtmo);
             const float inv_mis = isinf(mis_pdf) ? 0.0f : 1.0f / mis_pdf;
             contrib = contrib +
                       attenuation * (in_scatter + atmo_att * info.m.albedo * info.emission) *
@@ -327,11 +379,15 @@ __device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
         view = normalize3(view);
         Material m = info.m;
         m.roughness = roughness;
+        count.phase(kPhOther);
         nee = nee_prepare(seed, light, info, m, view);
         count.add(kNeeEvals);
+        count.phase(kPhNee);
         const F4 ub = uniform4(seed);
+        count.phase(kPhCamera);
         const BsdfSample smp = sample_bsdf(ub.x, ub.y, ub.z, view, m);
         count.add(kBsdfSamples);
+        count.phase(kPhBsdf);
         bsdf_atten = smp.attenuation;
         bsdf_pdf = smp.pdf;
         ray_o = info.pos;
@@ -344,11 +400,15 @@ __device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
             float tmax_s = p.max_ray_dist;
             int unused_inst, unused_prim;
             count.add(kRays);
-            if (!w.walk(root, info.pos, nee.light_dir, true, p.min_ray_dist, tmax_s,
-                        unused_inst, unused_prim, occluded, p.max_steps, count))
-                return false;
+            count.phase(kPhOther);
+            const bool walked_s = w.walk(root, info.pos, nee.light_dir, true, p.min_ray_dist,
+                                         tmax_s, unused_inst, unused_prim, occluded,
+                                         p.max_steps, count);
+            count.phase(kPhShadow);
+            if (!walked_s) return false;
         }
         rec.shadow(b, occluded);
+        count.phase(kPhOther);
     }
 }
 
@@ -399,7 +459,8 @@ __device__ __forceinline__ Sums trace_samples(const Walk& w, const Fetch& fe,
 struct Out {
     float *r, *g, *b, *l2;       // (n,) sums; l2 null without stats
     int* n_truncated;            // one int32, added to
-    unsigned long long* counts;  // kNCounts, added to (counting build only)
+    unsigned long long* counts;  // kNCounts (counting build) or kNPhases (phase
+                                 // build), added to; null in the other builds
 
     __device__ __forceinline__ void write(int i, const Sums& s) const {
         r[i] = s.r;
@@ -409,5 +470,9 @@ struct Out {
         if (s.truncated) atomicAdd(n_truncated, s.truncated);
     }
 };
+
+// The path kernels' designs: the first (128 threads a block) and the wide
+// block (512 threads, one block an SM).
+enum Design { kFirst = 0, kWide = 1 };
 
 }  // namespace ptq

@@ -32,13 +32,18 @@
 // tables (~1.5 MB) sit in L2, the list is 8 B and the output 12-16 B per
 // entry; a sample is a few dependent walks of tens of row visits each plus
 // ~1,000 flops of shading per bounce (the atmosphere march dominates), and a
-// warp runs as long as its longest path.  This first design is K2's: no
-// queue, no regrouping of rays between bounces; registers and spills are
-// reported by the build (chip_smoke.py), not chased.
+// warp runs as long as its longest path.
 //
-// The counting build (kCount) adds each thread's row visits, tests and
-// shading calls into a uint64 array (path.cuh, PathCount); chip_smoke.py
-// turns them into the bound.  The timed kernel counts nothing.
+// Two designs, as K2's (megakernel.cu), one thread per entry: the first
+// (128 threads a block, four an SM) and the wide block (512 threads, one an
+// SM, its warps on 512 adjacent entries).  Both give the same bytes; the
+// wrapper picks the design per table kind: on the card the first design is
+// the faster on the binary tables, the wide block on the mega-tables.
+//
+// The counting build (PathCount) adds each thread's row visits, tests and
+// shading calls into a uint64 array; chip_smoke.py turns them into the
+// bound.  The phase-cycle build (PhaseClock) adds each thread's clock64()
+// cycles per phase of the path.  The timed kernels count nothing.
 //
 // Parity: built with --fmad=false, IEEE division and square root, no
 // fast-math, no flush-to-zero (ops/cuda_build.py); shading.cuh has the rules
@@ -46,8 +51,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "binary_walk.cuh"
 #include "path.cuh"
@@ -59,7 +62,8 @@ namespace {
 
 using namespace ptq;
 
-constexpr int kBlock = 128;
+constexpr int kBlock = 128;      // the first design: four blocks an SM
+constexpr int kWideBlock = 512;  // the wide block: one block an SM
 
 // The pixel list: entry i is pixel (xs[i], ys[i]).
 struct List {
@@ -68,26 +72,57 @@ struct List {
     int n;
 };
 
-template <class Walk, class Fetch, bool kCount>
-__global__ void __launch_bounds__(kBlock) wavefront(Walk w, Fetch fe, PathParams p, List l,
-                                                    Out o) {
-    const int i = blockIdx.x * kBlock + threadIdx.x;
-    if (i >= l.n) return;
-    typename std::conditional<kCount, PathCount, NoPathCount>::type count;
+template <class Count, class Walk, class Fetch>
+__device__ __forceinline__ void render_entry(const Walk& w, const Fetch& fe,
+                                             const PathParams& p, const List& l, const Out& o,
+                                             int i) {
+    Count count;
     o.write(i, trace_samples(w, fe, p, __ldg(l.xs + i), __ldg(l.ys + i), o.l2 != nullptr,
                              count));
     count.flush(o.counts);
 }
 
+// One entry per thread, kThreads a block.
+template <int kThreads, class Walk, class Fetch, class Count>
+__global__ void __launch_bounds__(kThreads) wavefront(Walk w, Fetch fe, PathParams p, List l,
+                                                      Out o) {
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    if (i < l.n) render_entry<Count>(w, fe, p, l, o, i);
+}
+
+// The build a launch asks for.
+enum Build { kTimed, kCounting, kPhases };
+
+// One design's kernels: kThreads a block.
+template <int kThreads, class Walk, class Fetch>
+int launch_design(const Walk& w, const Fetch& fe, const PathParams& p, const List& l,
+                  const Out& o, Build build, cudaStream_t s) {
+    const dim3 grid((unsigned)((l.n + kThreads - 1) / kThreads)), block(kThreads);
+    if (build == kCounting)
+        wavefront<kThreads, Walk, Fetch, PathCount><<<grid, block, 0, s>>>(w, fe, p, l, o);
+    else if (build == kPhases)
+        wavefront<kThreads, Walk, Fetch, PhaseClock><<<grid, block, 0, s>>>(w, fe, p, l, o);
+    else
+        wavefront<kThreads, Walk, Fetch, NoPathCount><<<grid, block, 0, s>>>(w, fe, p, l, o);
+    return (int)cudaGetLastError();
+}
+
+// The counting build runs the first design (an instrument); the others the
+// design asked for.
 template <class Walk, class Fetch>
 int launch(const Walk& w, const Fetch& fe, const PathParams& p, const List& l, const Out& o,
-           cudaStream_t s) {
-    const dim3 grid((unsigned)((l.n + kBlock - 1) / kBlock)), block(kBlock);
-    if (o.counts)
-        wavefront<Walk, Fetch, true><<<grid, block, 0, s>>>(w, fe, p, l, o);
-    else
-        wavefront<Walk, Fetch, false><<<grid, block, 0, s>>>(w, fe, p, l, o);
-    return (int)cudaGetLastError();
+           Build build, int design, cudaStream_t s) {
+    if (build == kCounting || design == kFirst)
+        return launch_design<kBlock>(w, fe, p, l, o, build, s);
+    return launch_design<kWideBlock>(w, fe, p, l, o, build, s);
+}
+
+template <class Walk, class Fetch>
+int occupancy(int design) {
+    return design == kFirst
+               ? resident_blocks_per_sm(wavefront<kBlock, Walk, Fetch, NoPathCount>, kBlock)
+               : resident_blocks_per_sm(wavefront<kWideBlock, Walk, Fetch, NoPathCount>,
+                                        kWideBlock);
 }
 
 }  // namespace
@@ -96,10 +131,13 @@ int launch(const Walk& w, const Fetch& fe, const PathParams& p, const List& l, c
 // allocates nothing.  `width` (f32 per mega-table row) selects the wide
 // layout, and 0 the binary walk (then `rows`, `wide_root`, `root_base` and
 // `tri_shade` are not read; otherwise `nl8`, `tri_idx`, `vattr` and
-// `sf_tlas_count` are not).  Adds abandoned samples to *n_truncated, and with
-// a non-null `counts` runs the counting build, which adds its counters there.
-// Returns the launch's cudaError_t (0 = accepted), or -1 for a width no
-// layout has.
+// `sf_tlas_count` are not).  Adds abandoned samples to *n_truncated.  With a
+// non-null `counts` it runs the counting build, which adds its counters
+// there; with a non-null `phases` the phase-cycle build, which adds
+// kNPhases cycle sums there.  `design`: 0 the first design, 1 the wide
+// block; the counting build runs the first design.  Returns the launch's
+// cudaError_t (0 = accepted), -1 for a width no layout has, -2 for counts
+// with phases or a design that does not exist.
 extern "C" int pt_wavefront(
     const void* rows, int width, const void* wide_root, const void* root_base,
     const void* tri_shade, const void* nl8, const void* tri_idx, const void* vattr,
@@ -109,14 +147,16 @@ extern "C" int pt_wavefront(
     int sample_base, int image_width, int image_height, int max_bounces, int smbs,
     int student_id, float min_ray_dist, float max_ray_dist, float gamma, int max_steps,
     void* out_r, void* out_g, void* out_b, void* out_l2, void* n_truncated, void* counts,
-    void* stream) {
+    void* phases, int design, void* stream) {
+    if ((counts && phases) || design < kFirst || design > kWide) return -2;
     if (n <= 0) return 0;
     const PathParams p = {(const float*)sf_cam, (const float*)sf_light, n_cam, n_light,
                           spp, sample_base, image_width, image_height, max_bounces, smbs,
                           max_steps, (uint32_t)student_id, min_ray_dist, max_ray_dist, gamma};
     const List l = {(const int*)xs, (const int*)ys, n};
     const Out o = {(float*)out_r, (float*)out_g, (float*)out_b, (float*)out_l2,
-                   (int*)n_truncated, (unsigned long long*)counts};
+                   (int*)n_truncated, (unsigned long long*)(phases ? phases : counts)};
+    const Build build = counts ? kCounting : (phases ? kPhases : kTimed);
     cudaStream_t s = (cudaStream_t)stream;
     if (width == 0) {
         const BinaryWalk w = {(const float4*)nl8, (const float4*)tri_pos, (const float*)inst_f,
@@ -125,7 +165,7 @@ extern "C" int pt_wavefront(
         const UnpackedFetch fe = {(const float4*)tri_pos, (const int*)tri_idx,
                                   (const float*)vattr, (const float*)inst_f,
                                   (const int*)inst_u};
-        return launch(w, fe, p, l, o, s);
+        return launch(w, fe, p, l, o, build, design, s);
     }
     const PackedFetch fe = {(const float*)tri_shade, (const float*)inst_f, (const int*)inst_u};
 #define PT_WF_LAUNCH(S, L, STUB)                                                          \
@@ -134,7 +174,7 @@ extern "C" int pt_wavefront(
                                            (const int*)root_base, (const float4*)tri_pos,   \
                                            (const int*)inst_u, (const int*)sf_tlas_offset,  \
                                            n_tlas},                                         \
-                      fe, p, l, o, s);
+                      fe, p, l, o, build, design, s);
     PT_WF_LAUNCH(8, 4, false)   // w8
     PT_WF_LAUNCH(16, 8, false)  // w16
     PT_WF_LAUNCH(8, 8, true)    // s8
@@ -142,23 +182,24 @@ extern "C" int pt_wavefront(
     return -1;
 }
 
-extern "C" int pt_wavefront_block_size(void) { return kBlock; }
+extern "C" int pt_wavefront_block_size(int design) {
+    return design == kFirst ? kBlock : kWideBlock;
+}
 
 extern "C" int pt_wavefront_count_slots(void) { return kNCounts; }
 
-// Blocks of the (timed) kernel for this row width (0: the binary walk) one
-// SM holds at once (negative: the CUDA error), or 0 for a width no layout has.
-extern "C" int pt_wavefront_occupancy(int width) {
-    if (width == 0)
-        return resident_blocks_per_sm(wavefront<BinaryWalk, UnpackedFetch, false>, kBlock);
+extern "C" int pt_wavefront_phase_slots(void) { return kNPhases; }
+
+// Blocks of the timed kernel for this row width (0: the binary walk) in
+// `design` one SM holds at once (negative: the CUDA error), or 0 for a
+// width no layout has.
+extern "C" int pt_wavefront_occupancy(int width, int design) {
+    if (width == 0) return occupancy<BinaryWalk, UnpackedFetch>(design);
     if (width == Layout<8, 4, false>::kWidth)
-        return resident_blocks_per_sm(wavefront<WideWalk<8, 4, false>, PackedFetch, false>,
-                                      kBlock);
+        return occupancy<WideWalk<8, 4, false>, PackedFetch>(design);
     if (width == Layout<16, 8, false>::kWidth)
-        return resident_blocks_per_sm(wavefront<WideWalk<16, 8, false>, PackedFetch, false>,
-                                      kBlock);
+        return occupancy<WideWalk<16, 8, false>, PackedFetch>(design);
     if (width == Layout<8, 8, true>::kWidth)
-        return resident_blocks_per_sm(wavefront<WideWalk<8, 8, true>, PackedFetch, false>,
-                                      kBlock);
+        return occupancy<WideWalk<8, 8, true>, PackedFetch>(design);
     return 0;
 }

@@ -11,6 +11,13 @@ plain version. ``megakernel_record_cuda`` runs the kernel's record build (K6:
 the same paths, plus each work item's hit topology for the fast gradients),
 which ``path_trace_megakernel(record=True)`` dispatches to.
 
+Two designs of the kernel give the same bytes (csrc/megakernel.cu), one
+thread per slot each: the first, 128 threads a block, and the wide block,
+512 threads, one block an SM, its 16 warps on 512 adjacent slots. The
+wrapper takes the design of ``DESIGN_BY_WIDTH`` for the scene's layout (the
+wide block on every mega-table, from the card's measurements), and the
+record build the same.
+
 There is no second path to give way to: a build or launch failure, or a
 tensor the kernel does not take, raises.
 
@@ -50,12 +57,15 @@ LIBRARY = KernelLibrary(
     symbols={
         "pt_megakernel": (
             [_p, _i] + [_p] * 6 + [_p, _i] * 3 + [_p] + [_i] * 9 + [_f] * 3 + [_i]
-            + [_p] * 12,
+            + [_p] * 7                  # r, g, b, l2, n_truncated, counts, phases
+            + [_i]                      # design
+            + [_p] * 6,                 # the five record planes, stream
             _i,
         ),
-        "pt_megakernel_block_size": ([], _i),
+        "pt_megakernel_block_size": ([_i], _i),
         "pt_megakernel_count_slots": ([], _i),
-        "pt_megakernel_occupancy": ([_i], _i),
+        "pt_megakernel_phase_slots": ([], _i),
+        "pt_megakernel_occupancy": ([_i, _i], _i),
     },
 )
 
@@ -71,6 +81,15 @@ COUNT_NAMES = (
     "samples", "node_rows", "leaf_rows", "inst_rows", "slab_tests", "tri_tests",
     "rays", "shade_hits", "shade_misses", "atmo_marches", "nee_evals",
     "nee_marches", "bsdf_samples",
+)
+
+# What the phase-cycle builds of the path kernels time, in the kernels' order
+# (csrc/path.cuh, PhaseClock): camera and RNG draws, the closest walks, the
+# shadow walks, the shading fetch, the atmosphere marches, nee_prepare and
+# nee_finish, sample_bsdf, and the rest of the path's code.
+PHASE_NAMES = (
+    "camera_rng", "closest_walk", "shadow_walk", "shade_fetch", "atmosphere",
+    "nee", "sample_bsdf", "other",
 )
 
 INT32_MAX = (1 << 31) - 1
@@ -127,9 +146,29 @@ def reset_launches() -> None:
     record_launches = 0
 
 
-def block_size() -> int:
-    """Threads per block of the built kernel."""
-    return int(LIBRARY.load().pt_megakernel_block_size())
+# The path kernels' designs, by their code in the kernels (csrc/path.cuh):
+# the first (128 threads a block) and the wide block (512 threads, one block
+# an SM).
+DESIGNS = ("first", "wide")
+# The design the path kernels (K2, K5, K6) take for each node table, by its
+# row width (f32 per row: 0 is nl8, 48 / 88 / 40 the w8 / w16 / s8
+# mega-tables). On the card (PERF.md) the wide block is faster on every
+# mega-table and slower on nl8.
+DESIGN_BY_WIDTH = {0: "first", 48: "wide", 88: "wide", 40: "wide"}
+
+
+def design_code(width: int, design: str | None) -> int:
+    """A path kernel's design code: the table's (``DESIGN_BY_WIDTH``) for
+    None, else ``design``'s, "first" or "wide" (chip_smoke.py times both)."""
+    name = DESIGN_BY_WIDTH[width] if design is None else design
+    if name not in DESIGNS:
+        raise ValueError(f"design={design!r}: None or one of {DESIGNS}")
+    return DESIGNS.index(name)
+
+
+def block_size(design: str = "first") -> int:
+    """Threads per block of the built kernel in ``design``."""
+    return int(LIBRARY.load().pt_megakernel_block_size(DESIGNS.index(design)))
 
 
 def check_scene(scene, device):
@@ -185,6 +224,8 @@ def megakernel_cuda(
     pixel_order=None,
     max_steps: int | None = None,
     counts: bool = False,
+    phases: bool = False,
+    _design: str | None = None,
 ):
     """Per-pixel radiance sums over samples [sample_base, sample_base + spp)
     of pixels pixel_base + [0, n_pixels) by the hand-written kernel.
@@ -192,10 +233,15 @@ def megakernel_cuda(
 
     ``pixel_order``: None, or an int32 CUDA tensor holding a permutation of
     [0, n_pixels): slot i then renders pixel pixel_base + pixel_order[i] (the
-    output stays indexed by pixel). ``counts=True`` runs the counting build
-    instead and also returns its counters (int64, COUNT_NAMES' order).
-    ``max_steps``: row visits per ray before a sample is abandoned (None:
-    ``step_cap(scene)``).
+    output stays indexed by pixel). ``max_steps``: row visits per ray before
+    a sample is abandoned (None: ``step_cap(scene)``).
+
+    Instruments (chip_smoke.py): ``counts=True`` runs the counting build
+    instead and also returns its counters (int64, COUNT_NAMES' order);
+    ``phases=True`` the phase-cycle build, and returns its cycles per phase
+    (int64, PHASE_NAMES' order) in that place. ``_design``: None (the
+    layout's design, DESIGN_BY_WIDTH), or "first" or "wide" to time one
+    design against the other; the counting build always runs the first.
 
     Returns (r, g, b, l2, n_truncated, counts): (n_pixels,) f32 sums, the
     luminance-squared sums or None, a one-element int32 tensor of abandoned
@@ -206,7 +252,7 @@ def megakernel_cuda(
     """
     r, g, b, l2, n_trunc, cnt, _ = _launch(
         config, scene, n_pixels, spp, sample_base, pixel_base, with_stats, pixel_order,
-        max_steps, counts, False)
+        max_steps, counts, phases, _design, False)
     return r, g, b, l2, n_trunc, cnt
 
 
@@ -218,33 +264,38 @@ def megakernel_record_cuda(
     sample_base: int = 0,
     pixel_base: int = 0,
     max_steps: int | None = None,
+    _design: str | None = None,
 ):
     """The record build (K6): the kernel's paths and sums, bit for bit, and
     each work item's hit topology. Slot i renders pixel pixel_base + i.
+    ``_design`` as ``megakernel_cuda``'s.
 
     Returns (r, g, b, n_truncated, RecordPlanes). Launches on PyTorch's
     current stream and does not synchronise; raises as ``megakernel_cuda``
     does, and for more than 2**31 - 1 records."""
     r, g, b, _, n_trunc, _, planes = _launch(
         config, scene, n_pixels, spp, sample_base, pixel_base, False, None, max_steps,
-        False, True)
+        False, False, _design, True)
     return r, g, b, n_trunc, planes
 
 
 def _launch(config, scene, n_pixels, spp, sample_base, pixel_base, with_stats,
-            pixel_order, max_steps, counts, record):
+            pixel_order, max_steps, counts, phases, design, record):
     global launches, record_launches
     device = scene.nl8.device
     if device.type != "cuda":
         raise ValueError(f"megakernel_cuda needs CUDA tensors, got {device}")
-    check_scene(scene, device)
+    lay = check_scene(scene, device)
     if n_pixels < 0 or spp < 0:
         raise ValueError(f"n_pixels={n_pixels}, spp={spp}: both must be >= 0")
+    if counts and phases:
+        raise ValueError("counts and phases are two builds: ask for one")
     if pixel_order is not None:
         _check("pixel_order", pixel_order, torch.int32, (n_pixels,), device)
     steps = step_cap(scene) if max_steps is None else int(max_steps)
     if steps <= 0:
         raise ValueError(f"max_steps={steps}: must be > 0")
+    code = 0 if counts else design_code(lay.w_row, design)
 
     f32 = torch.float32
     out = lambda: torch.empty(n_pixels, dtype=f32, device=device)
@@ -252,12 +303,17 @@ def _launch(config, scene, n_pixels, spp, sample_base, pixel_base, with_stats,
     l2 = out() if with_stats else None
     n_trunc = torch.zeros(1, dtype=torch.int32, device=device)
     lib = LIBRARY.load()
-    cnt = None
+    cnt = ph = None
     if counts:
         cnt = torch.zeros(lib.pt_megakernel_count_slots(), dtype=torch.int64, device=device)
         if cnt.numel() != len(COUNT_NAMES):
             raise RuntimeError(f"kernel counts {cnt.numel()} slots, COUNT_NAMES "
                                f"names {len(COUNT_NAMES)}")
+    if phases:
+        ph = torch.zeros(lib.pt_megakernel_phase_slots(), dtype=torch.int64, device=device)
+        if ph.numel() != len(PHASE_NAMES):
+            raise RuntimeError(f"kernel times {ph.numel()} phases, PHASE_NAMES "
+                               f"names {len(PHASE_NAMES)}")
     planes = None
     if record:
         # zeroed: the kernel writes only the rows a path reaches
@@ -285,7 +341,8 @@ def _launch(config, scene, n_pixels, spp, sample_base, pixel_base, with_stats,
             config.samples_per_motion_blur_step, _int32("student_id", config.student_id),
             c32(config.min_ray_dist), c32(config.max_ray_dist),
             c32(config.path_space_regularization_gamma), _int32("max_steps", steps),
-            ptr(r), ptr(g), ptr(b), ptr(l2), ptr(n_trunc), ptr(cnt), *map(ptr, rec),
+            ptr(r), ptr(g), ptr(b), ptr(l2), ptr(n_trunc), ptr(cnt), ptr(ph), code,
+            *map(ptr, rec),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -295,4 +352,4 @@ def _launch(config, scene, n_pixels, spp, sample_base, pixel_base, with_stats,
             record_launches += 1
         else:
             launches += 1
-    return r, g, b, l2, n_trunc, cnt, planes
+    return r, g, b, l2, n_trunc, ph if phases else cnt, planes

@@ -10,6 +10,12 @@ fetch). It is the counterpart of the JAX package's ``path_trace_wavefront``
 ``ops/wavefront.path_trace_wavefront`` dispatches to it for CUDA tensors, and
 ``ops/wavefront.path_trace_wavefront_plain`` is its plain version.
 
+Two designs of the kernel give the same bytes (csrc/wavefront.cu), one
+thread per entry each: the first, 128 threads a block, and the wide block,
+512 threads, one block an SM. The wrapper takes the design of
+``cuda_megakernel.DESIGN_BY_WIDTH`` for the scene's tables: the first
+design on the binary tables, the wide block on the mega-tables.
+
 There is no second path to give way to: a build or launch failure, or a
 tensor the kernel does not take, raises.
 
@@ -49,16 +55,18 @@ ARGTYPES = (
     + [_p, _p] + [_i] * 8       # xs, ys; n, spp, sample_base, width, height,
                                 # max_bounces, smbs, student_id
     + [_f] * 3 + [_i]           # min/max ray dist, gamma; max_steps
-    + [_p] * 7                  # r, g, b, l2, n_truncated, counts, stream
+    + [_p] * 7                  # r, g, b, l2, n_truncated, counts, phases
+    + [_i, _p]                  # design, stream
 )
 LIBRARY = KernelLibrary(
     SOURCE,
     headers=HEADERS,
     symbols={
         "pt_wavefront": (ARGTYPES, _i),
-        "pt_wavefront_block_size": ([], _i),
+        "pt_wavefront_block_size": ([_i], _i),
         "pt_wavefront_count_slots": ([], _i),
-        "pt_wavefront_occupancy": ([_i], _i),
+        "pt_wavefront_phase_slots": ([], _i),
+        "pt_wavefront_occupancy": ([_i, _i], _i),
     },
 )
 
@@ -72,9 +80,9 @@ def reset_launches() -> None:
     launches = 0
 
 
-def block_size() -> int:
-    """Threads per block of the built kernel."""
-    return int(LIBRARY.load().pt_wavefront_block_size())
+def block_size(design: str = "first") -> int:
+    """Threads per block of the built kernel in ``design``."""
+    return int(LIBRARY.load().pt_wavefront_block_size(CM.DESIGNS.index(design)))
 
 
 def check_scene(scene, device) -> int:
@@ -114,8 +122,9 @@ def check_scene(scene, device) -> int:
 
 
 def kernel_args(config, scene, width, xs, ys, spp, sample_base, max_steps, r, g, b, l2,
-                n_trunc, counts, stream):
-    """pt_wavefront's arguments, in ARGTYPES' order (tensors as pointers)."""
+                n_trunc, counts, stream, phases=None, design=0):
+    """pt_wavefront's arguments, in ARGTYPES' order (tensors as pointers);
+    ``design``: its code (``CM.design_code``)."""
     ptr = lambda t: None if t is None else t.data_ptr()
     wide = width != 0
     wide_only = lambda t: ptr(t) if wide else None
@@ -135,7 +144,8 @@ def kernel_args(config, scene, width, xs, ys, spp, sample_base, max_steps, r, g,
         i32("student_id", config.student_id), c32(config.min_ray_dist),
         c32(config.max_ray_dist), c32(config.path_space_regularization_gamma),
         i32("max_steps", max_steps),
-        ptr(r), ptr(g), ptr(b), ptr(l2), ptr(n_trunc), ptr(counts), stream,
+        ptr(r), ptr(g), ptr(b), ptr(l2), ptr(n_trunc), ptr(counts), ptr(phases),
+        design, stream,
     )
 
 
@@ -149,13 +159,20 @@ def wavefront_cuda(
     with_stats: bool = False,
     max_steps: int | None = None,
     counts: bool = False,
+    phases: bool = False,
+    _design: str | None = None,
 ):
     """Per-entry radiance sums over samples [sample_base, sample_base + spp)
     of pixels (xs[i], ys[i]) by the hand-written kernel. ``xs``, ``ys``:
     (n,) int32 CUDA tensors on the scene's device. ``max_steps``: row visits
     per ray before a sample is abandoned (None: ``CM.step_cap(scene)``).
-    ``counts=True`` runs the counting build instead and also returns its
-    counters (int64, ``CM.COUNT_NAMES``' order).
+
+    Instruments (chip_smoke.py): ``counts=True`` runs the counting build
+    instead and also returns its counters (int64, ``CM.COUNT_NAMES``' order);
+    ``phases=True`` the phase-cycle build, and returns its cycles per phase
+    (int64, ``CM.PHASE_NAMES``' order) in that place. ``_design``: None (the
+    tables' design, ``CM.DESIGN_BY_WIDTH``), or "first" or "wide" to time one
+    design against the other; the counting build always runs the first.
 
     Returns (r, g, b, l2, n_truncated, counts): (n,) f32 sums, the
     luminance-squared sums or None, a one-element int32 tensor of abandoned
@@ -174,30 +191,38 @@ def wavefront_cuda(
     _check("ys", ys, torch.int32, (n,), device)
     if spp < 0:
         raise ValueError(f"spp={spp}: must be >= 0")
+    if counts and phases:
+        raise ValueError("counts and phases are two builds: ask for one")
     steps = CM.step_cap(scene) if max_steps is None else int(max_steps)
     if steps <= 0:
         raise ValueError(f"max_steps={steps}: must be > 0")
+    code = 0 if counts else CM.design_code(width, _design)
 
     out = lambda: torch.empty(n, dtype=torch.float32, device=device)
     r, g, b = out(), out(), out()
     l2 = out() if with_stats else None
     n_trunc = torch.zeros(1, dtype=torch.int32, device=device)
     lib = LIBRARY.load()
-    cnt = None
+    cnt = ph = None
     if counts:
         cnt = torch.zeros(lib.pt_wavefront_count_slots(), dtype=torch.int64, device=device)
         if cnt.numel() != len(CM.COUNT_NAMES):
             raise RuntimeError(f"kernel counts {cnt.numel()} slots, COUNT_NAMES "
                                f"names {len(CM.COUNT_NAMES)}")
+    if phases:
+        ph = torch.zeros(lib.pt_wavefront_phase_slots(), dtype=torch.int64, device=device)
+        if ph.numel() != len(CM.PHASE_NAMES):
+            raise RuntimeError(f"kernel times {ph.numel()} phases, PHASE_NAMES "
+                               f"names {len(CM.PHASE_NAMES)}")
     # The launch is asynchronous; PyTorch's allocator hands a freed block out
     # again only in the order of the stream it was used on, and this is it.
     with torch.cuda.device(device):
         err = lib.pt_wavefront(*kernel_args(
             config, scene, width, xs, ys, spp, sample_base, steps, r, g, b, l2, n_trunc,
-            cnt, torch.cuda.current_stream().cuda_stream,
+            cnt, torch.cuda.current_stream().cuda_stream, phases=ph, design=code,
         ))
     if err != 0:
         raise RuntimeError(f"wavefront launch refused: cudaError {err}")
     if n > 0:
         launches += 1
-    return r, g, b, l2, n_trunc, cnt
+    return r, g, b, l2, n_trunc, ph if phases else cnt
