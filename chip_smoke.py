@@ -17,7 +17,8 @@ spp chunk); the row-gather probe (``gather_rows`` kernel); and the gradient
 path, ``diff/render.make_fast_grad_frame_fn`` on that frame at 1 spp: the
 megakernel's record build (``megakernel_record`` kernel, K6) records the
 hit topology, and autograd through the scan's replay runs the gathers'
-backward kernels (``small_table_grad`` K7a, ``vattr_grad3`` K7b). Every
+backward kernels (``small_table_grad`` K7a for the subframe tables,
+``row_grad`` K7b for the vertex, instance and triangle tables). Every
 kernel is held against its plain PyTorch version and, where there is one,
 against the C++ oracle's goldens on the way.
 Phases, one JSON object per line:
@@ -103,16 +104,21 @@ Phases, one JSON object per line:
                     launched; two launches byte-equal; with_stats,
                     pixel_order and area lights raise
   grad_kernel_check the gathers' backward kernels (K7a small_table_grad, K7b
-                    vattr_grad3) vs their plain versions (index_add_ in
-                    double) on the inputs of one all-fields replay chunk of
-                    the 1080p frame (the chunk with the most primary
-                    triangle hits; each K7b input labelled by its shade) and
-                    on seeded random inputs of 2,073,600 lanes with heavy
-                    duplication (rtol 1e-5, atol 1e-6 max|ref|); two
-                    launches byte-equal; times beside the plain versions,
-                    index_add_ in float (and K7a's one-hot matmul), bound by
-                    bytes; K7b timed on the shade with the fewest all-zero
-                    cotangent rows, which must be fewer than all
+                    row_grad), each in both designs (K7a first / grid, K7b
+                    first / counting), vs their plain versions (index_add_
+                    in double) on the inputs of one all-fields replay chunk
+                    of the 1080p frame (the chunk with the most primary
+                    triangle hits; each K7b input labelled by its shade and
+                    table: vattr (R, 3) x 12, inst_f (R,) x 21, tri_pos (R,)
+                    x 12) and on seeded random inputs of 2,073,600 lanes
+                    with heavy duplication (rtol 1e-5, atol 1e-6 max|ref|);
+                    two launches byte-equal; times of both designs in turns
+                    beside the plain versions, index_add_ in float (and
+                    K7a's one-hot matmul), bound by bytes, and each
+                    design's split (host enqueue time; device time per
+                    kernel from torch.profiler); K7b timed on the shade
+                    with the fewest all-zero vattr cotangent rows, which
+                    must be fewer than all, on its three tables
   grad_slow_check   render_value_and_grad vs make_fast_grad_fn on 4,096 lanes
                     of the 640x360 frame, binary and w8, at
                     tests/test_diff_fast.py's bar; P1 / K1 launch counts
@@ -122,7 +128,9 @@ Phases, one JSON object per line:
                     fall; launches of K6, K7a, K7b (and none of P1, K1, K2,
                     K5); peak memory; a warm step; the step by its pieces
                     (K6 record, replay without autograd, the loss's
-                    cotangent, replays under autograd, backwards)
+                    cotangent, replays under autograd, backwards); one
+                    replay chunk under torch.profiler, whose backward must
+                    run no indexing_backward kernel
   record_timing     one K6 launch at that shape, timed in turns with K2's;
                     the plain version's time, and its records and sums
                     against K6's of that shape (every plane equal, sums
@@ -160,6 +168,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity
+from torch.profiler import profile as torch_profile
 
 from pathtracing_tpu_torch.accel.wide import (
     LAYOUT_S8,
@@ -1734,32 +1744,41 @@ def phase_record_check(wide_scenes, motion_wide):
     return max(r["max_abs_err_vs_plain"] for r in results)
 
 
+# K7b's tables by (index columns, table columns): every shade gathers each once
+ROW_TABLES = {(3, 12): "vattr", (1, 21): "inst_f", (1, 12): "tri_pos"}
+# a table past what K7b sorts in one pass (12,288 rows): two passes of 8 bits
+BIG_TABLE_ROWS = 49_289
+
+
 def capture_gather_grads(cfg, scene, records, xs, ys, si, part):
-    """The (idx, g) and (ti3, g) the backward kernels receive in one
+    """The (idx, g) and (index, g) the backward kernels receive in one
     all-fields replay of the items ``part`` (a slice): the wrappers are
     wrapped to keep a copy of their inputs, and call through. Each K7b input
-    is labelled by its shade, 0 the primary and b the shade of bounce b, from
-    the forward's order of the vattr gathers: the backward gets the very
-    index tensor the forward saved."""
-    seen = {"small": [], "vattr": []}
-    orig_s, orig_v = CG.small_table_grad_cuda, CG.vattr_grad3_cuda
-    orig_gather = integrator.vattr_gather3
-    shade_of = {}  # data_ptr of a forward's ti3 -> its shade
+    is labelled by its shade (0 the primary, b the shade of bounce b) and
+    table, from the forward's order of the row gathers (one of each table a
+    shade): the backward gets the very index tensor the forward saved."""
+    seen = {"small": [], "row": []}
+    orig_s, orig_r = CG.small_table_grad_cuda, CG.row_grad_cuda
+    orig_gather = integrator.row_gather
+    label = {}  # data_ptr of a forward's index -> (shade, table)
+    gathers = []
 
-    def spy_gather(vattr, ti3):
-        shade_of[ti3.data_ptr()] = len(shade_of)
-        return orig_gather(vattr, ti3)
+    def spy_gather(table, index):
+        tab = ROW_TABLES[(1 if index.dim() == 1 else index.shape[1], table.shape[1])]
+        gathers.append(tab)
+        label[index.data_ptr()] = (gathers.count(tab) - 1, tab)
+        return orig_gather(table, index)
 
     def spy_s(idx, g, rows):
         seen["small"].append((idx.clone(), g.clone(), rows))
         return orig_s(idx, g, rows)
 
-    def spy_v(ti3, g, rows):
-        seen["vattr"].append((shade_of[ti3.data_ptr()], ti3.clone(), g.clone(), rows))
-        return orig_v(ti3, g, rows)
+    def spy_r(index, g, rows):
+        seen["row"].append((*label[index.data_ptr()], index.clone(), g.clone(), rows))
+        return orig_r(index, g, rows)
 
-    CG.small_table_grad_cuda, CG.vattr_grad3_cuda = spy_s, spy_v
-    integrator.vattr_gather3 = spy_gather
+    CG.small_table_grad_cuda, CG.row_grad_cuda = spy_s, spy_r
+    integrator.row_gather = spy_gather
     try:
         recs = ({k: v[part] for k, v in records[0].items()},
                 {k: v[:, part] for k, v in records[1].items()})
@@ -1767,10 +1786,12 @@ def capture_gather_grads(cfg, scene, records, xs, ys, si, part):
                               DIFFERENTIABLE_FIELDS)
         torch.cuda.synchronize()
     finally:
-        CG.small_table_grad_cuda, CG.vattr_grad3_cuda = orig_s, orig_v
-        integrator.vattr_gather3 = orig_gather
-    require(sorted(s for s, *_ in seen["vattr"]) == list(range(len(shade_of))),
-            f"K7b inputs of shades {[s for s, *_ in seen['vattr']]} of {len(shade_of)}")
+        CG.small_table_grad_cuda, CG.row_grad_cuda = orig_s, orig_r
+        integrator.row_gather = orig_gather
+    shades = 1 + cfg.max_bounces
+    got = sorted((sh, tab) for sh, tab, *_ in seen["row"])
+    require(got == sorted((sh, tab) for sh in range(shades) for tab in ROW_TABLES.values()),
+            f"K7b inputs {got}, expected each table of {shades} shades")
     return seen
 
 
@@ -1786,24 +1807,66 @@ def grad_compare(tag, got, ref) -> float:
 
 
 def zero_row_share(g) -> float:
-    """The share of a K7b input's 12-float cotangent rows that are all zero
-    (the kernel skips exact zeros)."""
+    """The share of a K7b input's cotangent rows (one per index entry) that
+    are all zero (the kernel skips exact zeros)."""
     return float((g.reshape(-1, g.shape[-1]) == 0).all(-1).float().mean())
 
 
+def kernel_split(fn, reps=5) -> dict:
+    """Where one call of ``fn`` spends its time: the host's enqueue time
+    (host clock around the call, no synchronise; median of ``reps``) and the
+    device time of each kernel it launches (torch.profiler over ``reps``
+    calls, each after an L2 flush by a kernel of its own name, which is left
+    out; mean per call)."""
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    fn()
+    host = []
+    for _ in range(reps):
+        flush.bitwise_not_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    dev = {}
+    for name, ms in device_kernels(prof):
+        if "bitwise_not" not in name:
+            dev[name[:72]] = dev.get(name[:72], 0.0) + ms / reps
+    require(dev, "the profiler recorded no device time")
+    return {"host_ms": float(np.median(host)), "host_ms_all": host,
+            "device_ms": sum(dev.values()), "device_ms_by_kernel": dev}
+
+
+def device_kernels(prof) -> list:
+    """(name, ms) of each device kernel (and memset / copy) of a profile."""
+    return [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3)
+            for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0.0) > 0
+            and "cuda" in str(getattr(e, "device_type", "")).lower()]
+
+
 def phase_grad_kernel_check(cfg, scene, smi):
-    """K7a and K7b against their plain versions (index_add_ in double) on the frame's
-    real inputs, captured from one all-fields replay chunk of the 1080p frame
-    (the shape the main path gives them; of the main path's chunks, the one
-    whose primary rays hit the most triangles), and on seeded random inputs
-    of the whole frame's 2,073,600 lanes with heavy duplication; two
-    launches byte-equal; times (L2 flushed, median of 5) beside the plain
-    versions, the one PyTorch call (index_add_ in float) and, for K7a, the
-    one-hot matmul of the JAX package's rule; the bound by bytes. K7b is
-    timed on the captured shade with the fewest all-zero cotangent rows: a
-    lane's row of a shade is non-zero only where that shade's ray hit a
-    triangle (a miss lane reads triangle 0's rows, and the shading takes
-    its values from the sun instead)."""
+    """K7a and K7b against their plain versions (index_add_ in double) on
+    the frame's real inputs, captured from one all-fields replay chunk of
+    the 1080p frame (the shape the main path gives them; of the main path's
+    chunks, the one whose primary rays hit the most triangles: sf_cam and
+    sf_light for K7a, each shade's vattr, inst_f and tri_pos for K7b), and on
+    seeded random inputs of the whole frame's 2,073,600 lanes with heavy
+    duplication, into tables sorted in one pass and in two; two launches
+    byte-equal. Then each timed (L2 flushed, median of 5) beside its plain
+    version, the one PyTorch call (index_add_ in float) and, for K7a, the
+    one-hot matmul of the JAX package's rule; the bound by bytes; and its
+    split (kernel_split). K7b is timed on the three tables of the captured
+    shade with the fewest all-zero vattr cotangent rows (a lane's row of a
+    shade is non-zero only where that shade's ray hit a triangle: a miss
+    lane reads row 0, and the shading takes its values from the sun
+    instead), and on that tri_pos input into a table of BIG_TABLE_ROWS rows,
+    which the sort takes in two passes."""
     n = cfg.image_width * cfg.image_height
     items = n * GRAD_SPP
     xs, ys, si = frame_items(cfg, n, GRAD_SPP, 0, torch.device("cuda"))
@@ -1815,12 +1878,12 @@ def phase_grad_kernel_check(cfg, scene, smi):
              "bounce_hits": records[1]["hit"][:, a:b].sum(1).tolist()} for a, b in spans]
     pick = max(range(len(spans)), key=lambda i: hits[i]["primary_hits"])
     seen = capture_gather_grads(cfg, scene, records, xs, ys, si, slice(*spans[pick]))
-    require(len(seen["small"]) == 2 and len(seen["vattr"]) == 1 + cfg.max_bounces,
-            f"captured {len(seen['small'])} K7a and {len(seen['vattr'])} K7b inputs")
-    shades = {sh: {"zero_row_share": zero_row_share(g),
-                   "hit_lanes": int(hits[pick]["primary_hits"] if sh == 0
-                                    else hits[pick]["bounce_hits"][sh - 1])}
-              for sh, _, g, _ in seen["vattr"]}
+    require(len(seen["small"]) == 2, f"captured {len(seen['small'])} K7a inputs")
+    shades = {}
+    for sh, tab, _, g, _ in seen["row"]:
+        shades.setdefault(sh, {"hit_lanes": int(hits[pick]["primary_hits"] if sh == 0
+                                                else hits[pick]["bounce_hits"][sh - 1])})
+        shades[sh][f"{tab}_zero_row_share"] = zero_row_share(g)
     gen = torch.Generator(device="cuda").manual_seed(7)
     R = n
     # 80 % of the lanes on 3 hot rows, the rest spread over the table
@@ -1828,78 +1891,96 @@ def phase_grad_kernel_check(cfg, scene, smi):
         torch.rand(shape, device="cuda", generator=gen) < 0.8,
         torch.randint(0, 3, shape, device="cuda", generator=gen),
         torch.randint(0, hi, shape, device="cuda", generator=gen)).to(torch.int32)
+
+    def cot(shape):  # half the lanes zero, as miss lanes
+        g = torch.randn(shape, device="cuda", generator=gen)
+        g[torch.rand(shape[0], device="cuda", generator=gen) < 0.5] = 0.0
+        return g
+
     S = 32  # the golden subframe tables' rows at the TESTING preset (1 here)
-    V = scene.vattr.shape[0]
-    g3 = torch.randn((R, 3, 12), device="cuda", generator=gen)
-    g3[torch.rand(R, device="cuda", generator=gen) < 0.5] = 0.0
     small_cases = [(f"frame sf_{'cam' if g.shape[1] == 18 else 'light'}", idx, g, rows)
                    for idx, g, rows in seen["small"]]
-    small_cases.append(("random 2073600x18", hot((R,), S),
-                        torch.randn((R, 18), device="cuda", generator=gen), S))
-    vattr_cases = [(f"frame shade {sh}", t, g, rows) for sh, t, g, rows in seen["vattr"]]
-    vattr_cases.append(("random 2073600x3x12", hot((R, 3), V), g3, V))
-    errs = {"small_table_grad": [], "vattr_grad3": []}
-    for tag, idx, g, rows in small_cases:
-        a = CG.small_table_grad_cuda(idx, g, rows)
-        b = CG.small_table_grad_cuda(idx, g, rows)
-        torch.cuda.synchronize()
-        require(torch.equal(a, b), f"K7a {tag}: two launches differ")
-        errs["small_table_grad"].append(
-            grad_compare(f"K7a {tag}", a, integrator.small_table_grad_plain(idx, g, rows)))
-    for tag, t3, g, rows in vattr_cases:
-        a = CG.vattr_grad3_cuda(t3, g, rows)
-        b = CG.vattr_grad3_cuda(t3, g, rows)
-        torch.cuda.synchronize()
-        require(torch.equal(a, b), f"K7b {tag}: two launches differ")
-        errs["vattr_grad3"].append(
-            grad_compare(f"K7b {tag}", a, integrator.vattr_grad3_plain(t3, g, rows)))
+    small_cases += [("random 2073600x18", hot((R,), S),
+                     torch.randn((R, 18), device="cuda", generator=gen), S),
+                    ("random 2073600x7", hot((R,), S),
+                     torch.randn((R, 7), device="cuda", generator=gen), S)]
+    row_cases = [(f"frame shade {sh} {tab}", i, g, rows) for sh, tab, i, g, rows in seen["row"]]
+    V, T, I = (getattr(scene, k).shape[0] for k in ("vattr", "tri_pos", "inst_f"))
+    # the timed shade's tri_pos transpose into a table of BIG rows: the same
+    # sums, sorted in two passes over digits instead of one
+    timed_shade = min(shades, key=lambda sh: shades[sh]["vattr_zero_row_share"])
+    require(shades[timed_shade]["vattr_zero_row_share"] < 1.0,
+            f"every captured vattr cotangent is all zero: {shades}")
+    timed = {tab: (i, gg, r) for sh, tab, i, gg, r in seen["row"] if sh == timed_shade}
+    timed["tri_pos_two_pass"] = (*timed["tri_pos"][:2], BIG_TABLE_ROWS)
+    row_cases += [(f"frame shade {timed_shade} tri_pos, {BIG_TABLE_ROWS} rows",
+                   *timed["tri_pos_two_pass"]),
+                  ("random 2073600x3x12", hot((R, 3), V), cot((R, 3, 12)), V),
+                  ("random 2073600x21", hot((R,), I), cot((R, 21)), I),
+                  ("random 2073600x12", hot((R,), T), cot((R, 12)), T),
+                  ("random 2073600x12 V=12288", hot((R,), 12288), cot((R, 12)), 12288),
+                  ("random 2073600x12 V=12289", hot((R,), 12289), cot((R, 12)), 12289),
+                  (f"random 2073600x12 V={BIG_TABLE_ROWS}", hot((R,), BIG_TABLE_ROWS),
+                   cot((R, 12)), BIG_TABLE_ROWS)]
+    lib = CG.LIBRARY.load()
+    passes = {tag: lib.pt_row_grad_passes(rows) for tag, _, _, rows in row_cases}
+    require(all(p == (1 if rows <= 12288 else 2) for (_, _, _, rows), p in
+                zip(row_cases, passes.values())), f"K7b passes {passes}")
+    errs = {"small_table_grad": [], "row_grad": []}
+    for kernel, fn, plain, cases in (
+            ("small_table_grad", CG.small_table_grad_cuda, integrator.small_table_grad_plain,
+             small_cases),
+            ("row_grad", CG.row_grad_cuda, integrator.row_grad_plain, row_cases)):
+        for tag, idx, g, rows in cases:
+            ref = plain(idx, g, rows)
+            a = fn(idx, g, rows)
+            b = fn(idx, g, rows)
+            torch.cuda.synchronize()
+            require(torch.equal(a, b), f"{kernel} {tag}: two launches differ")
+            errs[kernel].append(grad_compare(f"{kernel} {tag}", a, ref))
     # timing at the main path's shape: the chunk's sf_cam input, and the
-    # shade whose cotangent has the fewest all-zero rows
+    # three tables of the shade whose vattr cotangent has the fewest
+    # all-zero rows (tri_pos also into the big table)
     idx, g, rows = seen["small"][0] if seen["small"][0][1].shape[1] == 18 else seen["small"][1]
-    timed_shade, t3, gv, vrows = min(seen["vattr"], key=lambda c: shades[c[0]]["zero_row_share"])
-    require(shades[timed_shade]["zero_row_share"] < 1.0,
-            f"every captured K7b cotangent is all zero: {shades}")
     # the one PyTorch call for each: index_add_ in float (and for K7a the
     # JAX rule's one-hot matmul); the plain versions add in double
     onehot = lambda: (idx.long()[:, None] == torch.arange(rows, device="cuda")[None]).float().T @ g
     index_add = lambda i, x, r: torch.zeros((r, x.shape[-1]), device="cuda").index_add_(
         0, i.reshape(-1).long(), x.reshape(-1, x.shape[-1]))
-    t = time_launches({
-        "k7a": lambda: CG.small_table_grad_cuda(idx, g, rows),
-        "k7a_plain": lambda: integrator.small_table_grad_plain(idx, g, rows),
-        "k7a_index_add": lambda: index_add(idx, g, rows),
-        "k7a_onehot_matmul": onehot,
-        "k7b": lambda: CG.vattr_grad3_cuda(t3, gv, vrows),
-        "k7b_plain": lambda: integrator.vattr_grad3_plain(t3, gv, vrows),
-        "k7b_index_add": lambda: index_add(t3, gv, vrows),
-        "k7b_sort": lambda: torch.sort(t3.reshape(-1), stable=True),
-    })
+    fns = {"k7a": functools.partial(CG.small_table_grad_cuda, idx, g, rows),
+           "k7a_plain": lambda: integrator.small_table_grad_plain(idx, g, rows),
+           "k7a_index_add": lambda: index_add(idx, g, rows), "k7a_onehot_matmul": onehot}
+    for tab, (i, gg, r) in timed.items():
+        fns[f"k7b_{tab}"] = functools.partial(CG.row_grad_cuda, i, gg, r)
+        fns[f"k7b_{tab}_plain"] = functools.partial(integrator.row_grad_plain, i, gg, r)
+        fns[f"k7b_{tab}_index_add"] = functools.partial(index_add, i, gg, r)
+    t = time_launches(fns)
+    split = {k: kernel_split(fns[k]) for k in ("k7a", *(f"k7b_{tab}" for tab in timed))}
     res = {}
-    for name, key, rb, out_b, adds in (
-        ("small_table_grad", "k7a", idx.numel() * 4 + g.numel() * 4, rows * g.shape[1] * 4,
-         g.numel()),
-        ("vattr_grad3", "k7b", t3.numel() * 4 + gv.numel() * 4, vrows * gv.shape[2] * 4,
-         gv.numel()),
-    ):
-        b = bound(0, rb + out_b, 0, adds)
-        res[name] = {"ms": t[key][0], "ms_all": t[key][1],
+    for name, key, i, gg, r in (("small_table_grad", "k7a", idx, g, rows),
+                                *((f"row_grad_{tab}", f"k7b_{tab}", *timed[tab])
+                                  for tab in timed)):
+        nbytes = i.numel() * 4 + gg.numel() * 4 + r * gg.shape[-1] * 4
+        b = bound(0, nbytes, 0, gg.numel())
+        res[name] = {"ms": t[key][0], "ms_all": t[key][1], **split[key],
                      "plain_ms": t[key + "_plain"][0], "library_ms": t[key + "_index_add"][0],
-                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                     "bytes": rb + out_b, "max_abs_err": max(errs[name]),
-                     "max_abs_err_by_case": errs[name], "card": smi}
-    res["small_table_grad"].update(shape=f"idx ({idx.numel()},), g {tuple(g.shape)}, "
-                                         f"S = {rows}",
-                                   onehot_matmul_ms=t["k7a_onehot_matmul"][0])
-    res["vattr_grad3"].update(shape=f"ti3 {tuple(t3.shape)}, g {tuple(gv.shape)}, V = {vrows}",
-                              sort_ms=t["k7b_sort"][0], timed_shade=timed_shade,
-                              zero_row_share=shades[timed_shade]["zero_row_share"],
-                              shades=shades)
-    for r in res.values():
-        r.update(chunk=hits[pick]["items"])
-    emit("grad_kernel_check", part="chunks", chunk_triangle_hits=hits, captured_chunk=pick)
+                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "bytes": nbytes,
+                     "shape": f"index {tuple(i.shape)}, g {tuple(gg.shape)}, rows {r}",
+                     "chunk": hits[pick]["items"], "card": smi}
+        if key != "k7a":
+            res[name].update(passes=lib.pt_row_grad_passes(r), timed_shade=timed_shade,
+                             zero_row_share=zero_row_share(gg))
+    res["small_table_grad"].update(onehot_matmul_ms=t["k7a_onehot_matmul"][0])
+    emit("grad_kernel_check", part="chunks", chunk_triangle_hits=hits, captured_chunk=pick,
+         shades=shades)
+    for kernel in errs:
+        emit("grad_kernel_check", kernel=kernel, part="checks", cases=len(errs[kernel]),
+             rtol=GRAD_RTOL, atol_over_max_ref=1e-6, two_launches_byte_equal=True,
+             max_abs_err=max(errs[kernel]), max_abs_err_by_case=errs[kernel],
+             passes_by_case=passes if kernel == "row_grad" else None)
     for name, r in res.items():
-        emit("grad_kernel_check", kernel=name, cases=len(errs[name]),
-             rtol=GRAD_RTOL, atol_over_max_ref=1e-6, two_launches_byte_equal=True, **r)
+        emit("grad_kernel_check", kernel=name, part="timing", **r)
+    res["max_abs_err"] = {k: max(v) for k, v in errs.items()}
     return res
 
 
@@ -1925,7 +2006,7 @@ def phase_grad_slow_check(binary, wide):
             torch.cuda.synchronize()
             counts[path] = {"seconds": time.perf_counter() - t0, "loss": float(loss),
                             "p1": CT.launches, "k1": CW.launches,
-                            "k7a": CG.small_table_launches, "k7b": CG.vattr_launches,
+                            "k7a": CG.small_table_launches, "k7b": CG.row_launches,
                             "grads": grads}
         slow, fast = counts["slow"]["grads"], counts["fast"]["grads"]
         require(abs(counts["fast"]["loss"] - counts["slow"]["loss"])
@@ -2038,6 +2119,43 @@ def split_step(cfg, n, scene):
     return split, loss
 
 
+def profile_replay_chunk(cfg, scene) -> dict:
+    """One all-fields replay chunk of the 1080p frame (the last
+    REPLAY_CHUNK items, the bottom rows, where the geometry is) and its
+    backward under torch.profiler, as trace_sample --grad profiles it: its
+    device time by kernel, the gather transposes' share (K7a stg_*, K7b
+    rowg_*), and no device kernel whose name holds indexing_backward."""
+    n = cfg.image_width * cfg.image_height
+    items = n * GRAD_SPP
+    part = slice(max(0, items - diff_render.REPLAY_CHUNK), items)
+    xs, ys, si = frame_items(cfg, n, GRAD_SPP, 0, torch.device("cuda"))
+    _, (prim, bounce) = path_trace_megakernel(cfg, scene, n, GRAD_SPP, record=True,
+                                              device="cuda")
+    recs = ({k: v[part] for k, v in prim.items()}, {k: v[:, part] for k, v in bounce.items()})
+    run = lambda: replay_value_and_grad(cfg, scene, xs[part], ys[part], si[part], recs, None,
+                                        DIFFERENTIABLE_FIELDS)
+    run()
+    torch.cuda.synchronize()
+    CG.reset_launches()
+    t0 = time.perf_counter()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = sorted(device_kernels(prof), key=lambda r: -r[1])
+    busy = sum(ms for _, ms in dev)
+    index_bwd = [(k[:80], ms) for k, ms in dev if "indexing_backward" in k]
+    k7 = sum(ms for k, ms in dev if "stg_" in k or "rowg_" in k)
+    require(not index_bwd, f"the replay chunk's backward ran {index_bwd}")
+    require(CG.row_launches == 3 * (1 + cfg.max_bounces) and CG.small_table_launches == 2,
+            f"profiled chunk: {CG.small_table_launches} K7a, {CG.row_launches} K7b launches")
+    return {"items": [part.start, part.stop], "profiled_wall_ms": wall_ms,
+            "device_busy_ms": busy, "device_idle_share_profiled": 1.0 - busy / wall_ms,
+            "indexing_backward_ms": 0.0, "gather_grad_kernels_ms": k7,
+            "gather_grad_share_of_busy": k7 / busy,
+            "top_kernels": [{"name": k[:80], "ms": ms} for k, ms in dev[:8]]}
+
+
 def phase_main_path_grad(cfg, scene, smi):
     """The gradient path at full width: make_fast_grad_frame_fn on the
     1920x1080 frame, 5 bounces, GRAD_SPP spp, the w8 golden scene. One step
@@ -2048,10 +2166,14 @@ def phase_main_path_grad(cfg, scene, smi):
     error must fall. The counts are set to 0 just before the first step and
     read just after the last: K6 once a step; K7a twice (sf_cam, sf_light)
     per replay chunk in the all-fields step and once in a sun step; K7b
-    1 + max_bounces times per chunk, only in the all-fields step; no P1, K1,
-    K2 or K5. Then the all-fields step twice more: warm, through the entry
-    point (what each step of a training loop pays; the first step also pays
-    first calls), and by its pieces (split_step)."""
+    3 (1 + max_bounces) times per chunk (vattr, inst_f and tri_pos of each
+    shade), only in the all-fields step; no P1, K1, K2 or K5. Then the
+    all-fields step twice more: warm, through the entry point (what each
+    step of a training loop pays; the first step also pays first calls),
+    and by its pieces (split_step); and one replay chunk under the profiler
+    (profile_replay_chunk), whose backward must run no indexing_backward
+    kernel: every gather of a differentiable table transposes on K7a or
+    K7b."""
     n = cfg.image_width * cfg.image_height
     dev = torch.device("cuda")
     chunks = -(-n * GRAD_SPP // diff_render.REPLAY_CHUNK)
@@ -2073,7 +2195,7 @@ def phase_main_path_grad(cfg, scene, smi):
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     all_counts = {"k6": CM.record_launches, "k7a": CG.small_table_launches,
-                  "k7b": CG.vattr_launches, "p1": CT.launches, "k1": CW.launches,
+                  "k7b": CG.row_launches, "p1": CT.launches, "k1": CW.launches,
                   "k2": CM.launches, "k5": CWF.launches}
     peak = torch.cuda.max_memory_allocated()
     require(bool(torch.isfinite(loss)), f"all-fields loss {float(loss)}")
@@ -2085,7 +2207,7 @@ def phase_main_path_grad(cfg, scene, smi):
         nz = int((g != 0).sum())
         require(nz > 0, f"{k}: all-zero gradient on the full frame")
         stats[k] = {"nonzero": nz, "max_abs": float(g.abs().max())}
-    want = {"k6": 1, "k7a": 2 * chunks, "k7b": (1 + cfg.max_bounces) * chunks,
+    want = {"k6": 1, "k7a": 2 * chunks, "k7b": 3 * (1 + cfg.max_bounces) * chunks,
             "p1": 0, "k1": 0, "k2": 0, "k5": 0}
     require(all_counts == want, f"all-fields step launches {all_counts}, expected {want}")
 
@@ -2111,10 +2233,11 @@ def phase_main_path_grad(cfg, scene, smi):
         losses.append(float(sl))
         errs.append(err(nxt[0, 0:3]))
     total = {"k6": CM.record_launches, "k7a": CG.small_table_launches,
-             "k7b": CG.vattr_launches, "p1": CT.launches, "k1": CW.launches,
+             "k7b": CG.row_launches, "p1": CT.launches, "k1": CW.launches,
              "k2": CM.launches, "k5": CWF.launches}
     want_total = {"k6": 1 + SUN_STEPS, "k7a": 2 * chunks + SUN_STEPS * chunks,
-                  "k7b": (1 + cfg.max_bounces) * chunks, "p1": 0, "k1": 0, "k2": 0, "k5": 0}
+                  "k7b": 3 * (1 + cfg.max_bounces) * chunks, "p1": 0, "k1": 0, "k2": 0,
+                  "k5": 0}
     require(total == want_total, f"main path launches {total}, expected {want_total}")
     require(errs[-1] < errs[0], f"the sun error did not fall: {errs}")
 
@@ -2128,6 +2251,7 @@ def phase_main_path_grad(cfg, scene, smi):
     split, split_loss_s = split_step(cfg, n, scene)
     for name, l in (("warm", loss_warm), ("split", split_loss_s)):
         require(float(l) == float(loss), f"the {name} step's loss {float(l)} != {float(loss)}")
+    profiled = profile_replay_chunk(cfg, scene)
     res = {"width": cfg.image_width, "height": cfg.image_height, "bounces": cfg.max_bounces,
            "spp": GRAD_SPP, "items": n * GRAD_SPP, "replay_chunk": diff_render.REPLAY_CHUNK,
            "chunks": chunks, "loss": float(loss), "grad_stats": stats,
@@ -2137,9 +2261,18 @@ def phase_main_path_grad(cfg, scene, smi):
                                                             if k != "step"),
            "peak_memory_allocated_bytes": int(peak), "sun_lr": SUN_LR,
            "sun_perturb": SUN_PERTURB.tolist(), "sun_error_deg": errs, "sun_losses": losses,
-           "sun_step_seconds": secs, "launches": total, "card": smi}
+           "sun_step_seconds": secs, "launches": total, "profiled_chunk": profiled,
+           "card": smi}
     emit("main_path_grad", **res)
     return res
+
+
+def grad_kernel_entry(r) -> dict:
+    """A gather transpose's numbers for the kernels line: its time, plain,
+    bound and library times, and its split."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "host_ms",
+            "device_ms", "device_ms_by_kernel")
+    return {k: r[k] for k in keys}
 
 
 def design_summary(kernel, designs, split) -> dict:
@@ -2396,31 +2529,26 @@ def main() -> int:
             "source": str(CG.SOURCE.relative_to(ROOT)),
             "replaces": "pathtracing_tpu/ops/integrator.py:55",
             "launches": grad["launches"]["k7a"],
-            "max_abs_err": grad_k["small_table_grad"]["max_abs_err"],
-            "ms": grad_k["small_table_grad"]["ms"],
-            "plain_ms": grad_k["small_table_grad"]["plain_ms"],  # index_add_ in double
-            "bound_ms": grad_k["small_table_grad"]["bound_ms"],
-            "bound_by": grad_k["small_table_grad"]["bound_by"],
-            "library_ms": grad_k["small_table_grad"]["library_ms"],
+            "max_abs_err": grad_k["max_abs_err"]["small_table_grad"],
+            **grad_kernel_entry(grad_k["small_table_grad"]),
             "onehot_matmul_ms": grad_k["small_table_grad"]["onehot_matmul_ms"],
-            "shape": grad_k["small_table_grad"]["shape"],
             **regs("gather_grad"),
             "card": smi,
         },
         {
-            "name": "vattr_grad3",
+            "name": "row_grad",
             "route": "cuda",
             "source": str(CG.SOURCE.relative_to(ROOT)),
             "replaces": "pathtracing_tpu/ops/integrator.py:132",
             "launches": grad["launches"]["k7b"],
-            "max_abs_err": grad_k["vattr_grad3"]["max_abs_err"],
-            "ms": grad_k["vattr_grad3"]["ms"],  # the wrapper: sort (glue) + the kernel
-            "plain_ms": grad_k["vattr_grad3"]["plain_ms"],
-            "bound_ms": grad_k["vattr_grad3"]["bound_ms"],
-            "bound_by": grad_k["vattr_grad3"]["bound_by"],
-            "library_ms": grad_k["vattr_grad3"]["library_ms"],
-            "sort_ms": grad_k["vattr_grad3"]["sort_ms"],
-            "shape": grad_k["vattr_grad3"]["shape"],
+            "max_abs_err": grad_k["max_abs_err"]["row_grad"],
+            # the vattr transpose of the timed shade; its inst_f and
+            # tri_pos transposes beside, and tri_pos into a table sorted in
+            # two passes
+            **grad_kernel_entry(grad_k["row_grad_vattr"]),
+            **{tab: {**grad_kernel_entry(grad_k[f"row_grad_{tab}"]),
+                     "passes": grad_k[f"row_grad_{tab}"]["passes"]}
+               for tab in ("inst_f", "tri_pos", "tri_pos_two_pass")},
             **regs("gather_grad"),
             "card": smi,
         },

@@ -12,9 +12,10 @@ lights, vertices, poses and camera at fixed visibility. Silhouette
 (visibility) gradients are out of scope.
 
 Differentiable tables of ``SceneDevice`` (``DIFFERENTIABLE_FIELDS``):
-  vattr   per-vertex normals, albedo, materials (its transpose: K7b)
+  vattr   per-vertex normals, albedo, materials
   tri_pos triangle vertex positions (shading and the hit re-derivation)
   inst_f  instance transforms
+          (the transposes of these three tables' gathers: K7b)
   sf_cam / sf_light  per-subframe camera and sun rows (their transpose: K7a)
 
 Each entry point returns ``(loss, grads)``: the loss as a 0-d tensor and a
@@ -29,8 +30,8 @@ bounce's hit topology (the scan's ``path_trace_samples(record=True)``, or
 the megakernel's record build K6 for a frame), then autograd through a
 replay of the same radiance computation in which every ray query is a
 record lookup. The replay and its backward are eager tensor code, as they
-are XLA autodiff of plain ``jnp`` code in JAX; the two gathers with custom
-transposes run their backward kernels (K7a, K7b) on the card.
+are XLA autodiff of plain ``jnp`` code in JAX; the gathers of the
+differentiable tables run their backward kernels (K7a, K7b) on the card.
 """
 
 from __future__ import annotations

@@ -1,14 +1,20 @@
-"""The backward kernels of the integrator's two custom-VJP gathers (K7):
+"""The backward kernels of the integrator's custom-VJP gathers (K7):
 binding and wrappers.
 
-``small_table_grad_cuda`` (K7a) and ``vattr_grad3_cuda`` (K7b) compute the
-transposes of ``table[idx]`` and ``vattr[ti3]`` with the hand-written kernels
-in ``csrc/gather_grad.cu`` (see the note at the top of that file for the
-designs: block partials in row order for the tiny subframe tables; a stable
-sort and one sum per run of equal indices for the vertex table). They are
-what ``ops/integrator.SmallTableGather`` / ``VattrGather3`` run backward for
-CUDA tensors; ``ops/integrator.small_table_grad_plain`` /
-``vattr_grad3_plain`` are their plain versions, for CPU tensors.
+``small_table_grad_cuda`` (K7a) and ``row_grad_cuda`` (K7b) compute the
+transposes of ``table[idx]`` for the tiny subframe tables and of
+``table[index]`` for an index of shape (R,) or (R, 3) into any table with at
+most 32 columns (``vattr``, ``inst_f``, ``tri_pos``), with the hand-written
+kernels in ``csrc/gather_grad.cu`` (see the note at the top of that file for
+the designs). They are what ``ops/integrator.SmallTableGather`` /
+``RowGather`` run backward for CUDA tensors;
+``ops/integrator.small_table_grad_plain`` / ``row_grad_plain`` are their
+plain versions, for CPU tensors.
+
+K7a sums a block's stretch of rows with every thread and folds the blocks'
+partials in the same launch; K7b sorts the indices stably by counting (in
+one pass for a table of at most 12,288 rows, in passes over digits past
+that) and sums each run of equal indices.
 
 Both are deterministic: two calls give the same bytes. Both add in double
 and round once to float, as the plain versions do. There is no second
@@ -28,31 +34,34 @@ from pathtracing_tpu_torch.ops.cuda_build import CSRC, KernelLibrary, check_tens
 
 SOURCE = CSRC / "gather_grad.cu"
 
-_p, _i = ctypes.c_void_p, ctypes.c_int
+_p, _i, _q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_qp = ctypes.POINTER(ctypes.c_longlong)
 LIBRARY = KernelLibrary(
     SOURCE,
     symbols={
+        "pt_small_table_grad_work": ([_i, _i, _i], _q),
         "pt_small_table_grad": ([_p, _p, _i, _i, _i, _i, _p, _p, _p], _i),
-        "pt_vattr_grad3": ([_p, _p, _p, _i, _i, _i, _p, _p, _p, _p], _i),
-        "pt_vattr_grad3_chunk": ([], _i),
+        "pt_row_grad_passes": ([_i], _i),
+        "pt_row_grad_work": ([_i, _i, _i, _qp, _qp], None),
+        "pt_row_grad": ([_p, _p, _i, _i, _i, _p, _p, _p, _p], _i),
     },
 )
 
 # Rows one block of K7a sums, and the most blocks: the count depends on R
 # alone, so the order of every sum, and so the bytes, do too.
-ROWS_PER_BLOCK = 2048
+ROWS_PER_BLOCK = 512
 MAX_BLOCKS = 1024
 
 # Launches of each kernel since the last reset (one per wrapper call that
 # launches): incremented where the kernel is launched and nowhere else.
 small_table_launches = 0
-vattr_launches = 0
+row_launches = 0
 
 
 def reset_launches() -> None:
-    global small_table_launches, vattr_launches
+    global small_table_launches, row_launches
     small_table_launches = 0
-    vattr_launches = 0
+    row_launches = 0
 
 
 def _stream(device) -> int:
@@ -79,57 +88,58 @@ def small_table_grad_cuda(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> to
     _check("idx", idx, torch.int32, (R,), device)
     if n_rows <= 0:
         raise ValueError(f"n_rows={n_rows}: must be > 0")
-    out = torch.zeros((n_rows, C), dtype=torch.float32, device=device)
     if R == 0 or C == 0:
-        return out
+        return torch.zeros((n_rows, C), dtype=torch.float32, device=device)
     blocks = small_table_blocks(R)
-    partial = torch.empty((blocks, n_rows * C), dtype=torch.float64, device=device)
     lib = LIBRARY.load()
+    out = torch.empty((n_rows, C), dtype=torch.float32, device=device)
+    work = torch.empty(lib.pt_small_table_grad_work(blocks, n_rows, C), dtype=torch.float64,
+                       device=device)
     with torch.cuda.device(device):
         err = lib.pt_small_table_grad(g.data_ptr(), idx.data_ptr(), R, n_rows, C, blocks,
-                                      partial.data_ptr(), out.data_ptr(), _stream(device))
+                                      work.data_ptr(), out.data_ptr(), _stream(device))
     if err != 0:
         raise RuntimeError(f"small_table_grad launch refused: {err}")
     small_table_launches += 1
     return out
 
 
-def vattr_grad3_cuda(ti3: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """K7b: ``out[v, :] = sum of g.flat[j, :] over j with ti3.flat[j] ==
-    v``, (n_rows, C) float32, for int32 ``ti3`` (R, 3) and float32 ``g`` (R,
-    3, C), contiguous CUDA tensors, C <= 32. The indices are sorted stably on
-    the card first (``torch.sort``, glue); an index outside [0, n_rows) adds
-    nowhere."""
-    global vattr_launches
-    if g.dim() != 3 or g.shape[1] != 3:
-        raise ValueError(f"g: shape {tuple(g.shape)}, expected (R, 3, C)")
-    if g.shape[2] > 32:
-        raise ValueError(f"g: {g.shape[2]} columns, the kernel takes at most 32")
+def row_grad_cuda(index: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """K7b: ``out[v, :] = sum of g.flat[j, :] over j with index.flat[j] ==
+    v``, (n_rows, C) float32, for an int32 ``index`` of shape (R,) or (R, 3)
+    and a float32 ``g`` of shape index.shape + (C,), contiguous CUDA
+    tensors, C <= 32. An index outside [0, n_rows) adds nowhere."""
+    global row_launches
+    if index.dim() not in (1, 2) or (index.dim() == 2 and index.shape[1] != 3):
+        raise ValueError(f"index: shape {tuple(index.shape)}, expected (R,) or (R, 3)")
+    if g.dim() != index.dim() + 1:
+        raise ValueError(f"g: shape {tuple(g.shape)}, expected index.shape + (C,) = "
+                         f"{tuple(index.shape)} + (C,)")
+    C = g.shape[-1]
+    if C > 32:
+        raise ValueError(f"g: {C} columns, the kernel takes at most 32")
     device = g.device
     if device.type != "cuda":
-        raise ValueError(f"vattr_grad3_cuda needs CUDA tensors, got {device}")
-    R, _, C = g.shape
-    _check("g", g, torch.float32, (R, 3, C), device)
-    _check("ti3", ti3, torch.int32, (R, 3), device)
+        raise ValueError(f"row_grad_cuda needs CUDA tensors, got {device}")
+    _check("g", g, torch.float32, (*index.shape, C), device)
+    _check("index", index, torch.int32, None, device)
     if n_rows <= 0:
         raise ValueError(f"n_rows={n_rows}: must be > 0")
-    out = torch.zeros((n_rows, C), dtype=torch.float32, device=device)
-    N = 3 * R
+    N = index.numel()
     if N == 0 or C == 0:
-        return out
-    if N >= 1 << 31:
-        raise ValueError(f"{N} rows do not fit in int32")
-    keys, perm = torch.sort(ti3.reshape(-1), stable=True)
-    perm = perm.to(torch.int32)
+        return torch.zeros((n_rows, C), dtype=torch.float32, device=device)
+    if N >= 1 << 31 or n_rows >= 1 << 31:
+        raise ValueError(f"{N} entries or {n_rows} rows do not fit in int32")
     lib = LIBRARY.load()
-    chunks = -(-N // lib.pt_vattr_grad3_chunk())
-    head = torch.empty((chunks, C), dtype=torch.float64, device=device)
-    tail = torch.empty((chunks, C), dtype=torch.float64, device=device)
+    ints, doubles = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.pt_row_grad_work(N, C, n_rows, ctypes.byref(ints), ctypes.byref(doubles))
+    out = torch.empty((n_rows, C), dtype=torch.float32, device=device)
+    wi = torch.empty(ints.value, dtype=torch.int32, device=device)
+    wd = torch.empty(doubles.value, dtype=torch.float64, device=device)
     with torch.cuda.device(device):
-        err = lib.pt_vattr_grad3(keys.data_ptr(), perm.data_ptr(), g.data_ptr(), N, C,
-                                 n_rows, head.data_ptr(), tail.data_ptr(), out.data_ptr(),
-                                 _stream(device))
+        err = lib.pt_row_grad(index.data_ptr(), g.data_ptr(), N, C, n_rows, wi.data_ptr(),
+                              wd.data_ptr(), out.data_ptr(), _stream(device))
     if err != 0:
-        raise RuntimeError(f"vattr_grad3 launch refused: {err}")
-    vattr_launches += 1
+        raise RuntimeError(f"row_grad launch refused: {err}")
+    row_launches += 1
     return out

@@ -19,9 +19,10 @@ masked at every accumulation, never cleaned, and never used as an index.
 
 Gradients (diff/render.py) run PyTorch's autograd through this code; the
 ray queries stay outside the graph. ``record=`` / ``replay=`` are the fast
-gradients' two passes, and the two gathers whose transposes the JAX package
-writes by hand (``small_table_gather``, ``vattr_gather3``) are autograd
-Functions whose backward is a kernel on the card (K7a, K7b).
+gradients' two passes, and the gathers of differentiable tables are autograd
+Functions whose backward is a kernel on the card: ``small_table_gather``
+(K7a), whose transpose the JAX package writes by hand, and ``row_gather``
+(K7b), for the vertex, instance and triangle tables.
 """
 
 from __future__ import annotations
@@ -83,14 +84,15 @@ def small_table_grad_plain(idx: Array, g: Array, n_rows: int) -> Array:
     return out.index_add_(0, idx.long(), g.double()).to(g.dtype)
 
 
-def vattr_grad3_plain(ti3: Array, g: Array, n_rows: int) -> Array:
-    """The transpose of ``vattr[ti3]`` (R, 3, C) for a table of ``n_rows``
-    rows: one scatter-add of the 3R cotangent rows (the JAX package's
-    ``_vg3_bwd``), in double as ``small_table_grad_plain``. The plain
+def row_grad_plain(index: Array, g: Array, n_rows: int) -> Array:
+    """The transpose of ``table[index]`` for a table of ``n_rows`` rows and
+    an index of shape (R,) or (R, 3): one scatter-add of the index's
+    cotangent rows (the JAX package's ``_vg3_bwd``; XLA's transpose of a
+    plain gather), in double as ``small_table_grad_plain``. The plain
     version of the K7b kernel."""
     out = torch.zeros((n_rows, g.shape[-1]), dtype=torch.float64, device=g.device)
     flat = g.reshape(-1, g.shape[-1]).double()
-    return out.index_add_(0, ti3.reshape(-1).long(), flat).to(g.dtype)
+    return out.index_add_(0, index.reshape(-1).long(), flat).to(g.dtype)
 
 
 class SmallTableGather(torch.autograd.Function):
@@ -119,31 +121,35 @@ class SmallTableGather(torch.autograd.Function):
         return small_table_grad_plain(idx, g, ctx.n_rows), None
 
 
-class VattrGather3(torch.autograd.Function):
-    """``vattr[ti3]`` (R, 3, 12): the three vertex rows of each lane's
-    triangle in one gather, so that the transpose is one sum of 3R rows
-    (the JAX package's ``_vattr_gather3``). Miss lanes all read the rows of
-    triangle 0, so a few rows receive most addends (zeros). The backward is
-    the K7b kernel for CUDA tensors (ops/cuda_gather_grad.py: a stable sort
-    of the indices, then each run of equal indices summed in order;
-    deterministic, no float atomics) and ``vattr_grad3_plain`` for CPU
-    tensors. ``ti3`` gets no gradient."""
+class RowGather(torch.autograd.Function):
+    """``table[index]`` for an index of shape (R,) or (R, 3) into a table of
+    at most 32 columns: ``vattr[ti3]`` (R, 3, 12), the three vertex rows of
+    each lane's triangle in one gather so that the transpose is one sum of
+    3R rows (the JAX package's ``_vattr_gather3``), and shade_hit's
+    ``inst_f[iidx]`` (R, 21) and ``tri_pos[tri_row]`` (R, 12), whose
+    transposes XLA derives. Miss lanes all read row 0 (or the rows of
+    triangle 0), so a few rows receive most addends (zeros), and PyTorch's
+    index backward would add each such run serially. The backward is the
+    K7b kernel for CUDA tensors (ops/cuda_gather_grad.py: a stable sort of
+    the indices, then each run of equal indices summed in order;
+    deterministic, no float atomics) and ``row_grad_plain`` for CPU
+    tensors. The index gets no gradient."""
 
     @staticmethod
-    def forward(ctx, vattr, ti3):
-        ctx.save_for_backward(ti3)
-        ctx.n_rows = vattr.shape[0]
-        return vattr[ti3]
+    def forward(ctx, table, index):
+        ctx.save_for_backward(index)
+        ctx.n_rows = table.shape[0]
+        return table[index]
 
     @staticmethod
     def backward(ctx, g):
-        (ti3,) = ctx.saved_tensors
+        (index,) = ctx.saved_tensors
         g = g.contiguous()
         if g.is_cuda:
-            from pathtracing_tpu_torch.ops.cuda_gather_grad import vattr_grad3_cuda
+            from pathtracing_tpu_torch.ops.cuda_gather_grad import row_grad_cuda
 
-            return vattr_grad3_cuda(ti3, g, ctx.n_rows), None
-        return vattr_grad3_plain(ti3, g, ctx.n_rows), None
+            return row_grad_cuda(index, g, ctx.n_rows), None
+        return row_grad_plain(index, g, ctx.n_rows), None
 
 
 def small_table_gather(table: Array, idx: Array) -> Array:
@@ -151,9 +157,9 @@ def small_table_gather(table: Array, idx: Array) -> Array:
     return SmallTableGather.apply(table, idx)
 
 
-def vattr_gather3(vattr: Array, ti3: Array) -> Array:
-    """``vattr[ti3]`` with the transpose of ``VattrGather3``."""
-    return VattrGather3.apply(vattr, ti3)
+def row_gather(table: Array, index: Array) -> Array:
+    """``table[index]`` with the transpose of ``RowGather``."""
+    return RowGather.apply(table, index)
 
 
 def light_from_table(sf_light: Array, idx: Array) -> LightParams:
@@ -226,9 +232,11 @@ def shade_hit(
     # miss lanes carry inst -1: every index is guarded to row 0
     iidx = torch.where(miss, 0, hit.inst)
     ui = scene.inst_u[iidx]
-    fi = scene.inst_f[iidx]
+    fi = row_gather(scene.inst_f, iidx)  # (R, 21)
     tri_row = ui[:, 4] + torch.where(miss, 0, hit.prim)
     if packed:
+        # tri_shade is not a differentiable field (diff/render.py), so its
+        # gather has no transpose to route
         ts_row = scene.tri_shade[tri_row]  # (R, 48)
         a0 = ts_row[:, 0:11]
         a1 = ts_row[:, 11:22]
@@ -237,11 +245,11 @@ def shade_hit(
     else:
         ti = scene.tri_idx[tri_row]  # (R, 4) absolute vertex ids
         # one (R, 3) gather: its transpose is one sum of 3R rows
-        a012 = vattr_gather3(scene.vattr, ti[:, 0:3].contiguous())  # (R, 3, 12)
+        a012 = row_gather(scene.vattr, ti[:, 0:3].contiguous())  # (R, 3, 12)
         a0 = a012[:, 0]
         a1 = a012[:, 1]
         a2 = a012[:, 2]
-        tp = scene.tri_pos[tri_row]  # (R, 12)
+        tp = row_gather(scene.tri_pos, tri_row)  # (R, 12)
 
     # (u, v, t) re-derived at fixed topology from the hit ids, with the
     # same formulas as the ray query's own triangle test

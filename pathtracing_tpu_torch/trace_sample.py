@@ -25,7 +25,9 @@ the megakernel's record build (K6) records the 1080p frame once, outside
 the profile, and the profiled step is the autograd replay of the frame's
 last ``--lanes`` items (default ``REPLAY_CHUNK``, the bottom rows, where the
 geometry is) and its backward. The wide tables are implied. The output then
-also gives the share of the gathers' backward kernels (K7a, K7b).
+also gives the share of the gathers' backward kernels (K7a ``stg_*``, K7b
+``rowg_*``) and of PyTorch's index backward (``indexing_backward*``, the
+transpose of a plain gather; none is left on the gradient path).
 
 CUDA only; it raises without a card.
 """
@@ -126,7 +128,8 @@ def main() -> None:
             "the two runs do not belong together or the trace is wrong"
         )
     rq_ms = sum(r[2] for r in device if "ray_query_kernel" in r[0])
-    k7_ms = sum(r[2] for r in device if "stg_" in r[0] or "vg3_" in r[0])
+    k7_ms = sum(r[2] for r in device if "stg_" in r[0] or "rowg_" in r[0])
+    ib_ms = sum(r[2] for r in device if "indexing_backward" in r[0])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -144,6 +147,8 @@ def main() -> None:
         "ray_query_share_of_busy": rq_ms / busy_ms,
         "gather_grad_kernels_ms": k7_ms,
         "gather_grad_share_of_busy": k7_ms / busy_ms,
+        "indexing_backward_ms": ib_ms,
+        "indexing_backward_share_of_busy": ib_ms / busy_ms,
         "top_kernels": [
             {"name": k[:80], "count": c, "ms": ms} for k, c, ms in device[:12]
         ],
