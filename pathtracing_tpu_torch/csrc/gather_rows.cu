@@ -1,32 +1,29 @@
-// Row gather by asynchronous copies: out[i, :] = table[idx[i], :].
+// Row gather: out[i, :] = table[idx[i], :].
 //
 // Replaces the JAX package's TPU probe kernel tools/gather_probe.py::
 // pallas_gather (per-row asynchronous copies from a device-memory table, `k`
 // in flight).  Same function, same parameter: `k` row copies in flight per
-// issuing unit.  On the TPU the issuing unit was the one core walking all R
-// rows in order; here it is a warp walking its own contiguous span of rows,
-// and many warps run side by side.
+// issuing warp.
 //
-// What bounds it on an H100: bytes.  There is no arithmetic; every row is
-// read once and written once, and the reads are random 16-byte-aligned rows
-// of W*4 bytes.  What the design does about it:
-//   * A row is moved as 16-byte pieces by `cp.async.cg` (global -> shared,
-//     past L1, no register staging): lane c of the warp owns pieces c, c+32,
-//     ... of every row of its warp, so one 512-byte row is one piece per
-//     lane and the write back to `out` is one coalesced 512-byte store.
-//   * Each warp keeps a ring of `k` row buffers in shared memory and one
-//     cp.async group per row: row i is issued into slot i % k, then the warp
-//     waits until at most k-1 groups are pending — that retires row i-(k-1),
-//     which each lane copies from its own pieces of the slot to `out`.  A
-//     lane reads back only what it copied itself, so the ring needs no
-//     barrier: completion of a thread's own cp.async group is all it waits
-//     on.
-//   * `k` is a run-time argument (1..32); `cp.async.wait_group` takes an
-//     immediate, so the wait is a switch over the 32 immediates.
-//   * Shared memory is k * W * 4 bytes per warp, four warps per block; above
-//     48 KB the launch opts in to the larger dynamic limit.
-// This uses cp.async and not cuda::memcpy_async: the ring's depth is the
-// probe's parameter, and the PTX form states it exactly.
+// What bounds it on an H100: bytes.  There is no arithmetic; every touched
+// row must be read once and every output row written once.  The designs
+// (timed in turns; one is kept):
+//   first  each warp walks its own contiguous span of positions in arrival
+//          order, a ring of `k` rows in shared memory, a row moved as 16-byte
+//          `cp.async.cg` pieces (lane c: pieces c, c+32, ...) and copied back
+//          through registers.
+//   a0     the same mover, but warps claim chunks of 32 positions (a static
+//          first chunk, then one global atomic cursor), so no fixed span
+//          and no tail wave; the output stored with an L2 evict-first hint.
+//   a      a0 over the positions in bucket order: a counting pass groups
+//          the positions by idx >> shift, a slice of 2^shift table rows
+//          sized to a share of the L2, so the slice being read stays
+//          resident and a row repeated in the batch is read from device
+//          memory about once.
+//   b      a0's order, rows moved by the Tensor Memory Accelerator: one lane
+//          issues a bulk copy of the whole row into its ring slot (completion
+//          on an mbarrier a slot) and a bulk store back to `out`.
+//   ab     b over a's bucket order.
 //
 // Indices must lie in [0, N): like the kernel it replaces, this one does not
 // check them.
@@ -39,6 +36,13 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kBlock = 32 * kWarps;
 constexpr int kMaxInFlight = 32;
+constexpr int kBarBytes = kWarps * kMaxInFlight * 8;  // mbarriers of design b
+constexpr int kCountBlock = 1024;       // threads of a counting-pass block
+constexpr int kMaxBuckets = 256;
+constexpr long long kSliceBytes = 16LL << 20;
+constexpr unsigned kFull = 0xffffffffu;
+
+enum Design { kFirst = 0, kA0 = 1, kA = 2, kB = 3, kAB = 4 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -63,6 +67,81 @@ template <>
 __device__ __forceinline__ void cp_async_wait_pending<0>(int) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+
+// Wait until at most n (0..kMaxInFlight-1) bulk store groups still read
+// shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read(int n) {
+    if (n >= N) {
+        asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+    } else {
+        bulk_wait_read<N - 1>(n);
+    }
+}
+template <>
+__device__ __forceinline__ void bulk_wait_read<0>(int) {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint64_t evict_first_policy() {
+    uint64_t p;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+    return p;
+}
+
+__device__ __forceinline__ void st_evict_first(uint4* dst, uint4 v, uint64_t pol) {
+    asm volatile("st.global.L2::cache_hint.v4.b32 [%0], {%1, %2, %3, %4}, %5;\n" ::"l"(dst),
+                 "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(pol)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+// Wait for the phase of `parity` to complete.  A row that never lands traps
+// (a launch error) after some 2^24 polls rather than hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+    for (int n = 0;; ++n) {
+        unsigned done;
+        asm volatile(
+            "{\n"
+            ".reg .pred P1;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, P1;\n"
+            "}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+        if (done) return;
+        if (n == (1 << 24)) __trap();
+    }
+}
+
+// One row, global -> shared, completion (its bytes) on `bar`.
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(dst),
+        "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+// One row, shared -> global, evict-first in L2, in the current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, unsigned src, unsigned bytes,
+                                           uint64_t pol) {
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;\n" ::"l"(
+            dst),
+        "r"(src), "r"(bytes), "l"(pol)
+        : "memory");
+}
+
+// ----------------------------------------------------------- first design
 
 __global__ void __launch_bounds__(kBlock) gather_rows_kernel(
     const uint4* __restrict__ table,  // (N, W) f32 as W/4 pieces per row
@@ -101,6 +180,266 @@ __global__ void __launch_bounds__(kBlock) gather_rows_kernel(
     }
 }
 
+// ---------------------------------------------------------- counting pass
+
+__device__ __forceinline__ int warp_sum(int v) {
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+    return v;
+}
+
+// Block b counts the buckets idx >> shift of positions [b * span, ...) into
+// cnt[b][.]; block 0 also zeroes the copy's cursor.
+__global__ void __launch_bounds__(kCountBlock) gather_count(
+    const int* __restrict__ idx, int R, int span, int shift, int B, int* __restrict__ cnt,
+    int* __restrict__ cursor) {
+    __shared__ int hist[kMaxBuckets];
+    const int lane = threadIdx.x & 31;
+    for (int v = threadIdx.x; v < B; v += kCountBlock) hist[v] = 0;
+    if (blockIdx.x == 0 && threadIdx.x == 0) *cursor = 0;
+    __syncthreads();
+    const int j0 = blockIdx.x * span, j1 = min(R, j0 + span);
+    for (int base = j0; base < j1; base += kCountBlock) {
+        const int j = base + threadIdx.x;
+        const int v = j < j1 ? __ldg(idx + j) >> shift : -1;
+        const unsigned peers = __match_any_sync(kFull, v);
+        // integers: any order of the adds gives the count
+        if (v >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[v], __popc(peers));
+    }
+    __syncthreads();
+    for (int v = threadIdx.x; v < B; v += kCountBlock) cnt[(size_t)blockIdx.x * B + v] = hist[v];
+}
+
+// Block b writes its positions into bucket order: bucket v of block b starts
+// at (the entries of buckets below v) + (the entries of bucket v in blocks
+// below b).  The order inside a bucket follows the atomics and is not
+// stable; it changes no byte of the output.
+__global__ void __launch_bounds__(kCountBlock) gather_scatter(
+    const int* __restrict__ idx, int R, int span, int shift, int B, int G,
+    const int* __restrict__ cnt, int* __restrict__ keys, int* __restrict__ pos) {
+    __shared__ int tot[kMaxBuckets], off[kMaxBuckets];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int v = warp; v < B; v += kCountBlock / 32) {
+        int t = 0, pre = 0;
+        for (int g = lane; g < G; g += 32) {
+            const int c = cnt[(size_t)g * B + v];
+            t += c;
+            pre += g < (int)blockIdx.x ? c : 0;
+        }
+        t = warp_sum(t);
+        pre = warp_sum(pre);
+        if (lane == 0) tot[v] = t, off[v] = pre;
+    }
+    __syncthreads();
+    if (warp == 0) {
+        int carry = 0;
+        for (int v0 = 0; v0 < B; v0 += 32) {
+            const int v = v0 + lane;
+            const int t = v < B ? tot[v] : 0;
+            int incl = t;
+            for (int o = 1; o < 32; o <<= 1) {
+                const int u = __shfl_up_sync(kFull, incl, o);
+                if (lane >= o) incl += u;
+            }
+            if (v < B) off[v] += carry + incl - t;
+            carry += __shfl_sync(kFull, incl, 31);
+        }
+    }
+    __syncthreads();
+    const unsigned below = (1u << lane) - 1u;
+    const int j0 = blockIdx.x * span, j1 = min(R, j0 + span);
+    for (int base = j0; base < j1; base += kCountBlock) {
+        const int j = base + threadIdx.x;
+        const int key = j < j1 ? __ldg(idx + j) : 0;
+        const int v = j < j1 ? key >> shift : -1;
+        const unsigned peers = __match_any_sync(kFull, v);
+        const int leader = __ffs(peers) - 1;
+        int first = 0;
+        if (v >= 0 && lane == leader) first = atomicAdd(&off[v], __popc(peers));
+        first = __shfl_sync(kFull, first, leader);
+        if (v >= 0) {
+            const int p = first + __popc(peers & below);
+            keys[p] = key;
+            pos[p] = j;
+        }
+    }
+}
+
+// ------------------------------------------------------------------ copy
+
+// The copy in list order: entry e of the list is row keys[e] to output row
+// pos[e] (pos == nullptr: e itself).  Warp w takes chunk w of `chunk`
+// entries (k..32), then, where the static chunks do not cover the list,
+// further chunks from `cursor` (one claim ahead).  The entries of a warp form
+// one stream; step i issues its entry i and retires entry i - d, which lies in
+// the current chunk or the one before (d < k <= chunk).
+//
+// kBulk = false: each lane moves its 16-byte pieces (cp.async), d = k - 1.
+// kBulk = true: lane 0 moves whole rows: a bulk copy into slot i % k that
+// completes on that slot's mbarrier, and a bulk store per retired row, one
+// bulk group a step; before slot s takes a new row the store of its last
+// row must have read it, which leaves at most k - 1 - d groups pending.
+template <bool kBulk>
+__global__ void __launch_bounds__(kBlock) gather_copy(
+    const uint4* __restrict__ table, const int* __restrict__ keys,
+    const int* __restrict__ pos, uint4* __restrict__ out, int pieces, int k, int R,
+    int chunk, int* __restrict__ cursor) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nw = gridDim.x * kWarps;
+    int c0 = (blockIdx.x * kWarps + warp) * chunk;
+    if (c0 >= R) return;
+    const bool dynamic = (long long)nw * chunk < R;
+    const int statics = nw * chunk;
+    uint4* slots = reinterpret_cast<uint4*>(smem + (kBulk ? kBarBytes : 0)) +
+                   (size_t)warp * k * pieces;
+    const unsigned slots_s = (unsigned)__cvta_generic_to_shared(slots);
+    const unsigned bars_s =
+        (unsigned)__cvta_generic_to_shared(smem) + warp * kMaxInFlight * 8;
+    const unsigned row_bytes = pieces * 16;
+    const int sd = kBulk ? (k - 1) / 4 : 0;  // store groups left pending
+    const int d = k - 1 - sd;                // retire lag
+    unsigned phase = 0;                      // kBulk: parity bit a slot
+    if (kBulk && lane == 0) {
+        for (int s = 0; s < k; ++s) mbar_init(bars_s + s * 8);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();
+    const uint64_t pol = evict_first_policy();
+
+    int ticket = 0;
+    if (dynamic && lane == 0) ticket = atomicAdd(cursor, chunk);
+    int e = lane < chunk ? c0 + lane : R;
+    int cur_key = e < R ? __ldg(keys + e) : -1;
+    int cur_p = e < R ? (pos ? __ldg(pos + e) : e) : -1;
+    int prev_p = -1;
+    int i = 0;
+    for (;;) {
+        // the next chunk's start, its entries loaded now, used next round
+        int c1 = R;
+        if (c0 < R && dynamic) {
+            c1 = statics + __shfl_sync(kFull, ticket, 0);
+            if (c1 < R && lane == 0) ticket = atomicAdd(cursor, chunk);
+        }
+        e = lane < chunk ? c1 + lane : R;
+        const int nxt_key = e < R ? __ldg(keys + e) : -1;
+        const int nxt_p = e < R ? (pos ? __ldg(pos + e) : e) : -1;
+        const int rows = c0 < R ? chunk : d;  // past the list: drain
+        for (int r = 0; r < rows; ++r, ++i) {
+            const int key = __shfl_sync(kFull, cur_key, r);
+            // the entry retired now, i - d: in this chunk or the one before
+            const int p = __shfl_sync(kFull, r >= d ? cur_p : prev_p,
+                                      r >= d ? r - d : chunk + r - d);
+            if (kBulk) {
+                if (lane == 0) {
+                    if (key >= 0) {
+                        const int s = i % k;
+                        bulk_wait_read<kMaxInFlight - 1>(sd);
+                        bulk_load(slots_s + s * row_bytes, table + (size_t)key * pieces,
+                                  row_bytes, bars_s + s * 8);
+                        phase ^= 1u << s;
+                    }
+                    if (p >= 0) {
+                        const int s = (i - d) % k;
+                        mbar_wait(bars_s + s * 8, ((phase >> s) & 1u) ^ 1u);
+                        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+                        bulk_store(out + (size_t)p * pieces, slots_s + s * row_bytes, row_bytes,
+                                   pol);
+                    }
+                    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+                }
+            } else {
+                if (key >= 0) {
+                    const uint4* src = table + (size_t)key * pieces;
+                    uint4* dst = slots + (size_t)(i % k) * pieces;
+                    for (int c = lane; c < pieces; c += 32) cp_async16(dst + c, src + c);
+                }
+                cp_async_commit();  // one group a step, empty when nothing issued
+                if (p >= 0) {
+                    cp_async_wait_pending<kMaxInFlight - 1>(k - 1);
+                    const uint4* src = slots + (size_t)((i - d) % k) * pieces;
+                    uint4* dst = out + (size_t)p * pieces;
+                    for (int c = lane; c < pieces; c += 32) st_evict_first(dst + c, src[c], pol);
+                }
+            }
+        }
+        if (c0 >= R) break;
+        prev_p = cur_p;
+        cur_key = nxt_key;
+        cur_p = nxt_p;
+        c0 = c1;
+    }
+    if (kBulk && lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------------ plan
+
+struct Plan {
+    int design, pieces, k, R;
+    size_t smem;
+    int blocks;      // of the copy
+    int chunk;       // entries a warp takes at a time
+    bool dynamic;    // the copy claims chunks from the cursor
+    int shift, B, G, span;  // counting pass (B > 1)
+    long long scratch;      // ints: cursor (4), keys (R), pos (R), cnt (G * B)
+};
+
+int device_sms() {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+        return -1;
+    return sms;
+}
+
+// 0, or -1 for a shape the kernel does not take, or a cudaError_t.
+int make_plan(int width, int N, int R, int k, int design, long long budget, Plan* pl) {
+    if (width <= 0 || width % 4 != 0 || k < 1 || k > kMaxInFlight || N <= 0 || R < 0 ||
+        design < kFirst || design > kAB)
+        return -1;
+    const bool bulk = design == kB || design == kAB;
+    Plan p{};
+    p.design = design, p.pieces = width / 4, p.k = k, p.R = R;
+    p.smem = (size_t)kWarps * k * p.pieces * 16 + (bulk ? kBarBytes : 0);
+    p.B = 1;
+    if (design == kA || design == kAB) {
+        const long long row = (long long)width * 4;
+        const long long slice = budget > 0 ? budget : kSliceBytes;
+        int shift = 0;
+        while ((row << (shift + 1)) <= slice && shift < 30) ++shift;
+        while ((((long long)N - 1) >> shift) + 1 > kMaxBuckets) ++shift;
+        p.shift = shift;
+        p.B = (int)((((long long)N - 1) >> shift) + 1);
+    }
+    if (design != kFirst && R > 0) {
+        const int sms = device_sms();
+        if (sms < 0) return (int)cudaErrorInvalidDevice;
+        const void* fn = bulk ? (const void*)gather_copy<true> : (const void*)gather_copy<false>;
+        cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)p.smem);
+        if (e != cudaSuccess) return (int)e;
+        int per_sm = 0;
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kBlock, p.smem);
+        if (e != cudaSuccess) return (int)e;
+        if (per_sm < 1) return -1;
+        // chunks of 32 where the resident warps cannot take the list in one
+        // chunk each; else spread it over them, at least k entries a warp
+        const long long most = (long long)sms * per_sm;
+        const long long per_warp = ((long long)R + most * kWarps - 1) / (most * kWarps);
+        p.chunk = (int)(per_warp > 32 ? 32 : (per_warp < k ? k : per_warp));
+        const long long need = ((long long)R + p.chunk * kWarps - 1) / (p.chunk * kWarps);
+        p.blocks = (int)(need < most ? need : most);
+        p.dynamic = (long long)p.blocks * kWarps * p.chunk < R;
+        if (p.B > 1) {
+            const long long g = ((long long)R + kCountBlock - 1) / kCountBlock;
+            p.G = (int)(g < 2LL * sms ? g : 2LL * sms);
+            p.span = (int)(((long long)R + p.G - 1) / p.G);
+        }
+        p.scratch = (p.dynamic || p.B > 1 ? 4 : 0) + (p.B > 1 ? 2LL * R + (long long)p.G * p.B : 0);
+    }
+    *pl = p;
+    return 0;
+}
+
 }  // namespace
 
 // The limits the wrapper checks its arguments against, so that it need not
@@ -118,33 +457,70 @@ extern "C" int pt_gather_rows_max_shared_bytes() {
     return bytes;
 }
 
+// int32 scratch the launch needs (0: none), or < 0 (as pt_gather_rows).
+extern "C" long long pt_gather_rows_scratch(int width, int N, int R, int k, int design,
+                                            long long budget) {
+    Plan p;
+    const int err = make_plan(width, N, R, k, design, budget, &p);
+    return err ? (err > 0 ? -err : -1) : p.scratch;
+}
+
 // Plain C interface for ctypes.  Launches on `stream`, does not synchronise,
-// allocates nothing.  `width` is f32 per row (a multiple of 4), `k` in
-// 1..32.  Returns the cudaError_t of the launch (0 = accepted), -1 for a bad
-// width or k.
+// allocates nothing (`scratch`: pt_gather_rows_scratch ints).  `width` is f32
+// per row (a multiple of 4), `k` in 1..32.  Returns the cudaError_t of the
+// first refused launch (0 = accepted), -1 for a bad shape or k.
 extern "C" int pt_gather_rows(
-    const void* table, const void* idx, void* out, int width, int R, int k,
-    void* stream) {
-    if (width <= 0 || width % 4 != 0 || k < 1 || k > kMaxInFlight) return -1;
+    const void* table, const void* idx, void* out, int width, int N, int R, int k,
+    int design, long long budget, void* scratch, void* stream) {
+    Plan p;
+    int err = make_plan(width, N, R, k, design, budget, &p);
+    if (err) return err;
     if (R <= 0) return 0;
-    const int pieces = width / 4;
-    // enough warps to fill the card, each with at least two rings' worth of
-    // rows where the batch is that large
-    long long warps = ((long long)R + 2 * k - 1) / (2 * k);
-    const long long most = 132LL * 32;
-    if (warps > most) warps = most;
-    const int rows_per_warp = (int)(((long long)R + warps - 1) / warps);
-    const long long used = ((long long)R + rows_per_warp - 1) / rows_per_warp;
-    const unsigned blocks = (unsigned)((used + kWarps - 1) / kWarps);
-    const size_t smem = (size_t)kWarps * k * pieces * sizeof(uint4);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            gather_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (design == kFirst) {
+        const int pieces = p.pieces;
+        // enough warps to fill the card, each with at least two rings' worth
+        // of rows where the batch is that large
+        long long warps = ((long long)R + 2 * k - 1) / (2 * k);
+        const long long most = 132LL * 32;
+        if (warps > most) warps = most;
+        const int rows_per_warp = (int)(((long long)R + warps - 1) / warps);
+        const long long used = ((long long)R + rows_per_warp - 1) / rows_per_warp;
+        const unsigned blocks = (unsigned)((used + kWarps - 1) / kWarps);
+        if (p.smem > 48 * 1024) {
+            const cudaError_t e = cudaFuncSetAttribute(
+                gather_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)p.smem);
+            if (e != cudaSuccess) return (int)e;
+        }
+        gather_rows_kernel<<<blocks, kBlock, p.smem, s>>>(
+            (const uint4*)table, (const int*)idx, (uint4*)out, pieces, k, rows_per_warp, R);
+        return (int)cudaGetLastError();
+    }
+    if (p.scratch > 0 && scratch == nullptr) return -1;
+    int* cursor = (int*)scratch;
+    const int* keys = (const int*)idx;
+    const int* pos = nullptr;
+    if (p.B > 1) {
+        int* skeys = cursor + 4;
+        int* spos = skeys + R;
+        int* cnt = spos + R;
+        gather_count<<<p.G, kCountBlock, 0, s>>>((const int*)idx, R, p.span, p.shift, p.B,
+                                                  cnt, cursor);
+        if ((err = (int)cudaGetLastError())) return err;
+        gather_scatter<<<p.G, kCountBlock, 0, s>>>((const int*)idx, R, p.span, p.shift, p.B,
+                                                    p.G, cnt, skeys, spos);
+        if ((err = (int)cudaGetLastError())) return err;
+        keys = skeys, pos = spos;
+    } else if (p.dynamic) {
+        const cudaError_t e = cudaMemsetAsync(cursor, 0, sizeof(int), s);
         if (e != cudaSuccess) return (int)e;
     }
-    gather_rows_kernel<<<blocks, kBlock, smem, (cudaStream_t)stream>>>(
-        (const uint4*)table, (const int*)idx, (uint4*)out, pieces, k,
-        rows_per_warp, R);
+    if (design == kB || design == kAB)
+        gather_copy<true><<<p.blocks, kBlock, p.smem, s>>>(
+            (const uint4*)table, keys, pos, (uint4*)out, p.pieces, k, R, p.chunk, cursor);
+    else
+        gather_copy<false><<<p.blocks, kBlock, p.smem, s>>>(
+            (const uint4*)table, keys, pos, (uint4*)out, p.pieces, k, R, p.chunk, cursor);
     return (int)cudaGetLastError();
 }

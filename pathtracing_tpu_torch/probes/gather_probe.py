@@ -46,11 +46,12 @@ from pathtracing_tpu_torch.ops.cuda_build import (
 
 SOURCE = CSRC / "gather_rows.cu"
 
-_p, _i = ctypes.c_void_p, ctypes.c_int
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIBRARY = KernelLibrary(
     SOURCE,
     symbols={
-        "pt_gather_rows": ([_p, _p, _p, _i, _i, _i, _p], _i),
+        "pt_gather_rows": ([_p, _p, _p, _i, _i, _i, _i, _i, _ll, _p, _p], _i),
+        "pt_gather_rows_scratch": ([_i, _i, _i, _i, _i, _ll], _ll),
         "pt_gather_rows_warps": ([], _i),
         "pt_gather_rows_max_in_flight": ([], _i),
         "pt_gather_rows_max_shared_bytes": ([], _i),
@@ -107,7 +108,7 @@ def check_args(table, idx, k, device) -> int:
     k = int(k)
     if not 1 <= k <= MAX_IN_FLIGHT:
         raise ValueError(f"k: {k} copies in flight, expected 1..{MAX_IN_FLIGHT}")
-    ring = WARPS_PER_BLOCK * k * W * 4
+    ring = WARPS_PER_BLOCK * k * W * 4 + WARPS_PER_BLOCK * MAX_IN_FLIGHT * 8
     if ring > MAX_SHARED_BYTES:
         raise ValueError(
             f"k={k} rows of {W * 4} bytes for {WARPS_PER_BLOCK} warps need "
@@ -116,7 +117,11 @@ def check_args(table, idx, k, device) -> int:
     return k
 
 
-def gather_rows_cuda(table, idx, k: int = 16):
+DESIGNS = ("first", "a0", "a", "b", "ab")
+BUCKETED = ("a", "ab")
+
+
+def gather_rows_cuda(table, idx, k: int = 16, _design="first", _budget=None):
     """``(R, W)`` rows ``table[idx]`` on CUDA tensors by the hand-written
     kernel, ``k`` row copies in flight per warp.
 
@@ -146,9 +151,16 @@ def gather_rows_cuda(table, idx, k: int = 16):
                 f"block, shared bytes per block): {built} vs "
                 f"{(MAX_IN_FLIGHT, WARPS_PER_BLOCK, MAX_SHARED_BYTES)}"
             )
+        design = DESIGNS.index(_design)
+        budget = int(_budget or 0)
+        n = lib.pt_gather_rows_scratch(W, table.shape[0], R, k, design, budget)
+        if n < 0:
+            raise RuntimeError(f"gather_rows plan refused: {n}")
+        scratch = torch.empty(n, dtype=torch.int32, device=device) if n else None
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pt_gather_rows(
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), W, R, k, stream
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), W, table.shape[0], R, k,
+            design, budget, scratch.data_ptr() if n else None, stream
         )
     if err != 0:
         raise RuntimeError(f"gather_rows kernel launch refused: cudaError {err}")
