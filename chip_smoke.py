@@ -56,8 +56,15 @@ Phases, one JSON object per line:
                     longest walk beside the path kernels' step cap; w16
                     and s8 on the primary batch, timed beside w8.
   breakdown         one tile x one sample: time inside the kernel vs the rest
-  gather_probe      gather_rows kernel bit-equal to index_select; the probe's
-                    harness times; one gather's time beside index_select's
+  gather_probe      gather_rows kernel bit-equal to index_select on the
+                    probe's four shapes (2 tables x 2 batches) at k = 1, 16,
+                    32 and on three hostile lists (every lane on one row, a
+                    sorted list, one non-empty bucket); the counting pass's
+                    order a permutation of [0, R) in ascending buckets; each
+                    shape's time beside index_select's (L2 flushed, median
+                    of 5), device time split into counting pass and copy,
+                    bound; k = 4, 8, 16, 32 on the large table; the probe's
+                    harness times
   oracle_frame, oracle_frame_wide, oracle_frame_megakernel,
   oracle_frame_wavefront
                     TESTING preset 640x360, spp 8, 4 bounces vs render8.gold:
@@ -971,45 +978,111 @@ def phase_breakdown(cfg, scene, tag):
          ray_query_share=sum(per_query) / wall_ms)
 
 
+def check_bucket_order(tag, table, idx) -> dict:
+    """The counting pass's order: a permutation of [0, R), its rows the
+    batch's, its buckets ascending and each as full as the batch makes it."""
+    n_rows, width = table.shape
+    got = GP.bucket_order_cuda(table, idx)
+    require(got is not None, f"{tag}: no counting pass")
+    rows, pos = (t.long() for t in got)
+    R = idx.numel()
+    require(bool(torch.equal(torch.sort(pos).values, torch.arange(R, device=pos.device))),
+            f"{tag}: positions are not a permutation of [0, R)")
+    require(bool(torch.equal(rows, idx.long()[pos])), f"{tag}: rows differ from idx[pos]")
+    shift = GP.slice_shift(n_rows, width)
+    bucket = rows >> shift
+    require(bool((bucket[1:] >= bucket[:-1]).all()), f"{tag}: buckets out of order")
+    n_buckets = GP.buckets(n_rows, width, R)
+    require(bool(torch.equal(torch.bincount(bucket, minlength=n_buckets),
+                             torch.bincount(idx.long() >> shift, minlength=n_buckets))),
+            f"{tag}: bucket sizes differ")
+    return {"buckets": n_buckets, "non_empty": int((torch.bincount(bucket) > 0).sum())}
+
+
+def gather_shape(table, idx, k=16) -> dict:
+    """One probe shape: the kernel and index_select in turns (L2 flushed,
+    median and all 5), the device time of each (the kernel's by kernel:
+    counting pass and copy), and the bound: rows touched read once, indices
+    read once, rows written once."""
+    (n_rows, width), lanes = table.shape, idx.numel()
+    fns = {"kernel": lambda: GP.gather_rows_cuda(table, idx, k),
+           "index_select": lambda: GP.gather_rows_plain(table, idx)}
+    t = time_launches(fns)
+    split = {name: kernel_split(fn) for name, fn in fns.items()}
+    touched = int(torch.unique(idx).numel())
+    move = touched * width * 4 + lanes * 4 + lanes * width * 4
+    by_kernel = split["kernel"]["device_ms_by_kernel"]
+    bound_ms = move / HBM_BYTES_PER_S * 1e3
+    return {
+        "table": [n_rows, width], "lanes": lanes, "k": k, "rows_touched": touched,
+        "buckets": GP.buckets(n_rows, width, lanes),
+        "ms": t["kernel"][0], "ms_all": t["kernel"][1],
+        "device_ms": split["kernel"]["device_ms"], "host_ms": split["kernel"]["host_ms"],
+        "count_pass_device_ms": sum(v for n, v in by_kernel.items()
+                                    if "gather_count" in n or "gather_scatter" in n),
+        "copy_device_ms": sum(v for n, v in by_kernel.items() if "gather_copy" in n),
+        "device_ms_by_kernel": by_kernel,
+        "index_select_ms": t["index_select"][0], "index_select_ms_all": t["index_select"][1],
+        "index_select_device_ms": split["index_select"]["device_ms"],
+        "bound_ms": bound_ms, "bound_by": "bytes", "bytes_moved": move,
+        "share": bound_ms / t["kernel"][0],
+        "device_share": bound_ms / split["kernel"]["device_ms"],
+    }
+
+
 def phase_gather_probe(smi):
-    """The gather kernel against ``index_select`` (bit-equal), one gather's
-    time beside it, then the probe's own entry point with the count at 0."""
+    """The gather kernel against ``index_select`` (bit-equal) on the probe's
+    four shapes at k = 1, 16, 32 and on three hostile index lists, the
+    counting pass's order, each shape timed beside ``index_select`` with its
+    bound and its split, a sweep of k on the large table, then the probe's
+    own entry point with the count at 0."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
-    checked = []
-    one = None
+    i32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int32)).to(dev)
+    checked, shapes, orders, hostile, sweep = [], [], {}, {}, {}
+
+    def hold(tag, table, idx, ks=(1, 16, 32)):
+        ref = GP.gather_rows_plain(table, idx)
+        for k in ks:
+            got = GP.gather_rows(table, idx, k)
+            torch.cuda.synchronize()
+            require(got.shape == ref.shape and bool(torch.equal(got, ref)),
+                    f"gather_rows k={k} on {tag} differs from index_select")
+
     for n_rows, width in GP.TABLES:
         table = GP.make_table(rng, n_rows, width, dev)
         for lanes in GP.LANES:
-            idx = torch.from_numpy(rng.integers(0, n_rows, lanes).astype(np.int32)).to(dev)
-            ref = GP.gather_rows_plain(table, idx)
-            for k in (1, 16, 32):
-                got = GP.gather_rows(table, idx, k)
-                torch.cuda.synchronize()
-                require(got.shape == ref.shape and bool(torch.equal(got, ref)),
-                        f"gather_rows k={k} on {n_rows}x{width}, {lanes} lanes "
-                        "differs from index_select")
+            tag = f"{n_rows}x{width}, {lanes} lanes"
+            idx = i32(rng.integers(0, n_rows, lanes))
+            hold(tag, table, idx)
             checked.append([n_rows, width, lanes])
+            if GP.buckets(n_rows, width, lanes) > 1:
+                orders[tag] = check_bucket_order(tag, table, idx)
+            shapes.append(gather_shape(table, idx))
         if (n_rows, width) == GP.TABLES[-1]:
-            # the large table at one render tile's lanes: the kernels' line
-            t = time_launches({
-                "kernel": lambda: GP.gather_rows_cuda(table, idx, 16),
-                "index_select": lambda: GP.gather_rows_plain(table, idx),
-            })
-            touched = int(torch.unique(idx).numel())
-            # rows touched read once, indices read once, rows written once
-            move = touched * width * 4 + lanes * 4 + lanes * width * 4
-            one = {
-                "table": [n_rows, width], "lanes": lanes, "k": 16,
-                "rows_touched": touched, "ms": t["kernel"][0], "ms_all": t["kernel"][1],
-                "index_select_ms": t["index_select"][0],
-                "index_select_ms_all": t["index_select"][1],
-                "bound_ms": move / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-                "bytes_moved": move,
+            lanes = GP.LANES[-1]
+            span = 1 << GP.slice_shift(n_rows, width)
+            lists = {
+                "one_row": np.full(lanes, n_rows // 3),
+                "sorted": np.sort(rng.integers(0, n_rows, lanes)),
+                "one_bucket": 5 * span + rng.integers(0, span, lanes),
             }
+            for name, a in lists.items():
+                idx = i32(a)
+                hold(f"{name}, {tag}", table, idx, ks=(16,))
+                hostile[name] = check_bucket_order(name, table, idx)
+            idx = i32(rng.integers(0, n_rows, lanes))
+            t = time_launches({k: (lambda k=k: GP.gather_rows_cuda(table, idx, k))
+                               for k in (4, 8, 16, 32)})
+            sweep = {k: {"ms": v[0], "ms_all": v[1]} for k, v in t.items()}
         del table
     emit("gather_probe", part="check", equal_to_index_select=checked,
-         k=[1, 16, 32], max_abs_err=0.0, single_gather=one)
+         k=[1, 16, 32], max_abs_err=0.0, hostile_lists=hostile, bucket_orders=orders,
+         card=smi)
+    for sh in shapes:
+        emit("gather_probe", part="shape", card=smi, **sh)
+    emit("gather_probe", part="k_sweep", card=smi, table=list(GP.TABLES[-1]),
+         lanes=GP.LANES[-1], ms=sweep)
 
     GP.reset_launches()
     results = GP.main(["--iters", "3"])
@@ -1022,7 +1095,7 @@ def phase_gather_probe(smi):
          results=[{k: r[k] for k in ("table", "lanes", "reps", "k", "harness",
                                      "gather", "ms", "ns_per_row",
                                      "payload_gb_per_s")} for r in results])
-    return launches, one
+    return launches, shapes, sweep
 
 
 def frame_pixels(cfg):
@@ -2331,7 +2404,8 @@ def main() -> int:
     )
     phase_breakdown(prod_cfg, prod_scene, "binary")
     phase_breakdown(prod_cfg, prod_wide, "wide")
-    gather_launches, gather_one = phase_gather_probe(smi)
+    gather_launches, gather_shapes, gather_sweep = phase_gather_probe(smi)
+    gather_one = gather_shapes[-1]  # the large table at one render tile's lanes
     oracle_mean = phase_oracle_frame(scene)
     phase_oracle_frame(wide_scenes[MAIN_LAYOUT], "oracle_frame_wide")
     phase_oracle_frame(wide_scenes[MAIN_LAYOUT], "oracle_frame_megakernel", megakernel=True)
@@ -2438,6 +2512,13 @@ def main() -> int:
             "library_ms": gather_one["index_select_ms"],
             "shape": (f"table {gather_one['table']}, {gather_one['lanes']} rows, "
                       f"k={gather_one['k']}"),
+            "device_ms": gather_one["device_ms"],
+            "count_pass_device_ms": gather_one["count_pass_device_ms"],
+            "shapes": [{k: sh[k] for k in ("table", "lanes", "buckets", "ms", "device_ms",
+                                           "bound_ms", "index_select_ms",
+                                           "index_select_device_ms")}
+                       for sh in gather_shapes],
+            "k_sweep_ms": {k: v["ms"] for k, v in gather_sweep.items()},
             **regs("gather_rows"),
             "card": smi,
         },

@@ -10,12 +10,15 @@ a table that fits the card's L2 cache and for one that does not.
 
 ``gather_rows(table, idx, k)`` is the function under test: ``(R,)`` int32
 indices -> ``(R, W)`` rows of an ``(N, W)`` f32 table. On CUDA tensors it is
-the hand-written kernel ``csrc/gather_rows.cu`` (16-byte asynchronous copies
-into a ``k``-deep ring in shared memory per warp; the replacement of that
-tool's ``pallas_gather``), on CPU tensors its plain version
-``gather_rows_plain`` = ``table.index_select(0, idx)``, which is also the one
-PyTorch call that computes the same function and so the yardstick the kernel
-is timed against.
+the hand-written kernel ``csrc/gather_rows.cu`` (the replacement of that
+tool's ``pallas_gather``): where the table spans several L2-sized slices and
+the batch has at least ``N`` positions, a counting pass puts the positions in
+slice order first (``bucket_order_plain`` is its plain version); then warps
+claim chunks of the list and move each row as 16-byte asynchronous copies
+through a ``k``-deep ring in shared memory. On CPU tensors it is its plain
+version ``gather_rows_plain`` = ``table.index_select(0, idx)``, which is also
+the one PyTorch call that computes the same function and so the yardstick the
+kernel is timed against.
 
 The harnesses keep the JAX tool's names and arithmetic, over any gather
 function:
@@ -50,19 +53,23 @@ _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIBRARY = KernelLibrary(
     SOURCE,
     symbols={
-        "pt_gather_rows": ([_p, _p, _p, _i, _i, _i, _i, _i, _ll, _p, _p], _i),
-        "pt_gather_rows_scratch": ([_i, _i, _i, _i, _i, _ll], _ll),
+        "pt_gather_rows": ([_p, _p, _p, _i, _i, _i, _i, _p, _p], _i),
+        "pt_gather_rows_scratch": ([_i, _i, _i, _i], _ll),
+        "pt_gather_rows_order": ([_p, _i, _i, _i, _i, _p, _p], _i),
         "pt_gather_rows_warps": ([], _i),
         "pt_gather_rows_max_in_flight": ([], _i),
         "pt_gather_rows_max_shared_bytes": ([], _i),
+        "pt_gather_rows_slice_bytes": ([], _ll),
     },
 )
 
 # The kernel's limits, for checking arguments where the library cannot be
-# asked (no card); ``gather_rows_cuda`` holds them against the built library.
+# asked (no card); the first launch holds them against the built library.
 MAX_IN_FLIGHT = 32            # most row copies in flight per warp
 WARPS_PER_BLOCK = 4
 MAX_SHARED_BYTES = 232_448    # what one block may use on an H100
+SLICE_BYTES = 8 << 20         # the table rows one bucket of the counting pass spans
+MAX_BUCKETS = 256
 
 # The two tables of the probe: the golden scene's w8 mega-table (inside L2)
 # and a 235 MB table (beyond the 50 MB L2); two batch sizes: a small one and
@@ -71,9 +78,10 @@ TABLES = ((3680, 48), (458752, 128))
 LANES = (8192, 2_073_600)
 WINDOWS = (4096, 16384, 65536)
 
-# Launches of the kernel since the last reset: incremented where the kernel
-# is launched and nowhere else, so a run can show that it went through it.
+# Launches of the kernel's copy since the last reset: incremented where it is
+# launched and nowhere else, so a run can show that it went through it.
 launches = 0
+_limits_held = False
 
 
 def reset_launches() -> None:
@@ -87,6 +95,42 @@ def gather_rows_plain(table, idx):
     return table.index_select(0, idx)
 
 
+def slice_shift(n_rows: int, width: int, slice_bytes: int = SLICE_BYTES) -> int:
+    """log2 of a slice's rows: the most rows of ``width`` floats that fit
+    ``slice_bytes``, raised until at most ``MAX_BUCKETS`` slices cover the
+    table (the kernel's rule)."""
+    shift = 0
+    while (width * 4 << (shift + 1)) <= slice_bytes and shift < 30:
+        shift += 1
+    while ((n_rows - 1) >> shift) + 1 > MAX_BUCKETS:
+        shift += 1
+    return shift
+
+
+def buckets(n_rows: int, width: int, lanes: int, slice_bytes: int = SLICE_BYTES) -> int:
+    """Slices the kernel's counting pass sorts a batch into; 1 means no pass:
+    the table fits one slice, or the batch is smaller than the table (few
+    rows repeat)."""
+    if lanes < n_rows:
+        return 1
+    return ((n_rows - 1) >> slice_shift(n_rows, width, slice_bytes)) + 1
+
+
+def bucket_order_plain(idx, shift: int):
+    """The plain version of the counting pass: the positions ``i`` grouped by
+    ``idx[i] >> shift``, in ascending bucket. Stable, where the kernel's order
+    inside a bucket is not; no byte of the gather depends on it."""
+    return torch.argsort(idx >> shift, stable=True)
+
+
+def gather_in_order_plain(table, idx, order):
+    """``table[idx]`` computed the kernel's way: the positions of ``order``
+    in turn, each row written at its own position."""
+    out = table.new_empty((idx.shape[0], table.shape[1]))
+    out[order] = table.index_select(0, idx[order])
+    return out
+
+
 def check_args(table, idx, k, device) -> int:
     """Raise unless (table, idx, k) are what the kernel takes, on ``device``;
     returns ``k`` as an int."""
@@ -97,10 +141,12 @@ def check_args(table, idx, k, device) -> int:
     _check("idx", idx, torch.int32, None, device)
     if idx.dim() != 1:
         raise ValueError(f"idx: shape {tuple(idx.shape)}, expected (R,)")
-    if (W * 4) % 16:
+    if N == 0:
+        raise ValueError("table: no rows")
+    if (W * 4) % 16 or W == 0:
         raise ValueError(
             f"table: rows of {W * 4} bytes; the kernel copies 16-byte pieces, "
-            "so the row width must be a multiple of 4 floats"
+            "so the row width must be a positive multiple of 4 floats"
         )
     if table.data_ptr() % 16:
         raise ValueError("table: rows are copied as 16-byte pieces; the table "
@@ -108,7 +154,7 @@ def check_args(table, idx, k, device) -> int:
     k = int(k)
     if not 1 <= k <= MAX_IN_FLIGHT:
         raise ValueError(f"k: {k} copies in flight, expected 1..{MAX_IN_FLIGHT}")
-    ring = WARPS_PER_BLOCK * k * W * 4 + WARPS_PER_BLOCK * MAX_IN_FLIGHT * 8
+    ring = WARPS_PER_BLOCK * k * W * 4
     if ring > MAX_SHARED_BYTES:
         raise ValueError(
             f"k={k} rows of {W * 4} bytes for {WARPS_PER_BLOCK} warps need "
@@ -117,11 +163,38 @@ def check_args(table, idx, k, device) -> int:
     return k
 
 
-DESIGNS = ("first", "a0", "a", "b", "ab")
-BUCKETED = ("a", "ab")
+def _library():
+    """The built library, its limits held against the wrapper's once."""
+    global _limits_held
+    lib = LIBRARY.load()
+    if not _limits_held:
+        built = (lib.pt_gather_rows_max_in_flight(), lib.pt_gather_rows_warps(),
+                 lib.pt_gather_rows_max_shared_bytes(), lib.pt_gather_rows_slice_bytes())
+        want = (MAX_IN_FLIGHT, WARPS_PER_BLOCK, MAX_SHARED_BYTES, SLICE_BYTES)
+        if built != want:
+            raise RuntimeError(
+                "kernel and wrapper disagree on (copies in flight, warps per "
+                f"block, shared bytes per block, slice bytes): {built} vs {want}"
+            )
+        _limits_held = True
+    return lib
 
 
-def gather_rows_cuda(table, idx, k: int = 16, _design="first", _budget=None):
+def _scratch(lib, table, R, k):
+    n = lib.pt_gather_rows_scratch(table.shape[1], table.shape[0], R, k)
+    if n < 0:
+        raise RuntimeError(f"gather_rows: launch plan refused: cudaError {-n}")
+    return torch.empty(n, dtype=torch.int32, device=table.device) if n else None
+
+
+def _cuda_args(table, idx, k):
+    if not isinstance(table, torch.Tensor) or table.device.type != "cuda":
+        where = table.device if isinstance(table, torch.Tensor) else type(table).__name__
+        raise ValueError(f"gather_rows_cuda needs CUDA tensors, got {where}")
+    return check_args(table, idx, k, table.device)
+
+
+def gather_rows_cuda(table, idx, k: int = 16):
     """``(R, W)`` rows ``table[idx]`` on CUDA tensors by the hand-written
     kernel, ``k`` row copies in flight per warp.
 
@@ -133,40 +206,45 @@ def gather_rows_cuda(table, idx, k: int = 16, _design="first", _budget=None):
     checked: they must lie in ``[0, N)``.
     """
     global launches
-    if not isinstance(table, torch.Tensor) or table.device.type != "cuda":
-        where = table.device if isinstance(table, torch.Tensor) else type(table).__name__
-        raise ValueError(f"gather_rows_cuda needs CUDA tensors, got {where}")
-    device = table.device
-    k = check_args(table, idx, k, device)
-    W = table.shape[1]
+    k = _cuda_args(table, idx, k)
+    N, W = table.shape
     R = idx.shape[0]
-    lib = LIBRARY.load()
-    out = torch.empty((R, W), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        built = (lib.pt_gather_rows_max_in_flight(), lib.pt_gather_rows_warps(),
-                 lib.pt_gather_rows_max_shared_bytes())
-        if built != (MAX_IN_FLIGHT, WARPS_PER_BLOCK, MAX_SHARED_BYTES):
-            raise RuntimeError(
-                "kernel and wrapper disagree on (copies in flight, warps per "
-                f"block, shared bytes per block): {built} vs "
-                f"{(MAX_IN_FLIGHT, WARPS_PER_BLOCK, MAX_SHARED_BYTES)}"
-            )
-        design = DESIGNS.index(_design)
-        budget = int(_budget or 0)
-        n = lib.pt_gather_rows_scratch(W, table.shape[0], R, k, design, budget)
-        if n < 0:
-            raise RuntimeError(f"gather_rows plan refused: {n}")
-        scratch = torch.empty(n, dtype=torch.int32, device=device) if n else None
-        stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty((R, W), dtype=torch.float32, device=table.device)
+    with torch.cuda.device(table.device):
+        lib = _library()
+        scratch = _scratch(lib, table, R, k)
         err = lib.pt_gather_rows(
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), W, table.shape[0], R, k,
-            design, budget, scratch.data_ptr() if n else None, stream
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), W, N, R, k,
+            None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"gather_rows kernel launch refused: cudaError {err}")
     if R > 0:
         launches += 1
     return out
+
+
+def bucket_order_cuda(table, idx, k: int = 16):
+    """The kernel's counting pass alone, for checks on the card: ``(rows,
+    positions)`` in the order the copy takes them, or ``None`` where this
+    shape takes no pass. Does not count as a launch of the kernel."""
+    k = _cuda_args(table, idx, k)
+    N, W = table.shape
+    R = idx.shape[0]
+    with torch.cuda.device(table.device):
+        lib = _library()
+        scratch = _scratch(lib, table, R, k)
+        err = lib.pt_gather_rows_order(
+            idx.data_ptr(), W, N, R, k,
+            None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err == 1:
+        return None
+    if err != 0:
+        raise RuntimeError(f"gather_rows counting pass refused: cudaError {err}")
+    return scratch[4:4 + R], scratch[4 + R:4 + 2 * R]
 
 
 def gather_rows(table, idx, k: int = 16):

@@ -12,7 +12,11 @@ The TPU kernel itself, ``pallas_gather``, cannot run here: it has no
 interpret switch and is built from TPU-only primitives (asynchronous copies
 on DMA semaphores, scalar prefetch). Its replacement, the CUDA kernel
 ``csrc/gather_rows.cu``, is compared with ``index_select`` on the card by
-``chip_smoke.py``."""
+``chip_smoke.py``. What the kernel does besides copying, putting the
+positions in slice order first, is held here through its plain version
+(``bucket_order_plain``, ``gather_in_order_plain``) against numpy's stable
+argsort and the JAX tool's XLA gather, with slices small enough that the
+small table spans several."""
 
 import importlib.util
 import pathlib
@@ -131,3 +135,64 @@ def test_probe_table_and_batch_shapes():
     assert GP.LANES == (8192, 2_073_600) and GP.WINDOWS == (4096, 16384, 65536)
     for _, width in GP.TABLES:
         assert (width * 4) % 16 == 0
+
+
+# slice sizes that cut the 1024 x 8 test table (32-byte rows) into 32, 8 and
+# 1 buckets
+SLICES = {1024: 32, 4096: 8, 1 << 20: 1}
+
+
+def _lists(idx0):
+    rng = np.random.default_rng(2)
+    return {
+        "repeats": rng.integers(0, 64, LANES),
+        "one_row": np.full(LANES, 5),
+        "sorted": np.sort(idx0),
+        "one_lane": idx0[:1],
+        "ragged": idx0[:37],  # R not a multiple of any chunk (k..32)
+    }
+
+
+@pytest.mark.parametrize("slice_bytes", sorted(SLICES))
+def test_bucket_order_is_a_stable_argsort_of_the_slices(data, slice_bytes):
+    _, idx0, idx_rows = data
+    shift = GP.slice_shift(N_ROWS, WIDTH, slice_bytes)
+    assert (WIDTH * 4) << shift <= slice_bytes < (WIDTH * 4) << (shift + 1)
+    assert GP.buckets(N_ROWS, WIDTH, N_ROWS, slice_bytes) == SLICES[slice_bytes]
+    for idx in (idx0, idx_rows.reshape(-1), *_lists(idx0).values()):
+        idx = idx.astype(np.int32)
+        got = GP.bucket_order_plain(torch.from_numpy(idx), shift)
+        assert n(got).tolist() == np.argsort(idx >> shift, kind="stable").tolist()
+
+
+@pytest.mark.parametrize("name", ["repeats", "one_row", "sorted", "one_lane", "ragged"])
+def test_gather_in_bucket_order_equals_xla_gather(data, name):
+    table, idx0, _ = data
+    idx = _lists(idx0)[name].astype(np.int32)
+    R = idx.shape[0]
+    # the XLA gather at the 64 lanes the file already compiles, then cut to R
+    padded = np.zeros(LANES, np.int32)
+    padded[:R] = idx
+    want = np.asarray(_xla_gather(jnp.asarray(table), jnp.asarray(padded)))[:R]
+    t, i = torch.from_numpy(table), torch.from_numpy(idx)
+    for slice_bytes in SLICES:
+        order = GP.bucket_order_plain(i, GP.slice_shift(N_ROWS, WIDTH, slice_bytes))
+        got = GP.gather_in_order_plain(t, i, order)
+        assert n(got).tobytes() == want.tobytes()
+        assert torch.equal(got, GP.gather_rows_plain(t, i))
+
+
+def test_slice_rule_on_the_probe_tables():
+    """The small table fits one slice; the large one is cut into slices of
+    at most SLICE_BYTES, bucketed only where the batch has a position per
+    table row (the render tile's lanes), not at 8,192 lanes."""
+    (n_small, w_small), (n_large, w_large) = GP.TABLES
+    assert n_small * w_small * 4 <= GP.SLICE_BYTES
+    for lanes in GP.LANES:
+        assert GP.buckets(n_small, w_small, lanes) == 1
+    shift = GP.slice_shift(n_large, w_large)
+    assert (w_large * 4) << shift <= GP.SLICE_BYTES
+    assert GP.buckets(n_large, w_large, GP.LANES[-1]) == -(-n_large >> shift) == 28
+    assert GP.buckets(n_large, w_large, GP.LANES[0]) == 1
+    # a huge table of narrow rows: slices grow so that at most MAX_BUCKETS remain
+    assert GP.buckets(1 << 30, 4, 1 << 30) == GP.MAX_BUCKETS

@@ -229,6 +229,8 @@ def test_gather_wrapper_refusals():
     before = GP.launches
     with pytest.raises(ValueError, match="CUDA"):
         GP.gather_rows_cuda(table, idx)
+    with pytest.raises(ValueError, match="CUDA"):
+        GP.bucket_order_cuda(table, idx)
     # CPU tensors take the plain version through the dispatcher only
     assert torch.equal(GP.gather_rows(table, idx), table[idx.long()])
     assert GP.launches == before
@@ -239,14 +241,22 @@ def test_gather_wrapper_refusals():
             GP.main([])
     cpu = torch.device("cpu")
     assert GP.check_args(table, idx, 16, cpu) == 16
-    with pytest.raises(ValueError, match="multiple of 4 floats"):
-        GP.check_args(torch.zeros((16, 6)), idx, 16, cpu)
+    for width in (6, 0):
+        with pytest.raises(ValueError, match="multiple of 4 floats"):
+            GP.check_args(torch.zeros((16, width)), idx, 16, cpu)
+    with pytest.raises(ValueError, match="no rows"):
+        GP.check_args(torch.zeros((0, 8)), idx, 16, cpu)
     flat = torch.zeros(16 * 8 + 1)
     with pytest.raises(ValueError, match="16-byte aligned"):
         GP.check_args(flat[1:].view(16, 8), idx, 16, cpu)
     for k in (0, 33):
         with pytest.raises(ValueError, match="copies in flight"):
             GP.check_args(table, idx, k, cpu)
+    # the ring: WARPS_PER_BLOCK x k rows, up to the block's shared memory
+    row_fits = GP.MAX_SHARED_BYTES // (GP.WARPS_PER_BLOCK * GP.MAX_IN_FLIGHT * 16) * 4
+    assert GP.check_args(torch.zeros((4, row_fits)), idx, 32, cpu) == 32
+    with pytest.raises(ValueError, match="shared memory"):
+        GP.check_args(torch.zeros((4, row_fits + 4)), idx, 32, cpu)
     with pytest.raises(ValueError, match="shared memory"):
         GP.check_args(torch.zeros((4, 1024)), idx, 32, cpu)
     with pytest.raises(TypeError, match="dtype"):
