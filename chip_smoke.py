@@ -1019,7 +1019,8 @@ def gather_shape(table, idx, k=16) -> dict:
         "ms": t["kernel"][0], "ms_all": t["kernel"][1],
         "device_ms": split["kernel"]["device_ms"], "host_ms": split["kernel"]["host_ms"],
         "count_pass_device_ms": sum(v for n, v in by_kernel.items()
-                                    if "gather_count" in n or "gather_scatter" in n),
+                                    if any(f"gather_{k}" in n
+                                           for k in ("count", "offsets", "scatter"))),
         "copy_device_ms": sum(v for n, v in by_kernel.items() if "gather_copy" in n),
         "device_ms_by_kernel": by_kernel,
         "index_select_ms": t["index_select"][0], "index_select_ms_all": t["index_select"][1],

@@ -33,8 +33,8 @@
 //     small batch is spread over the resident warps, k entries or more each.
 //   * The output is stored with an L2 evict-first policy, so its stream does
 //     not push the slice being read out of the L2.
-// The slice size and the batch rule were set by timing (PERF.md, PR 10, on
-// an H100 80GB HBM3 at 700 W, L2 flushed, k = 16, device time): on the
+// The slice size and the batch rule were set by timing (PERF.md §6, on an
+// H100 80GB HBM3 at 700 W, L2 flushed, k = 16, device time): on the
 // 458,752 x 128 table at 2,073,600 positions slices of 4, 8 and 16 MB took
 // 0.622, 0.609 and 0.610 ms against 0.727 ms in arrival order; at 8,192
 // positions (1.8 % of the rows, nothing repeats) the pass cost 0.0059 ms
@@ -93,11 +93,6 @@ __device__ __forceinline__ void st_evict_first(uint4* dst, uint4 v, uint64_t pol
     asm volatile("st.global.L2::cache_hint.v4.b32 [%0], {%1, %2, %3, %4}, %5;\n" ::"l"(dst),
                  "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(pol)
                  : "memory");
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-    return v;
 }
 
 // ---------------------------------------------------------- counting pass
