@@ -98,11 +98,41 @@ Phases, one JSON object per line:
                     wavefront's against the binary scan frame (and a second
                     fused frame byte-equal to the first; its host steps one
                     by one)
+  tonemap_check     BGRA made on the card: trace.gold's tonemap inputs
+                    tonemapped on the card against the oracle's bytes (within
+                    1 LSB, the CPU test's bar), and a 1080p colour frame
+                    made on the card tonemapped on the card and on the CPU
+                    (within 1 LSB); the shares of equal bytes
   megakernel_timing, wavefront_timing
                     one launch at the main path's shape (L2 flushed) and its
                     bound from the counting build's counters of the same
                     work; the wavefront on the binary and the w8 scene, timed
                     in turns with the megakernel
+  large_scene       the procedural large scene (testing.build_large_scene:
+                    the generated terrain at 512 x 512 vertices under
+                    build/large_scene/, 1,024 pine and bunny instances, a
+                    camera looking down onto it; ~0.52 M triangles, tables
+                    5-6x the L2), built by the native OBJ loader and BVH
+                    builders (required): triangles, instances, each table's
+                    bytes against the L2, host seconds per stage, peak memory
+  large_scene_ray_queries
+                    P1 and K1 on 65,536 of its frame's rays (the primary and
+                    the first bounce batch) against their plain versions
+                    (ids equal, 1e-6), timed (median of 5, L2 flushed) with
+                    device time and the bound by bytes from the rows the
+                    plain walks touched; both at a render tile's batches
+  large_scene_frames
+                    1920x1080 x 5 bounces x 8 spp on it by the scan (binary,
+                    w8), K2 (w8) and K5 (binary, w8): seconds, Msamples/s,
+                    peak memory, launches; K2 and K5 against the scan frame
+                    on the same tables (the JAX bar), bit-equal share
+  large_scene_path_timing
+                    one K2 w8, K5 binary and K5 w8 launch at 8 spp over the
+                    frame: median of 5, device time, bound
+  large_scene_record
+                    one K6 launch at 1080p x 1 spp: every record plane equal
+                    to the scan's; the share of primary rays that hit (must
+                    be >= 50 %)
   record_check      the megakernel's record build (K6) vs its plain version
                     (path_trace_megakernel_plain(record=True)) on w8, w16, s8
                     and motion.gold's scene, spp 1 and spp 3: every record
@@ -232,8 +262,16 @@ from pathtracing_tpu_torch.scene.golden import (
     scene_device_from_golden,
     scene_device_from_motion_golden,
 )
+from pathtracing_tpu_torch.utils import native_build
 from pathtracing_tpu_torch.utils.goldenio import load_golden
 from pathtracing_tpu_torch.utils.vec import Vec3
+
+# the large scene's recipe is shared with the CPU tests; importing their
+# helpers pins PyTorch to one CPU thread, which this run does not want
+_threads = torch.get_num_threads()
+from pathtracing_tpu_torch.testing import binary_tables, build_large_scene  # noqa: E402
+
+torch.set_num_threads(_threads)
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
@@ -584,9 +622,9 @@ def main_path_tile_lanes(cfg) -> int:
     return min(CUDA_TILE_PIXELS, cfg.image_width * cfg.image_height)
 
 
-def capture_main_path_queries(cfg, scene, n):
+def capture_queries(cfg, scene, xs, ys):
     """The arguments ``path_trace_samples`` hands to ``ray_query`` for one
-    tile of n pixels of the frame: [primary, bounce 1, ...]."""
+    sample of the pixels (xs, ys): [primary, bounce 1, ...]."""
     calls = []
     orig = integrator.ray_query
 
@@ -594,8 +632,6 @@ def capture_main_path_queries(cfg, scene, n):
         calls.append((a, k))
         return orig(*a, **k)
 
-    idx = torch.arange(n, dtype=torch.int32, device="cuda")
-    xs, ys = idx % cfg.image_width, idx // cfg.image_width
     integrator.ray_query = spy
     try:
         integrator.path_trace_samples(cfg, scene, xs, ys, torch.zeros_like(xs))
@@ -603,6 +639,13 @@ def capture_main_path_queries(cfg, scene, n):
         integrator.ray_query = orig
     torch.cuda.synchronize()
     return calls
+
+
+def capture_main_path_queries(cfg, scene, n):
+    """The same for one tile of n pixels of the frame: [primary, bounce 1,
+    ...]."""
+    idx = torch.arange(n, dtype=torch.int32, device="cuda")
+    return capture_queries(cfg, scene, idx % cfg.image_width, idx // cfg.image_width)
 
 
 # -------------------------------------------------------------------- phases
@@ -1585,6 +1628,252 @@ def phase_wavefront_timing(cfg, binary, wide, smi):
     return out
 
 
+# ----------------------------------------------------------------- tonemap
+
+
+def bgra_diff(tag, got, ref) -> dict:
+    """Two BGRA byte arrays of the same colours: the share of bytes equal and
+    the largest difference in LSB."""
+    require(got.shape == ref.shape and got.dtype == ref.dtype == np.uint8,
+            f"{tag}: {got.shape} {got.dtype} vs {ref.shape} {ref.dtype}")
+    d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    return {"bytes": int(d.size), "equal_share": float((d == 0).mean()),
+            "max_lsb": int(d.max())}
+
+
+def phase_tonemap_check(cfg, scene):
+    """The BGRA bytes the card makes. trace.gold's tonemap inputs tonemapped
+    on the card against the oracle's bytes, at the CPU test's bar (within 1
+    LSB, tests/test_torch_integrator.py); one 1080p colour frame made on the
+    card (render_frame on the wide scene) tonemapped on the card and on the
+    CPU: within the same 1 LSB, and the frame's own BGRA (tonemapped on the
+    card by render_frame) equal to the card's tonemap of its colours."""
+    tg = load_golden(str(GOLDEN / "trace.gold"))
+    vs_oracle = bgra_diff("trace.gold", to_bgra(tg["tonemap_in"][None], device="cuda")[0],
+                          tg["tonemap_out"])
+    colors, image = render_frame(cfg, scene, spp=MAIN_SPP)
+    card = to_bgra(colors, device="cuda")
+    host = to_bgra(colors, device="cpu")
+    frame = bgra_diff("1080p frame", card, host)
+    emit("tonemap_check", oracle=vs_oracle, frame_card_vs_cpu=frame,
+         frame_pixels=int(colors.shape[0] * colors.shape[1]),
+         render_frame_bgra_equals_card_tonemap=bool(np.array_equal(image, card)))
+    require(vs_oracle["max_lsb"] <= 1, f"card tonemap vs oracle: {vs_oracle}")
+    require(frame["max_lsb"] <= 1, f"card tonemap vs CPU tonemap: {frame}")
+    require(np.array_equal(image, card), "render_frame's BGRA vs the card's tonemap")
+    return {"oracle": vs_oracle, "frame": frame}
+
+
+# ------------------------------------------------------------ the large scene
+
+LARGE_DIR = ROOT / "build" / "large_scene"  # the generated OBJ files (git-ignored)
+LARGE_BATCH = 65_536  # rays of a frame's P1 / K1 batch held to the plain versions
+L2_BYTES = 50 * 1024 * 1024  # the H100's L2
+BINARY_TABLES = ("nl8", "tri_pos", "tri_idx", "inst_f", "inst_u", "vattr")
+WIDE_TABLES = ("wide_rows", "wide_root", "tri_shade", "inst_f", "inst_u")
+
+
+def field_bytes(scene, names) -> dict:
+    """Bytes of each named table of a scene."""
+    return {k: getattr(scene, k).numel() * getattr(scene, k).element_size() for k in names}
+
+
+def frame_launches(tag, counters, expected, fn):
+    """``fn()`` with every kernel's count set to 0 just before and read just
+    after: ``expected`` {module: launches} and none of the others. Returns
+    fn's result, seconds (host clock to a synchronise) and peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counters:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got = {mod.__name__.rsplit(".", 1)[-1]: mod.launches for mod in counters}
+    want = {mod.__name__.rsplit(".", 1)[-1]: expected.get(mod, 0) for mod in counters}
+    require(got == want, f"{tag}: launches {got}, expected {want}")
+    return out, sec, torch.cuda.max_memory_allocated(), got
+
+
+def phase_large_scene(cfg, smi):
+    """The procedural large scene (testing.build_large_scene): the generated
+    terrain at 512 x 512 vertices, 1,024 pine and bunny instances, a camera
+    looking down onto it, the sun of sphere_ground; built by the native
+    loader and builders (their counts required), its tables 5-6x the L2.
+    On it: P1 and K1 on 65,536 of the frame's rays (primary and first bounce
+    batch) against their plain versions, timed, with their bound by bytes
+    from the rows the plain walks touched; both at a render tile's batch
+    size, timed; the frame at the main path's shape by the scan on the
+    binary and the w8 tables (P1, K1), by K2 (w8) and by K5 (binary and w8),
+    each with its launches, seconds and peak memory, K2 and K5 against the
+    scan frame on the same tables; one launch of K2 and of K5 at 8 spp timed
+    (median of 5, L2 flushed) with its device time and bound; one K6 record
+    launch at 1080p x 1 spp against the scan's records (every plane equal),
+    whose primary hits give the share of primary rays that hit (>= 50 %)."""
+    W, H = cfg.image_width, cfg.image_height
+    n = W * H
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native_build.reset_builds()
+    s, scene, host_s = build_large_scene(LARGE_DIR, cfg, device="cuda")
+    builds = dict(native_build.builds)
+    require(builds == {"obj_native": 3, "bvh_native": 4, "wide_native": 2},
+            f"large scene: host builders {builds}")
+    build_peak = torch.cuda.max_memory_allocated()
+    binary = binary_tables(scene)
+    bin_b, wide_b = field_bytes(scene, BINARY_TABLES), field_bytes(scene, WIDE_TABLES)
+    require(sum(bin_b.values()) > L2_BYTES and sum(wide_b.values()) > L2_BYTES,
+            f"large scene tables {sum(bin_b.values())} / {sum(wide_b.values())} B")
+    info = {"triangles": int(scene.tri_pos.shape[0]), "instances": len(s.instances),
+            "vertices": int(scene.vattr.shape[0]), "nl8_rows": int(scene.nl8.shape[0]),
+            "wide_rows": list(scene.wide_rows.shape),
+            "binary_table_bytes": bin_b, "binary_total_bytes": sum(bin_b.values()),
+            "binary_over_l2": sum(bin_b.values()) / L2_BYTES,
+            "wide_table_bytes": wide_b, "wide_total_bytes": sum(wide_b.values()),
+            "wide_over_l2": sum(wide_b.values()) / L2_BYTES,
+            "host_seconds": host_s, "host_builders": builds,
+            "peak_memory_after_build_bytes": int(build_peak)}
+    emit("large_scene", **info, card=smi)
+
+    # P1 and K1 on 65,536 of the frame's rays, spread over the frame
+    idx = torch.arange(LARGE_BATCH, dtype=torch.int64, device="cuda") * n // LARGE_BATCH
+    xs, ys = (idx % W).to(torch.int32), (idx // W).to(torch.int32)
+    qb, qw = capture_queries(cfg, binary, xs, ys), capture_queries(cfg, scene, xs, ys)
+    p1 = [measure_shape(f"large {k}", *qb[i]) for i, k in enumerate(("primary", "bounce"))]
+    k1 = [measure_wide_shape(f"large {k}", *qw[i]) for i, k in enumerate(("primary", "bounce"))]
+    for sh, (a, k), name in zip(p1 + k1, (*qb[:2], *qw[:2]),
+                                2 * ["ray_query_kernel"] + 2 * ["wide_ray_query_kernel"]):
+        sh.update(launch_device_ms(lambda: ray_query(*a, **k), name))
+    # the same kernels at a render tile's batch size (the golden scene's
+    # timed batches)
+    tile = main_path_tile_lanes(cfg)
+    tb = capture_main_path_queries(cfg, binary, tile)
+    tw = capture_main_path_queries(cfg, scene, tile)
+    tile_t = time_launches({
+        "p1_primary": lambda: ray_query(*tb[0][0], **tb[0][1]),
+        "p1_bounce": lambda: ray_query(*tb[1][0], **tb[1][1]),
+        "k1_primary": lambda: ray_query(*tw[0][0], **tw[0][1]),
+        "k1_bounce": lambda: ray_query(*tw[1][0], **tw[1][1]),
+    })
+    tile_ms = {k: v[0] for k, v in tile_t.items()}
+    del tb, tw
+    emit("large_scene_ray_queries", batch=LARGE_BATCH, p1=p1, k1=k1,
+         tile_lanes={"primary": tile, "bounce": 2 * tile}, tile_ms=tile_ms,
+         tile_ms_all={k: v[1] for k, v in tile_t.items()}, card=smi)
+
+    # the frames
+    counters = (CT, CW, CM, CWF)
+    tiles = [min(CUDA_TILE_PIXELS, n - a) for a in range(0, n, CUDA_TILE_PIXELS)]
+    scan_n = len(tiles) * MAIN_SPP * (1 + cfg.max_bounces)
+    chunk = _mk_spp_chunk(n, MAIN_SPP, scene)
+    fused_n = -(-MAIN_SPP // chunk)
+    wf_n = sum(-(-MAIN_SPP // _mk_spp_chunk(t, MAIN_SPP, scene)) for t in tiles)
+    scan = lambda sc: render_pixels(cfg, sc, *frame_pixels(cfg), spp=MAIN_SPP,
+                                    megakernel=False).reshape(H, W, 3)
+    cases = (
+        ("scan_binary", "ray_query", {CT: scan_n}, lambda: scan(binary)),
+        ("scan_w8", "wide_ray_query", {CW: scan_n}, lambda: scan(scene)),
+        ("megakernel_w8", "megakernel", {CM: fused_n},
+         lambda: render_frame(cfg, scene, spp=MAIN_SPP)[0]),
+        ("wavefront_binary", "wavefront", {CWF: wf_n},
+         lambda: render_frame(cfg, binary, spp=MAIN_SPP, wavefront=True)[0]),
+        ("wavefront_w8", "wavefront", {CWF: wf_n},
+         lambda: render_frame(cfg, scene, spp=MAIN_SPP, wavefront=True)[0]),
+    )
+    frames, colors = {}, {}
+    sums = lambda c: tuple(torch.from_numpy(np.ascontiguousarray(c[..., k].reshape(-1)
+                                                                 * MAIN_SPP))
+                           for k in range(3))
+    for name, kernel, expected, fn in cases:
+        c, sec, peak, got = frame_launches(f"large {name}", counters, expected, fn)
+        require(c.shape == (H, W, 3) and np.isfinite(c).all(), f"large {name}: frame")
+        colors[name] = c
+        frames[name] = {"kernel": kernel, "seconds": sec,
+                        "msamples_per_s": n * MAIN_SPP / sec / 1e6,
+                        "peak_memory_allocated_bytes": int(peak),
+                        "launches": sum(got.values())}
+    ref_of = {"megakernel_w8": "scan_w8", "wavefront_binary": "scan_binary",
+              "wavefront_w8": "scan_w8"}
+    for name, ref in ref_of.items():
+        cmp = mk_compare(f"large {name} vs {ref}", sums(colors[name]), sums(colors[ref]),
+                         MAIN_SPP, 0, 0, W)
+        frames[name]["vs_scan_frame"] = {k: cmp[k] for k in (
+            "finite_share", "close_share", "bar", "bit_equal_share", "max_abs_err")}
+    rel = (np.abs(colors["scan_w8"] - colors["scan_binary"])
+           / (np.abs(colors["scan_binary"]) + 1e-3))
+    q98 = float(np.quantile(rel, 0.98))
+    frames["scan_w8"]["rel_q98_vs_scan_binary"] = q98
+    frames["scan_w8"]["pixels_bit_equal_to_scan_binary"] = float(
+        (colors["scan_w8"] == colors["scan_binary"]).all(-1).mean())
+    require(q98 < 1e-3, f"large scan w8 vs binary: rel q98 {q98}")
+    out = ROOT / "output"
+    out.mkdir(exist_ok=True)
+    write_bmp(str(out / "chip_smoke_large_scene.bmp"), to_bgra(colors["megakernel_w8"]))
+    scan_sums = {"binary": sums(colors["scan_binary"]), "w8": sums(colors["scan_w8"])}
+    del colors
+    emit("large_scene_frames", width=W, height=H, bounces=cfg.max_bounces, spp=MAIN_SPP,
+         fused_spp_chunk=chunk, frames=frames, card=smi)
+
+    # one launch of each path kernel at 8 spp over the whole frame (the
+    # golden scene's timed shape), its device time and bound; its sums
+    # against the scan frame's (the fused frames above add the sums of
+    # fused_spp_chunk samples, and so round apart from the scan's one
+    # sample-ordered sum; one launch folds the 8 samples in the scan's order)
+    fl = frame_list(cfg)
+    launch = {"k2_w8": lambda: CM.megakernel_cuda(cfg, scene, n, MAIN_SPP),
+              "k5_binary": lambda: CWF.wavefront_cuda(cfg, binary, *fl, MAIN_SPP),
+              "k5_w8": lambda: CWF.wavefront_cuda(cfg, scene, *fl, MAIN_SPP)}
+    t = time_launches(launch)
+    timing = {}
+    for name, fn in launch.items():
+        sc = binary if name == "k5_binary" else scene
+        if name == "k2_w8":
+            *_, counts = CM.megakernel_cuda(cfg, sc, n, MAIN_SPP, counts=True)
+            io = 3 * 4 * n
+        else:
+            *_, counts = CWF.wavefront_cuda(cfg, sc, *fl, MAIN_SPP, counts=True)
+            io = (2 * 4 + 3 * 4) * n
+        res = path_kernel_bound(sc, counts, n, io)
+        require(res["counts"]["samples"] == n * MAIN_SPP, f"{name}: counted {res['counts']}")
+        cmp = mk_compare(f"large {name} launch vs scan frame", fn()[:3],
+                         scan_sums["binary" if name == "k5_binary" else "w8"],
+                         MAIN_SPP, 0, 0, W)
+        res.update(ms=t[name][0], ms_all=t[name][1],
+                   **launch_device_ms(fn, "megakernel" if name == "k2_w8" else "wavefront"),
+                   vs_scan_frame={k: cmp[k] for k in ("close_share", "bit_equal_share",
+                                                      "max_abs_err")})
+        res["roofline_share"] = res["bound_ms"] / res["ms"]
+        timing[name] = res
+    emit("large_scene_path_timing", **timing, card=smi)
+
+    # one K6 record launch at 1080p x 1 spp against the scan's records
+    CM.reset_launches()
+    acc, recs, n_trunc = path_trace_megakernel(cfg, scene, n, GRAD_SPP, record=True,
+                                               return_truncated=True, device="cuda")
+    torch.cuda.synchronize()
+    k6_launches = CM.record_launches
+    require(k6_launches == 1 and int(n_trunc[0]) == 0,
+            f"large K6: {k6_launches} launches, {int(n_trunc[0])} abandoned")
+    (pr, pg, pb), precs = path_trace_megakernel_plain(cfg, scene, n, GRAD_SPP, record=True)
+    mism = records_equal("large 1080p record", recs, precs)
+    cmp = mk_compare("large 1080p record", tuple(acc), (pr, pg, pb), GRAD_SPP, 0, 0, W)
+    k6_t = time_launches({"k6": lambda: CM.megakernel_record_cuda(cfg, scene, n, GRAD_SPP)})
+    hit_share = float(recs[0]["hit"].float().mean())
+    k6 = {"launches": k6_launches, "record_mismatches": mism, "ms": k6_t["k6"][0],
+          "ms_all": k6_t["k6"][1], "max_abs_err": cmp["max_abs_err"],
+          "bit_equal_share_vs_plain": cmp["bit_equal_share"],
+          "primary_hit_share": hit_share,
+          "primary_instance_hit_share": float((recs[0]["inst"] > 0).float().mean()),
+          "bounce_hits": int(recs[1]["hit"].sum()),
+          "shadow_occluded": int(recs[1]["occ"].sum())}
+    del recs, precs
+    emit("large_scene_record", **k6, card=smi)
+    require(hit_share >= 0.5, f"large scene: {hit_share} of primary rays hit")
+    return {"info": info, "p1": p1, "k1": k1, "tile_ms": tile_ms, "frames": frames,
+            "timing": timing, "k6": k6}
+
+
 # ------------------------------------------------- the path kernels' designs
 
 # The pixel orders the design timing runs each path kernel on: "row_major"
@@ -1910,20 +2199,41 @@ def kernel_split(fn, reps=5) -> dict:
                 flush.bitwise_not_()
                 fn()
             torch.cuda.synchronize()
-        dev = {}
-        for name, ms in device_kernels(prof):
+        dev, count = {}, {}
+        for name, ms, n in device_kernels(prof):
             if "bitwise_not" not in name:
                 dev[name[:72]] = dev.get(name[:72], 0.0) + ms / reps
+                count[name[:72]] = count.get(name[:72], 0) + n
         if dev:
             break
     require(dev, "the profiler recorded no device time")
+    # a profile can also come back with only some of its launches (seen on
+    # launches of 0.1 s and more): the mean of the launches it recorded
+    # stands beside the sum per call
     return {"host_ms": float(np.median(host)), "host_ms_all": host,
-            "device_ms": sum(dev.values()), "device_ms_by_kernel": dev}
+            "device_ms": sum(dev.values()), "device_ms_by_kernel": dev,
+            "launches_profiled": count,
+            "device_ms_per_launch": {k: dev[k] * reps / count[k] for k in dev}}
+
+
+def launch_device_ms(fn, kernel) -> dict:
+    """The device time of one launch of the kernel named ``kernel`` that
+    ``fn`` launches once (the mean of the launches a profile recorded), how
+    many launches it recorded, and the device time of fn's other kernels
+    (the wrapper's fills and casts) per call."""
+    ks = kernel_split(fn)
+    names = [k for k in ks["device_ms_per_launch"] if kernel in k]
+    require(len(names) == 1, f"{kernel}: profiled {list(ks['device_ms_per_launch'])}")
+    return {"device_ms": ks["device_ms_per_launch"][names[0]],
+            "launches_profiled": ks["launches_profiled"][names[0]],
+            "other_kernels_device_ms": sum(v for k, v in ks["device_ms_by_kernel"].items()
+                                           if k != names[0])}
 
 
 def device_kernels(prof) -> list:
-    """(name, ms) of each device kernel (and memset / copy) of a profile."""
-    return [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3)
+    """(name, ms, launches) of each device kernel (and memset / copy) of a
+    profile."""
+    return [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
             for e in prof.key_averages()
             if getattr(e, "self_device_time_total", 0.0) > 0
             and "cuda" in str(getattr(e, "device_type", "")).lower()]
@@ -2222,9 +2532,9 @@ def profile_replay_chunk(cfg, scene) -> dict:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     dev = sorted(device_kernels(prof), key=lambda r: -r[1])
-    busy = sum(ms for _, ms in dev)
-    index_bwd = [(k[:80], ms) for k, ms in dev if "indexing_backward" in k]
-    k7 = sum(ms for k, ms in dev if "stg_" in k or "rowg_" in k)
+    busy = sum(ms for _, ms, _ in dev)
+    index_bwd = [(k[:80], ms) for k, ms, _ in dev if "indexing_backward" in k]
+    k7 = sum(ms for k, ms, _ in dev if "stg_" in k or "rowg_" in k)
     require(not index_bwd, f"the replay chunk's backward ran {index_bwd}")
     require(CG.row_launches == 3 * (1 + cfg.max_bounces) and CG.small_table_launches == 2,
             f"profiled chunk: {CG.small_table_launches} K7a, {CG.row_launches} K7b launches")
@@ -2232,7 +2542,7 @@ def profile_replay_chunk(cfg, scene) -> dict:
             "device_busy_ms": busy, "device_idle_share_profiled": 1.0 - busy / wall_ms,
             "indexing_backward_ms": 0.0, "gather_grad_kernels_ms": k7,
             "gather_grad_share_of_busy": k7 / busy,
-            "top_kernels": [{"name": k[:80], "ms": ms} for k, ms in dev[:8]]}
+            "top_kernels": [{"name": k[:80], "ms": ms} for k, ms, _ in dev[:8]]}
 
 
 def phase_main_path_grad(cfg, scene, smi):
@@ -2346,6 +2656,27 @@ def phase_main_path_grad(cfg, scene, smi):
     return res
 
 
+def large_walk(large, kernel, frame) -> dict:
+    """A ray-query kernel's readings on the large scene for the kernels
+    line: its launches in the scan frame, the 65,536-ray batches and the
+    render tile's batches."""
+    keys = ("rays", "ms", "device_ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")
+    return {"launches": large["frames"][frame]["launches"],
+            **{sh["shape"].split()[-1]: {k: sh[k] for k in keys} for sh in large[kernel]},
+            "tile_ms": {k: v for k, v in large["tile_ms"].items() if k.startswith(kernel)}}
+
+
+def large_path(large, launch, frame) -> dict:
+    """A path kernel's readings on the large scene for the kernels line: its
+    launches in the frame and the 8 spp launch's time, device time and
+    bound."""
+    t = large["timing"][launch]
+    return {"launches": large["frames"][frame]["launches"],
+            "frame_seconds": large["frames"][frame]["seconds"],
+            **{k: t[k] for k in ("ms", "device_ms", "bound_ms", "bound_by", "table_bytes")},
+            "launch_vs_scan_frame": t["vs_scan_frame"]}
+
+
 def grad_kernel_entry(r) -> dict:
     """A gather transpose's numbers for the kernels line: its time, plain,
     bound and library times, and its split."""
@@ -2433,8 +2764,10 @@ def main() -> int:
     wf_launches, wf_sec, wf_peak, wf_equal = phase_main_path_fused(
         prod_cfg, prod_scene, oracle_mean, colors, scan_sec, wavefront=True
     )
+    tonemap_res = phase_tonemap_check(prod_cfg, prod_wide)
     mk_time = phase_megakernel_timing(prod_cfg, prod_wide, smi)
     wf_time = phase_wavefront_timing(prod_cfg, prod_scene, prod_wide, smi)
+    large = phase_large_scene(prod_cfg, smi)
     rec_err = phase_record_check(wide_scenes, motion_wide)
     grad_k = phase_grad_kernel_check(prod_cfg, prod_wide, smi)
     phase_grad_slow_check(scene, wide_scenes[MAIN_LAYOUT])
@@ -2479,6 +2812,7 @@ def main() -> int:
             **regs("ray_query"),
             "blocks_per_sm": built["ray_query"]["blocks_per_sm"],
             "lane_fill": {**walk(shapes[0]), **walk(bounce)},
+            "large_scene": large_walk(large, "p1", "scan_binary"),
             "card": smi,
         },
         {
@@ -2501,6 +2835,7 @@ def main() -> int:
             **regs("wide_ray_query"),
             "blocks_per_sm": built["wide_ray_query"]["blocks_per_sm"],
             "lane_fill": {**walk(wide_shapes[0]), **walk(wbounce)},
+            "large_scene": large_walk(large, "k1", "scan_w8"),
             "card": smi,
         },
         {
@@ -2553,6 +2888,7 @@ def main() -> int:
                 d: built["megakernel"]["registers_spills_by_layout"][d] for d in K2_TIMED},
             "blocks_per_sm_first_design": built["megakernel"]["blocks_per_sm"],
             **design_summary("megakernel", designs, split),
+            "large_scene": large_path(large, "k2_w8", "megakernel_w8"),
             "card": smi,
         },
         {
@@ -2582,6 +2918,9 @@ def main() -> int:
             "registers_spills_by_layout": built["wavefront"]["registers_spills_by_layout"],
             "blocks_per_sm_first_design": built["wavefront"]["blocks_per_sm"],
             **design_summary("wavefront", designs, split),
+            "large_scene": large_path(large, "k5_binary", "wavefront_binary"),
+            "large_scene_w8": large_path(large, "k5_w8", "wavefront_w8"),
+            "tonemap_check": tonemap_res,
             "card": smi,
         },
         {
@@ -2608,6 +2947,8 @@ def main() -> int:
                 for d in CM.DESIGNS},
             "design_timing_w8": {d: designs["megakernel_record_w8_row_major"][d]["ms"]
                                  for d in CM.DESIGNS},
+            "large_scene": {k: large["k6"][k] for k in (
+                "launches", "ms", "max_abs_err", "primary_hit_share")},
             "card": smi,
         },
         {

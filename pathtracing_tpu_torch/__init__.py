@@ -6,10 +6,14 @@ explicit ``device`` argument on every entry point.  The package imports
 ``torch`` and ``numpy`` only — never ``jax`` and nothing of the JAX package.
 
 Layering:
-  utils/   SoA vec math, golden-file IO, host matrix math
-  io/      BMP output, mesh handles
-  accel/   flat BVH buffer types, the wide-BVH mega-table (accel/wide.py)
-  scene/   host scene types, device packing, golden-scene construction
+  utils/   SoA vec math, golden-file IO, host matrix math, the host C++
+           libraries' build (native_build.py)
+  io/      BMP output, the OBJ/MTL loader (Python, and native C++)
+  accel/   flat BVH buffer types, the SAH BVH builders (numpy, and native
+           C++), the wide-BVH mega-table (accel/wide.py)
+  scene/   host scene types, SceneBuilder, generated assets, device
+           packing, golden-scene construction
+  models/  named scene presets (models.build)
   ops/     rng, ray query on the binary and on the wide tables (each a
            plain version + a CUDA kernel wrapper; cuda_build.py builds and
            loads the kernels), camera, samplers, bsdf, sky, integrator,

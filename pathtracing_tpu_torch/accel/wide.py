@@ -39,17 +39,22 @@ Three layouts ship, keyed by row width: w8 (8 slots + 4-tri leaves, 192 B
 rows), w16 (16 slots + 8-tri leaves, 352 B rows) and s8 (8 slots + 8-id stub
 leaves, 160 B rows, vertices read from scene.tri_pos at test time).
 
-This is the port's own copy of the JAX package's pure-numpy module and
-produces the same bytes (tests/test_torch_wide_tables.py). It is the Python
-implementation only: the JAX package's optional C++ one (accel/native)
-arrives with the host pipeline.
+This is the port's own copy of the JAX package's module and produces the
+same bytes (tests/test_torch_wide_tables.py). As there, the BLAS region and
+the frame tail are built by the C++ builder of accel/native when it can be
+built and ``PT_NATIVE_WIDE`` is "1" (the default), and by the numpy
+WideBuilder otherwise, with the same bytes (tests/test_torch_host.py).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from pathtracing_tpu_torch.accel.native import build_wide_tree_native
+from pathtracing_tpu_torch.utils import native_build
 
 f32 = np.float32
 u32 = np.uint32
@@ -451,6 +456,47 @@ class WideStaticRegion:
         # (node_offset, node_count) -> (8,) per-octant root cursors
         self.blas_roots: dict = {}
 
+        if _use_native():
+            bundle = (
+                2 * layout.leaf_tris if leaf_bundle is None else leaf_bundle
+            )
+            parts = []
+            row_cursor = 0
+            ok = True
+            for mesh, blas in mesh_blas_pairs:
+                key = (blas.node_offset, blas.node_count)
+                if key in self.blas_roots or blas.node_count == 0:
+                    continue
+                tri = indices[
+                    mesh.index_offset : mesh.index_offset
+                    + 3 * mesh.triangle_count
+                ].reshape(-1, 3).astype(np.int64) + mesh.base_vertex_offset
+                tri9 = pos[tri].reshape(-1, 9).astype(f32)
+                res = build_wide_tree_native(
+                    links_all[8 * blas.node_offset :
+                              8 * blas.node_offset + 8 * blas.node_count],
+                    nodes[blas.node_offset :
+                          blas.node_offset + blas.node_count],
+                    tri9, None, bundle, layout.n_slots, layout.leaf_tris,
+                    row_cursor, int(END_BLAS), stub=layout.stub,
+                )
+                if res is None:
+                    ok = False
+                    break
+                rows, root8 = res
+                parts.append(rows)
+                self.blas_roots[key] = root8
+                row_cursor += len(rows)
+            if ok:
+                self.rows = (
+                    np.concatenate(parts)
+                    if parts else np.zeros((1, layout.w_row), f32)
+                )
+                native_build.builds["wide_native"] += 1
+                return
+            self.blas_roots = {}
+
+        native_build.builds["wide_python"] += 1
         b = WideBuilder(leaf_bundle=leaf_bundle, layout=layout)
         leaf_cache: dict = {}
 
@@ -492,6 +538,12 @@ class WideStaticRegion:
             self.blas_roots[key] = cursors
 
         self.rows = b.finalize()     # (S, 48) f32
+
+
+def _use_native() -> bool:
+    """The C++ builder unless ``PT_NATIVE_WIDE`` is set to anything but
+    "1" (the JAX package's switch, the same default)."""
+    return os.environ.get("PT_NATIVE_WIDE", "1") == "1"
 
 
 def _inst_rows_np(lay: WideLayout, instances, blas_roots, base: int):
@@ -559,6 +611,37 @@ def build_frame_tail(
 
     root_by_off = np.full((max_off - root_base + 1, 8), END_TLAS, u32)
 
+    if _use_native():
+        inst_block, inst_cursors = _inst_rows_np(
+            lay, instances, static.blas_roots, base
+        )
+        parts = [inst_block]
+        row_cursor = base + len(instances)
+        ok = True
+        for off, cnt in tlas_keys:
+            res = build_wide_tree_native(
+                links_all[8 * off : 8 * off + 8 * cnt],
+                nodes[off : off + cnt],
+                None, inst_cursors, 0, lay.n_slots, lay.leaf_tris,
+                row_cursor, int(END_TLAS), stub=lay.stub,
+            )
+            if res is None:
+                ok = False
+                break
+            rows, root8 = res
+            parts.append(rows)
+            root_by_off[off - root_base] = root8
+            row_cursor += len(rows)
+        if ok:
+            tail = (
+                np.concatenate(parts)
+                if parts else np.zeros((0, lay.w_row), f32)
+            )
+            native_build.builds["wide_native"] += 1
+            return tail, root_by_off.view(np.int32)
+        root_by_off[:] = END_TLAS
+
+    native_build.builds["wide_python"] += 1
     b = WideBuilder(leaf_bundle=static.leaf_bundle, base=base, layout=lay)
 
     inst_rows = []

@@ -1,7 +1,7 @@
 // The transposes of the integrator's custom-VJP gathers (K7), the backward
 // kernels of ops/integrator.SmallTableGather and RowGather.
 //
-// K7a replaces pathtracing_tpu/ops/integrator.py::small_table_gather's
+// K7a replaces the JAX package's ops/integrator.py::small_table_gather's
 // transpose (_stg_bwd :74-83, onehot(idx)^T @ g on the TPU's matrix unit):
 //   out[s, c] = sum of g[r, c] over the rows r with idx[r] == s,
 // for the per-subframe tables sf_cam (S, 18) and sf_light (S, 7).  Every lane
@@ -17,7 +17,7 @@
 // warp the block's sums of one output, lanes in order and a fixed shuffle
 // tree.  One launch; the block count is set by R alone.
 //
-// K7b replaces pathtracing_tpu/ops/integrator.py::_vattr_gather3's transpose
+// K7b replaces the JAX package's ops/integrator.py::_vattr_gather3's transpose
 // (_vg3_bwd :141-146, one scatter-add of 3R rows of 12 floats), and the
 // transposes XLA derives for shade_hit's plain gathers inst_f[iidx] (:177)
 // and tri_pos[tri_row] (:216):

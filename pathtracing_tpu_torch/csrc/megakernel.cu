@@ -1,7 +1,7 @@
 // The megakernel (K2): whole sun-NEE paths, one thread per pixel slot.
 //
 // Replaces the JAX package's persistent-lane renderer
-// pathtracing_tpu/ops/megakernel.py::path_trace_megakernel (with _service
+// the JAX package's ops/megakernel.py::path_trace_megakernel (with _service
 // and _launch), an XLA while-loop there, on its sun-NEE path over the wide
 // tables.  It computes the same function: for pixel slots [0, n_pixels),
 // mapped through pixel_order and offset by pixel_base, the per-pixel sums of
@@ -62,7 +62,7 @@
 // the same paths, plus each work item's hit topology for the fast
 // gradients' replay (diff/render.make_fast_grad_frame_fn; JAX:
 // path_trace_megakernel with record=True,
-// pathtracing_tpu/ops/megakernel.py:554, capture :330-375).  Per work item
+// the JAX package's ops/megakernel.py:554, capture :330-375).  Per work item
 // it adds 8 B of stores to K2's work, and 9 B per bounce row its path
 // reaches.
 //

@@ -1,6 +1,6 @@
 // Ray query on the two-level binary BVH: one thread per ray.
 //
-// Replaces the TPU kernel pathtracing_tpu/ops/pallas_traversal.py::_kernel
+// Replaces the TPU kernel of the JAX package's ops/pallas_traversal.py::_kernel
 // (launched by ray_query_pallas).  It computes the same function: for each
 // ray the one-speed state machine of ops/traversal.py::_full_step, which is
 // the walk of binary_walk.cuh (shared with the wavefront kernel,

@@ -2,7 +2,7 @@
 // on the binary or the wide tables, one thread per list entry.
 //
 // Replaces the JAX package's path-regeneration renderer
-// pathtracing_tpu/ops/wavefront.py::path_trace_wavefront, an XLA while-loop
+// the JAX package's ops/wavefront.py::path_trace_wavefront, an XLA while-loop
 // there (R lanes, one per list entry; a lane whose path dies respawns its
 // pixel's next sample, and the sample folds into the lane's sums when its
 // path dies).  It computes the same function: for entry i of (xs, ys), the

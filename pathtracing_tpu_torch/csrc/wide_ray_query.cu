@@ -1,7 +1,7 @@
 // Ray query on the wide-BVH mega-table: one thread per ray.
 //
 // Replaces the JAX package's XLA while-loop walk
-// pathtracing_tpu/ops/wide_traversal.py::wide_ray_query (_wide_init,
+// the JAX package's ops/wide_traversal.py::wide_ray_query (_wide_init,
 // _wide_step, _leaf_block, _wide_drain), at its one-speed setting
 // (leaf_every=None, no compaction).  It computes the same function: per ray
 // the stackless mega-table walk of wide_walk.cuh (one row per step, branching

@@ -3,7 +3,7 @@
 // (path.cuh: the megakernel K2 and the wavefront kernel K5, every ray of a
 // path per thread).
 //
-// It computes the JAX package's pathtracing_tpu/ops/wide_traversal.py
+// It computes the JAX package's ops/wide_traversal.py
 // (_wide_step, _leaf_block) at its one-speed setting: per ray a stackless
 // walk that reads ONE row of the (M, W) table per step and branches on the
 // cursor's kind (bits 30-31):

@@ -30,6 +30,7 @@ from pathtracing_tpu_torch.utils.vec import (
     reflect,
     refract,
     where3,
+    sqrt,
 )
 
 Array = Any
@@ -41,7 +42,7 @@ def fresnel_schlick_bidir_attenuated(v_dot_h, f0, eta, roughness):
     sin_theta2 = eta * eta * (1.0 - v_dot_h * v_dot_h)
     tir = torch.logical_and(eta > 1.0, sin_theta2 >= 1.0)
     sin_safe = torch.where(sin_theta2 >= 1.0, 0.5, sin_theta2)  # guarded operand
-    v_dot_h = torch.where(eta > 1.0, torch.sqrt(1.0 - sin_safe), v_dot_h)
+    v_dot_h = torch.where(eta > 1.0, sqrt(1.0 - sin_safe), v_dot_h)
     f = f0 + (maximum(1.0 - roughness, f0) - f0) * torch.pow(
         maximum(1.0 - v_dot_h, 0.0), 5.0
     )
@@ -66,9 +67,9 @@ def trowbridge_reitz_masking_shadowing(ldotn, ldoth, vdotn, vdoth, a):
     """Height-correlated Smith (reference: path_tracer.hh:112-123)."""
     bad = torch.logical_or(vdotn * vdoth < 0, ldotn * ldoth < 0)
     a2 = a * a
-    denom = torch.abs(vdotn) * torch.sqrt(
+    denom = torch.abs(vdotn) * sqrt(
         ldotn * ldotn - a2 * ldotn * ldotn + a2
-    ) + torch.abs(ldotn) * torch.sqrt(vdotn * vdotn - a2 * vdotn * vdotn + a2)
+    ) + torch.abs(ldotn) * sqrt(vdotn * vdotn - a2 * vdotn * vdotn + a2)
     g = 0.5 / torch.where(denom == 0, 1.0, denom)
     return torch.where(bad | (denom == 0), 0.0, g)
 
@@ -76,7 +77,7 @@ def trowbridge_reitz_masking_shadowing(ldotn, ldoth, vdotn, vdoth, a):
 def trowbridge_reitz_masking(vdotn, vdoth, a):
     """Separable G1 (reference: path_tracer.hh:125-129)."""
     bad = vdotn * vdoth < 0
-    denom = vdotn + torch.sqrt(vdotn * vdotn * (1.0 - a * a) + a * a)
+    denom = vdotn + sqrt(vdotn * vdotn * (1.0 - a * a) + a * a)
     g = 2.0 * vdotn / torch.where(denom == 0, 1.0, denom)
     return torch.where(bad | (denom == 0), 0.0, g)
 

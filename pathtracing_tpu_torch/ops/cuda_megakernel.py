@@ -4,7 +4,7 @@
 the hand-written kernel in ``csrc/megakernel.cu`` (one thread per pixel slot,
 its samples in order; see the note at the top of that file for the design,
 the fold and the step cap). It is the counterpart of the JAX package's
-``path_trace_megakernel`` (pathtracing_tpu/ops/megakernel.py, an XLA
+``path_trace_megakernel`` (the JAX package's ops/megakernel.py, an XLA
 while-loop there); ``ops/megakernel.path_trace_megakernel`` dispatches to it
 for CUDA tensors, and ``ops/megakernel.path_trace_megakernel_plain`` is its
 plain version. ``megakernel_record_cuda`` runs the kernel's record build (K6:

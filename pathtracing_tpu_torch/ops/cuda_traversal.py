@@ -1,7 +1,7 @@
 """The CUDA ray-query kernel: build, binding and wrapper.
 
 ``ray_query_cuda`` is the counterpart of the JAX package's
-``ray_query_pallas`` (pathtracing_tpu/ops/pallas_traversal.py): same
+``ray_query_pallas`` (the JAX package's ops/pallas_traversal.py): same
 contract as ``ops/traversal.ray_query``, served by the hand-written kernel
 in ``csrc/ray_query.cu`` (one thread per ray; see the note at the top of
 that file for what bounds it and what its design does about it).

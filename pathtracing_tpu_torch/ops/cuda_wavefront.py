@@ -6,7 +6,7 @@
 that file for the design, the fold and the step cap), on the binary tables
 (binary walk, unpacked shading fetch) or on the wide ones (wide walk, packed
 fetch). It is the counterpart of the JAX package's ``path_trace_wavefront``
-(pathtracing_tpu/ops/wavefront.py, an XLA while-loop there);
+(the JAX package's ops/wavefront.py, an XLA while-loop there);
 ``ops/wavefront.path_trace_wavefront`` dispatches to it for CUDA tensors, and
 ``ops/wavefront.path_trace_wavefront_plain`` is its plain version.
 

@@ -1,7 +1,7 @@
 """The CUDA wide-BVH ray-query kernel: binding and wrapper.
 
 ``wide_ray_query_cuda`` is the counterpart of the JAX package's
-``wide_ray_query`` (pathtracing_tpu/ops/wide_traversal.py, an XLA while-loop
+``wide_ray_query`` (the JAX package's ops/wide_traversal.py, an XLA while-loop
 there): same contract as ``ops/wide_traversal.wide_ray_query``, served by the
 hand-written kernel in ``csrc/wide_ray_query.cu`` (one thread per ray; see the
 note at the top of that file for what bounds it and what its design does

@@ -18,6 +18,7 @@ from pathtracing_tpu_torch.utils.vec import (
     maximum,
     mix,
     where2,
+    sqrt,
 )
 
 _PI = c32(math.pi)
@@ -33,7 +34,7 @@ def sample_gaussian(u, sigma, epsilon):
 
 def sample_gaussian_weighted_disk(u: Vec2, sigma) -> Vec2:
     """Film anti-aliasing offset (reference: path_tracer.hh:19-25)."""
-    r = torch.sqrt(u.x)
+    r = sqrt(u.x)
     theta = u.y * c32(2.0 * _PI)
     r = sample_gaussian(r, sigma, c32(1e-6))
     return Vec2(r * torch.cos(theta), r * torch.sin(theta))
@@ -41,10 +42,10 @@ def sample_gaussian_weighted_disk(u: Vec2, sigma) -> Vec2:
 
 def sample_cosine_hemisphere(u: Vec2) -> Vec3:
     """reference: path_tracer.hh:27-33."""
-    r = torch.sqrt(u.x)
+    r = sqrt(u.x)
     theta = u.y * c32(2.0 * _PI)
     d = Vec2(r * torch.cos(theta), r * torch.sin(theta))
-    return Vec3(d.x, d.y, torch.sqrt(maximum(1.0 - dot2(d, d), 0.0)))
+    return Vec3(d.x, d.y, sqrt(maximum(1.0 - dot2(d, d), 0.0)))
 
 
 def cosine_hemisphere_pdf(dir_z):
@@ -60,7 +61,7 @@ def sample_cone(d: Vec3, cos_theta_min, u: Vec2) -> Vec3:
     cos_theta = mix(1.0, cos_theta_min, u.x)
     s2 = 1.0 - cos_theta * cos_theta
     pos = s2 > 0
-    sin_theta = torch.where(pos, torch.sqrt(torch.where(pos, s2, 1.0)), 0.0)
+    sin_theta = torch.where(pos, sqrt(torch.where(pos, s2, 1.0)), 0.0)
     phi = u.y * 2.0 * _PI
     ts: Mat3 = create_tangent_space(d)
     v = Vec3(torch.cos(phi) * sin_theta, torch.sin(phi) * sin_theta, cos_theta)
@@ -89,7 +90,7 @@ def sample_ggx_vndf(view: Vec3, roughness, u: Vec2) -> Vec3:
     vx = roughness * view.x
     vy = roughness * view.y
     vz = view.z
-    l = torch.sqrt(vx * vx + vy * vy + vz * vz)
+    l = sqrt(vx * vx + vy * vy + vz * vz)
     v = Vec3(vx / l, vy / l, vz / l)
 
     phi = u.x * c32(2.0 * _PI)
@@ -97,7 +98,7 @@ def sample_ggx_vndf(view: Vec3, roughness, u: Vec2) -> Vec3:
     z2 = 1.0 - z * z
     zpos = z2 > 0
     sin_theta = torch.where(
-        zpos, torch.sqrt(clamp(torch.where(zpos, z2, 1.0), 0.0, 1.0)), 0.0
+        zpos, sqrt(clamp(torch.where(zpos, z2, 1.0), 0.0, 1.0)), 0.0
     )  # guarded operand; z == +-1 occurs at u.y in {0, 1}
     x = sin_theta * torch.cos(phi)
     y = sin_theta * torch.sin(phi)
@@ -106,7 +107,7 @@ def sample_ggx_vndf(view: Vec3, roughness, u: Vec2) -> Vec3:
     hx = roughness * h.x
     hy = roughness * h.y
     hz = maximum(h.z, 0.0)
-    l2 = torch.sqrt(hx * hx + hy * hy + hz * hz)
+    l2 = sqrt(hx * hx + hy * hy + hz * hz)
     l2 = torch.where(l2 == 0, 1.0, l2)
     out = Vec3(hx / l2, hy / l2, hz / l2)
 

@@ -24,7 +24,7 @@ from pathtracing_tpu_torch.config import (
     EARTH_RADIUS,
 )
 from pathtracing_tpu_torch.ops import rng
-from pathtracing_tpu_torch.utils.vec import Vec3, c32, dot3, length3, maximum, minimum
+from pathtracing_tpu_torch.utils.vec import Vec3, c32, dot3, length3, maximum, minimum, sqrt
 
 # constants at their float32 values, as Python floats (see utils.vec.c32)
 _MAX_RAY_DIST = c32(1e9)
@@ -57,7 +57,7 @@ def ray_sphere_intersection(origin: Vec3, d: Vec3, center: Vec3, radius):
     disc = b * b - c
     hit = disc > 0
     sq = torch.where(
-        hit, torch.sqrt(torch.where(hit, disc, 1.0)), 0.0
+        hit, sqrt(torch.where(hit, disc, 1.0)), 0.0
     )
     return disc >= 0, -b - sq, -b + sq
 

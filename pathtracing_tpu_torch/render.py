@@ -149,7 +149,7 @@ def megakernel_supported(scene, xs, ys, width: int) -> bool:
     return getattr(scene, "wide_rows", None) is not None and _row_major(xs, ys, width)
 
 
-# Megakernel dispatch budgets, the JAX package's (pathtracing_tpu/render.py):
+# Megakernel dispatch budgets, the JAX package's (its render.py):
 # an accumulator-memory budget (PT_MK_ACC_MB) and a cap on the samples one
 # dispatch renders (PT_MK_DISPATCH_SAMPLES), smaller for large scenes. Here
 # the accumulator is the kernel's per-pixel output, and the cap keeps one

@@ -1,8 +1,4 @@
-"""Host-side scene data model (reference: scene.hh:7-34, bvh.hh:69-79).
-
-The handles the device packer reads.  The ``Scene`` container of the JAX
-package belongs to the host pipeline (loader, animation) and comes with it.
-"""
+"""Host-side scene data model (reference: scene.hh:7-65, bvh.hh:69-79)."""
 
 from __future__ import annotations
 
@@ -10,8 +6,8 @@ import dataclasses
 
 import numpy as np
 
-from pathtracing_tpu_torch.accel.types import BvhHandle
-from pathtracing_tpu_torch.io.obj import MeshHandle
+from pathtracing_tpu_torch.accel.types import BvhBuffers, BvhHandle
+from pathtracing_tpu_torch.io.obj import MeshBuffers, MeshHandle
 from pathtracing_tpu_torch.utils.hostmath import inverse4
 
 f32 = np.float32
@@ -61,3 +57,17 @@ class Subframe:
     tlas: BvhHandle
     cam: Camera
     light: DirectionalLight
+
+
+@dataclasses.dataclass
+class Scene:
+    """reference: scene.hh:40-65. The JAX package's container also carries
+    the animated loader's per-subframe bookkeeping (``subframe_entries``,
+    ``frame_static_end``); it comes to the port with that loader."""
+
+    mesh_buf: MeshBuffers = dataclasses.field(default_factory=MeshBuffers)
+    bvh_buf: BvhBuffers = dataclasses.field(default_factory=BvhBuffers)
+    meshes: dict = dataclasses.field(default_factory=dict)  # name -> (mesh, blas)
+    instances: list = dataclasses.field(default_factory=list)
+    static_instance_count: int = 0
+    subframes: list = dataclasses.field(default_factory=list)

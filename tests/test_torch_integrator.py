@@ -96,8 +96,21 @@ def test_per_sample_radiance_matches_oracle(scenes):
 
 
 def test_per_sample_radiance_matches_jax(scenes):
-    keys = golden("trace.gold")["keys"]
-    _bars(_torch_radiance(scenes[0], keys), _jax_radiance(scenes[1], keys))
+    tg = golden("trace.gold")
+    keys = tg["keys"]
+    got, ref = _torch_radiance(scenes[0], keys), _jax_radiance(scenes[1], keys)
+    _bars(got, ref)
+    # where the port and JAX differ (XLA contracts FMAs; the oracle was built
+    # without: inv_erf, the hemisphere's z, the sky's heights), the port
+    # follows the oracle. Measured: bit-equal to it on 59.0 % of the values
+    # against JAX's 26.9 %, and of the values where the two packages differ
+    # the port is the closer on 81 %, JAX on 16 %.
+    oracle = tg["radiance"]
+    assert (got == oracle).mean() >= 0.5
+    assert (got == oracle).mean() >= 2 * (ref == oracle).mean()
+    differ = got != ref
+    closer = np.abs(got - oracle)[differ] < np.abs(ref - oracle)[differ]
+    assert closer.mean() >= 0.7, closer.mean()
 
 
 def test_bokeh_aperture_matches_oracle(scenes):

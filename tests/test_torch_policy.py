@@ -64,6 +64,43 @@ def test_sources_name_no_jax_import():
                 assert "pathtracing_tpu." not in s and not s.endswith("pathtracing_tpu"), (p, line)
 
 
+def test_port_files_name_no_path_of_the_jax_package():
+    """No file of the port (code, comments, CUDA and C++ sources) names a
+    path under the JAX package's directory: the port builds, loads and reads
+    nothing of it."""
+    files = [p for p in (ROOT / "pathtracing_tpu_torch").rglob("*")
+             if p.is_file() and "__pycache__" not in p.parts]
+    assert len(files) > 40
+    for p in files:
+        assert "pathtracing_tpu/" not in p.read_text(), p
+
+
+def test_native_libraries_are_built_apart_from_the_jax_package():
+    """The port's host C++ (OBJ loader, BVH and wide builders) are copies of
+    the JAX package's sources, built with its flags into the port's own
+    ``build/torch_native/``, keyed by a hash of source and flags; never into
+    ``build/native/``, where the JAX package keeps its libraries."""
+    from pathtracing_tpu_torch.accel import native as tnative
+    from pathtracing_tpu_torch.io import native_loader
+    from pathtracing_tpu_torch.utils import native_build
+
+    assert native_build.BUILD_DIR == ROOT / "build" / "torch_native"
+    assert native_build.GXX_FLAGS == ("-O2", "-std=c++17", "-shared", "-fPIC",
+                                      "-ffp-contract=off")
+    libs = {"io/native/obj_loader.cc": native_loader.LIBRARY,
+            "accel/native/bvh_builder.cc": tnative.BVH_LIBRARY,
+            "accel/native/wide_builder.cc": tnative.WIDE_LIBRARY}
+    for rel, lib in libs.items():
+        assert lib.source == ROOT / "pathtracing_tpu_torch" / rel
+        assert lib.source.read_bytes() == (ROOT / "pathtracing_tpu" / rel).read_bytes()
+        path = lib.path()
+        assert path.parent == native_build.BUILD_DIR
+        assert len(path.stem.split("_")[-1]) == 16
+        loaded = lib.load()
+        assert loaded is not None and pathlib.Path(loaded._name) == path
+        assert ROOT / "build" / "native" not in path.parents
+
+
 def test_device_none_means_cuda_and_raises_without_one():
     """Runs where there is no card: ``device=None`` must raise, not drop to
     the CPU; ``device='cpu'`` works."""

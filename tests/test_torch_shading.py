@@ -8,7 +8,10 @@ ill-conditioned and those ulps are amplified (``1 - x*x`` with x near 1 in
 inv_erf and the hemisphere's z; a height taken as a difference against the
 Earth's radius, where one float32 ulp is half a metre; a select that flips):
 each check states the share of lanes held to the tight tolerance and a loose
-bound that every lane meets."""
+bound that every lane meets. Where those lanes differ from JAX they are held
+to the oracle's arithmetic instead: the port's evaluation rounds every
+operation as the oracle's build does (tests/test_torch_integrator.py holds
+the whole paths of trace.gold the same way)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -69,6 +72,38 @@ def _close(got, ref, rtol=RTOL, atol=ATOL, frac=1.0, loose=None):
     if loose is not None:
         far = ~np.isclose(got, ref, rtol=loose, atol=loose, equal_nan=True)
         assert not far.any(), (far.sum(), np.abs(got - ref)[far][:5])
+
+
+def _inv_erf_ieee(x):
+    """reference: math.hh:455-463, in numpy float32 operation by operation
+    (each rounded, as the oracle's build without FMA contraction rounds
+    them); logf correctly rounded."""
+    f = np.float32
+    ln1x2 = np.log((f(1) - x * x).astype(np.float64)).astype(f)
+    a = f(0.147)
+    p = f(2.0) / (f(np.pi) * a)
+    k = ln1x2 * f(0.5) + p
+    return (np.sign(x) * np.sqrt(np.sqrt(k * k - ln1x2 * (f(1.0) / a)) - k)).astype(f)
+
+
+def test_sqrt_is_the_ieee_root():
+    """``vec.sqrt``, the port's square root, is IEEE's: correctly rounded on
+    every input, as the oracle's sqrtf, XLA's and the CUDA kernels'
+    (--prec-sqrt=true) are. PyTorch's vectorised CPU sqrt was measured one
+    ulp off on 0.6 % of uniform inputs, and the shading's ill-conditioned
+    lanes (the hemisphere's z, inv_erf, the sky's heights) amplify it."""
+    rs = _rs(9)
+    x = np.concatenate([
+        rs.uniform(0, 1, 100_000), rs.uniform(0, 1e6, 10_000), 10.0 ** rs.uniform(-44, 38, 10_000),
+        [0.0, -0.0, 1.0, np.inf, -1.0, np.nan, 1e-45, 3.4e38],
+    ]).astype(np.float32)
+    got = n(tvec.sqrt(t(x)))
+    with np.errstate(invalid="ignore"):
+        ref = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(got.view(np.uint32)[~np.isnan(ref)],
+                                  ref.view(np.uint32)[~np.isnan(ref)])
+    assert np.isnan(got[np.isnan(ref)]).all()
+    assert tvec.sqrt(t(x)).dtype == t(x).dtype
 
 
 # ------------------------------------------------------------------ bsdf.gold
@@ -143,6 +178,11 @@ def test_vec_helpers_match_jax():
     x = _f(rs, -0.999999, 0.999999)
     # measured: 97.83 % of lanes at the tight tolerance, worst lane 1.3e-4
     _close(n(tvec.inv_erf(t(x))), n(jvec.inv_erf(jnp.asarray(x))), frac=0.975, loose=1e-3)
+    # the ill-conditioned lanes (1 - x*x as x -> 1) follow the oracle's
+    # arithmetic: every lane equal to the reference's formula evaluated as
+    # its build evaluates it, IEEE float32 with each operation rounded and no
+    # contraction (measured: JAX equal on 98.95 % of these lanes)
+    np.testing.assert_array_equal(n(tvec.inv_erf(t(x))), _inv_erf_ieee(x))
     _close(n(tvec.luminance(_t3(a))), n(jvec.luminance(_j3(a))))
 
 
@@ -160,6 +200,12 @@ def test_samplers_match_jax(name):
         ref = jsamp.sample_gaussian_weighted_disk(ju, np.float32(0.4))
     elif name == "cosine_hemisphere":
         got, ref = tsamp.sample_cosine_hemisphere(tu), jsamp.sample_cosine_hemisphere(ju)
+        # z where 1 - |d|^2 -> 0: from the sample's own d, every lane equal
+        # to the oracle's IEEE float32 sqrt(max(1 - (x*x + y*y), 0))
+        gx, gy = n(got.x), n(got.y)
+        one = np.float32(1)
+        z = np.sqrt(np.maximum(one - (gx * gx + gy * gy), np.float32(0)))
+        np.testing.assert_array_equal(n(got.z), z)
         _close(n(tsamp.cosine_hemisphere_pdf(got.z)), n(jsamp.cosine_hemisphere_pdf(ref.z)),
                frac=0.999, loose=1e-4)
     elif name == "cone":
