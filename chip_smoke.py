@@ -131,8 +131,8 @@ Phases, one JSON object per line:
                     frame: median of 5, device time, bound
   large_scene_record
                     one K6 launch at 1080p x 1 spp: every record plane equal
-                    to the scan's; the share of primary rays that hit (must
-                    be >= 50 %)
+                    to the scan's; its time, device time and bound; the
+                    share of primary rays that hit (must be >= 50 %)
   record_check      the megakernel's record build (K6) vs its plain version
                     (path_trace_megakernel_plain(record=True)) on w8, w16, s8
                     and motion.gold's scene, spp 1 and spp 3: every record
@@ -1710,7 +1710,8 @@ def phase_large_scene(cfg, smi):
     scan frame on the same tables; one launch of K2 and of K5 at 8 spp timed
     (median of 5, L2 flushed) with its device time and bound; one K6 record
     launch at 1080p x 1 spp against the scan's records (every plane equal),
-    whose primary hits give the share of primary rays that hit (>= 50 %)."""
+    timed with its device time and bound, whose primary hits give the share
+    of primary rays that hit (>= 50 %)."""
     W, H = cfg.image_width, cfg.image_height
     n = W * H
     torch.cuda.synchronize()
@@ -1858,10 +1859,20 @@ def phase_large_scene(cfg, smi):
     (pr, pg, pb), precs = path_trace_megakernel_plain(cfg, scene, n, GRAD_SPP, record=True)
     mism = records_equal("large 1080p record", recs, precs)
     cmp = mk_compare("large 1080p record", tuple(acc), (pr, pg, pb), GRAD_SPP, 0, 0, W)
-    k6_t = time_launches({"k6": lambda: CM.megakernel_record_cuda(cfg, scene, n, GRAD_SPP)})
+    k6_fn = lambda: CM.megakernel_record_cuda(cfg, scene, n, GRAD_SPP)
+    k6_t = time_launches({"k6": k6_fn})
+    # the bound as record_timing works it out: K2's counted work at 1 spp,
+    # plus the record planes written once
+    *_, counts = CM.megakernel_cuda(cfg, scene, n, GRAD_SPP, counts=True)
+    rec_bytes = n * GRAD_SPP * (8 + 9 * cfg.max_bounces)
+    k6_bound = path_kernel_bound(scene, counts, n, 3 * 4 * n + rec_bytes, spp=GRAD_SPP)
     hit_share = float(recs[0]["hit"].float().mean())
     k6 = {"launches": k6_launches, "record_mismatches": mism, "ms": k6_t["k6"][0],
-          "ms_all": k6_t["k6"][1], "max_abs_err": cmp["max_abs_err"],
+          "ms_all": k6_t["k6"][1], **launch_device_ms(k6_fn, "megakernel_record"),
+          **{k: k6_bound[k] for k in ("bound_ms", "bound_by", "bound_bytes_ms",
+                                      "bound_ops_ms")},
+          "roofline_share": k6_bound["bound_ms"] / k6_t["k6"][0],
+          "max_abs_err": cmp["max_abs_err"],
           "bit_equal_share_vs_plain": cmp["bit_equal_share"],
           "primary_hit_share": hit_share,
           "primary_instance_hit_share": float((recs[0]["inst"] > 0).float().mean()),
@@ -2948,7 +2959,8 @@ def main() -> int:
             "design_timing_w8": {d: designs["megakernel_record_w8_row_major"][d]["ms"]
                                  for d in CM.DESIGNS},
             "large_scene": {k: large["k6"][k] for k in (
-                "launches", "ms", "max_abs_err", "primary_hit_share")},
+                "launches", "ms", "device_ms", "bound_ms", "bound_by", "max_abs_err",
+                "primary_hit_share")},
             "card": smi,
         },
         {
