@@ -108,13 +108,14 @@ Phases, one JSON object per line:
                     bound from the counting build's counters of the same
                     work; the wavefront on the binary and the w8 scene, timed
                     in turns with the megakernel
-  large_scene       the procedural large scene (testing.build_large_scene:
+  large_scene       the procedural large scene (scene/large_scene.build:
                     the generated terrain at 512 x 512 vertices under
                     build/large_scene/, 1,024 pine and bunny instances, a
                     camera looking down onto it; ~0.52 M triangles, tables
-                    5-6x the L2), built by the native OBJ loader and BVH
-                    builders (required): triangles, instances, each table's
-                    bytes against the L2, host seconds per stage, peak memory
+                    5-6x the L2), built through SceneBuilder.build on the
+                    card by the native OBJ loader and BVH builders
+                    (required): triangles, instances, each table's bytes
+                    against the L2, host seconds per stage, peak memory
   large_scene_ray_queries
                     P1 and K1 on 65,536 of its frame's rays (the primary and
                     the first bounce batch) against their plain versions
@@ -132,7 +133,8 @@ Phases, one JSON object per line:
   large_scene_record
                     one K6 launch at 1080p x 1 spp: every record plane equal
                     to the scan's; its time, device time and bound; the
-                    share of primary rays that hit (must be >= 50 %)
+                    share of primary rays that hit (must be >= 50 %) and
+                    that hit a placed object (must be > 0)
   record_check      the megakernel's record build (K6) vs its plain version
                     (path_trace_megakernel_plain(record=True)) on w8, w16, s8
                     and motion.gold's scene, spp 1 and spp 3: every record
@@ -258,6 +260,8 @@ from pathtracing_tpu_torch.render import (
     render_pixels,
     to_bgra,
 )
+from pathtracing_tpu_torch.scene import large_scene
+from pathtracing_tpu_torch.scene.device import binary_tables
 from pathtracing_tpu_torch.scene.golden import (
     scene_device_from_golden,
     scene_device_from_motion_golden,
@@ -266,12 +270,6 @@ from pathtracing_tpu_torch.utils import native_build
 from pathtracing_tpu_torch.utils.goldenio import load_golden
 from pathtracing_tpu_torch.utils.vec import Vec3
 
-# the large scene's recipe is shared with the CPU tests; importing their
-# helpers pins PyTorch to one CPU thread, which this run does not want
-_threads = torch.get_num_threads()
-from pathtracing_tpu_torch.testing import binary_tables, build_large_scene  # noqa: E402
-
-torch.set_num_threads(_threads)
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
@@ -1697,10 +1695,12 @@ def frame_launches(tag, counters, expected, fn):
 
 
 def phase_large_scene(cfg, smi):
-    """The procedural large scene (testing.build_large_scene): the generated
-    terrain at 512 x 512 vertices, 1,024 pine and bunny instances, a camera
-    looking down onto it, the sun of sphere_ground; built by the native
-    loader and builders (their counts required), its tables 5-6x the L2.
+    """The procedural large scene (scene/large_scene.build: its files, then
+    SceneBuilder.add_mesh and SceneBuilder.build on the card, wide tables by
+    default): the generated terrain at 512 x 512 vertices, 1,024 pine and
+    bunny instances, a camera looking down onto it, the sun of sphere_ground;
+    built by the native loader and builders (their counts required), its
+    tables 5-6x the L2.
     On it: P1 and K1 on 65,536 of the frame's rays (primary and first bounce
     batch) against their plain versions, timed, with their bound by bytes
     from the rows the plain walks touched; both at a render tile's batch
@@ -1711,16 +1711,19 @@ def phase_large_scene(cfg, smi):
     (median of 5, L2 flushed) with its device time and bound; one K6 record
     launch at 1080p x 1 spp against the scan's records (every plane equal),
     timed with its device time and bound, whose primary hits give the share
-    of primary rays that hit (>= 50 %)."""
+    of primary rays that hit (>= 50 %) and the share that hit a placed
+    object (> 0)."""
     W, H = cfg.image_width, cfg.image_height
     n = W * H
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     native_build.reset_builds()
-    s, scene, host_s = build_large_scene(LARGE_DIR, cfg, device="cuda")
+    s, scene, host_s = large_scene.build(LARGE_DIR, cfg)
     builds = dict(native_build.builds)
     require(builds == {"obj_native": 3, "bvh_native": 4, "wide_native": 2},
             f"large scene: host builders {builds}")
+    require(scene.nl8.is_cuda and scene.wide_rows is not None and scene.tri_shade is not None,
+            "large scene: SceneBuilder.build's default is the wide tables on the card")
     build_peak = torch.cuda.max_memory_allocated()
     binary = binary_tables(scene)
     bin_b, wide_b = field_bytes(scene, BINARY_TABLES), field_bytes(scene, WIDE_TABLES)
@@ -1867,6 +1870,7 @@ def phase_large_scene(cfg, smi):
     rec_bytes = n * GRAD_SPP * (8 + 9 * cfg.max_bounces)
     k6_bound = path_kernel_bound(scene, counts, n, 3 * 4 * n + rec_bytes, spp=GRAD_SPP)
     hit_share = float(recs[0]["hit"].float().mean())
+    instance_share = float((recs[0]["hit"] & (recs[0]["inst"] > 0)).float().mean())
     k6 = {"launches": k6_launches, "record_mismatches": mism, "ms": k6_t["k6"][0],
           "ms_all": k6_t["k6"][1], **launch_device_ms(k6_fn, "megakernel_record"),
           **{k: k6_bound[k] for k in ("bound_ms", "bound_by", "bound_bytes_ms",
@@ -1875,12 +1879,13 @@ def phase_large_scene(cfg, smi):
           "max_abs_err": cmp["max_abs_err"],
           "bit_equal_share_vs_plain": cmp["bit_equal_share"],
           "primary_hit_share": hit_share,
-          "primary_instance_hit_share": float((recs[0]["inst"] > 0).float().mean()),
+          "primary_instance_hit_share": instance_share,
           "bounce_hits": int(recs[1]["hit"].sum()),
           "shadow_occluded": int(recs[1]["occ"].sum())}
     del recs, precs
     emit("large_scene_record", **k6, card=smi)
     require(hit_share >= 0.5, f"large scene: {hit_share} of primary rays hit")
+    require(instance_share > 0, f"large scene: {instance_share} of primary rays hit an object")
     return {"info": info, "p1": p1, "k1": k1, "tile_ms": tile_ms, "frames": frames,
             "timing": timing, "k6": k6}
 

@@ -40,22 +40,12 @@ WIDE_LIBRARY = HostLibrary(os.path.join(_DIR, "wide_builder.cc"), {
 })
 
 
-def get_lib():
-    """The loaded BVH builder library, or None when unavailable."""
-    return BVH_LIBRARY.load()
-
-
-def get_wide_lib():
-    """The loaded wide-builder library, or None when unavailable."""
-    return WIDE_LIBRARY.load()
-
-
 def build_bvh_native(lmin: np.ndarray, lmax: np.ndarray, lidx: np.ndarray):
     """Build node/link arrays for the given leaves, or None if no native lib.
 
     Returns (nodes (N,6) f32, links (8N,2) u32) in the reference layout.
     """
-    lib = get_lib()
+    lib = BVH_LIBRARY.load()
     if lib is None:
         return None
     n = len(lidx)
@@ -103,7 +93,7 @@ def build_wide_tree_native(
     """
     from pathtracing_tpu_torch.accel.wide import WideLayout
 
-    lib = get_wide_lib()
+    lib = WIDE_LIBRARY.load()
     if lib is None:
         return None
     n = len(nodes6)

@@ -31,14 +31,10 @@ LIBRARY = HostLibrary(_SRC, {
 })
 
 
-def _get_lib():
-    return LIBRARY.load()
-
-
 def load_obj_native(path: str):
     """Returns (indices, pos, normal, albedo, material) numpy arrays, or None
     when the native library cannot be built."""
-    lib = _get_lib()
+    lib = LIBRARY.load()
     if lib is None:
         return None
     out = _PtMeshOut()

@@ -11,14 +11,13 @@ propagates: nothing here gives way to another path.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import os
 import pathlib
 import re
 import shutil
-import subprocess
 import time
+
+from pathtracing_tpu_torch.utils.shared_lib import bind, compile_into, hashed_path
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -72,11 +71,7 @@ class KernelLibrary:
         return self.source.stem
 
     def path(self) -> pathlib.Path:
-        h = hashlib.sha256()
-        for f in (self.source, *self.headers):
-            h.update(f.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"{self.name}_{h.hexdigest()[:16]}.so"
+        return hashed_path(BUILD_DIR, self.name, (self.source, *self.headers), NVCC_FLAGS)
 
     @property
     def build_log(self) -> pathlib.Path:
@@ -89,29 +84,20 @@ class KernelLibrary:
         out = self.path()
         if out.exists():
             return out
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = build_command(find_nvcc(), self.source, tmp)
+        nvcc = find_nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = compile_into(out, lambda tmp: build_command(nvcc, self.source, tmp))
         self.build_seconds = time.perf_counter() - t0
-        self.build_log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        self.build_log.write_text(" ".join(proc.args) + "\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
             )
-        os.replace(tmp, out)  # atomic: a half-written library is never loaded
         return out
 
     def load(self):
         if self._lib is None:
-            lib = ctypes.CDLL(str(self.build()))
-            for name, (argtypes, restype) in self.symbols.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = restype
-            self._lib = lib
+            self._lib = bind(self.build(), self.symbols)
         return self._lib
 
     def resources(self) -> list[dict]:

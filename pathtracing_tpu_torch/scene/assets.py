@@ -134,8 +134,30 @@ def _uv_sphere(cx, cy, cz, rx, ry, rz, nu=12, nv=8):
     return verts, faces
 
 
-def _write_obj(path, mtl_name, mtl_text, parts):
-    """parts: list of (material, verts, faces)."""
+def _vertex_normals(verts, faces) -> np.ndarray:
+    """Smooth unit normals of one part's vertices: the sum of the normals of
+    the faces around each (their areas as weights), turned away from the
+    part's centre; a vertex whose faces are all degenerate takes the
+    direction from the centre."""
+    v = np.asarray(verts, np.float64)
+    f = np.asarray(faces, np.int64)
+    fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+    centre = v.mean(0)
+    if np.sum(fn * (v[f].mean(1) - centre)) < 0:
+        fn = -fn
+    acc = np.zeros_like(v)
+    for k in range(3):
+        np.add.at(acc, f[:, k], fn)
+    acc = np.where(np.linalg.norm(acc, axis=1, keepdims=True) > 1e-12, acc, v - centre)
+    return acc / np.linalg.norm(acc, axis=1, keepdims=True)
+
+
+def _write_obj(path, mtl_name, mtl_text, parts, normals=False):
+    """parts: list of (material, verts, faces). ``normals=True`` also writes
+    smooth vertex normals and faces as "f a//a b//b c//c", which every loader
+    of the repo reads alike; the default writes the bare "f a b c" faces of
+    the committed assets, which the native loader reads the reference's way
+    (a corner's following numbers as its texture and normal indices)."""
     lines = [f"mtllib {mtl_name}"]
     offset = 0
     vchunks = []
@@ -145,19 +167,24 @@ def _write_obj(path, mtl_name, mtl_text, parts):
     for _, verts, _, _ in vchunks:
         for v in verts:
             lines.append(f"v {v[0]:.4f} {v[1]:.4f} {v[2]:.4f}")
+    if normals:
+        for _, verts, faces, _ in vchunks:
+            for nv in _vertex_normals(verts, faces):
+                lines.append(f"vn {nv[0]:.4f} {nv[1]:.4f} {nv[2]:.4f}")
     for material, verts, faces, off in vchunks:
         lines.append(f"usemtl {material}")
         for fidx in faces:
             a, b, c = (fidx[0] + off + 1, fidx[1] + off + 1, fidx[2] + off + 1)
-            lines.append(f"f {a} {b} {c}")
+            lines.append(f"f {a}//{a} {b}//{b} {c}//{c}" if normals else f"f {a} {b} {c}")
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     with open(os.path.join(os.path.dirname(path), mtl_name), "w") as f:
         f.write(mtl_text)
 
 
-def write_bunny_obj(path: str) -> None:
-    """Bunny-scaled blob (~1.2 units tall like the Stanford bunny usage)."""
+def write_bunny_obj(path: str, normals: bool = False) -> None:
+    """Bunny-scaled blob (~1.2 units tall like the Stanford bunny usage);
+    ``normals`` as in ``_write_obj``."""
     body_v, body_f = _uv_sphere(0, 0.45, 0, 0.55, 0.45, 0.45, 16, 10)
     head_v, head_f = _uv_sphere(0.35, 0.85, 0, 0.3, 0.28, 0.28, 12, 8)
     ear1_v, ear1_f = _uv_sphere(0.32, 1.25, -0.12, 0.08, 0.3, 0.06, 8, 6)
@@ -172,6 +199,7 @@ def write_bunny_obj(path: str) -> None:
             ("fur", ear1_v, ear1_f),
             ("fur", ear2_v, ear2_f),
         ],
+        normals,
     )
 
 
@@ -202,8 +230,9 @@ def _cylinder(cx, cy, cz, r, h, n=8):
     return verts, faces
 
 
-def write_pine_obj(path: str) -> None:
-    """Conical pine ~9 units tall (tree meshes are ~8-10 units)."""
+def write_pine_obj(path: str, normals: bool = False) -> None:
+    """Conical pine ~9 units tall (tree meshes are ~8-10 units); ``normals``
+    as in ``_write_obj``."""
     trunk_v, trunk_f = _cylinder(0, 0, 0, 0.35, 3.0)
     c1_v, c1_f = _cone(0, 2.0, 0, 2.6, 4.0)
     c2_v, c2_f = _cone(0, 4.2, 0, 2.0, 3.2)
@@ -219,6 +248,7 @@ def write_pine_obj(path: str) -> None:
             ("needles", c2_v, c2_f),
             ("needles", c3_v, c3_f),
         ],
+        normals,
     )
 
 

@@ -19,13 +19,15 @@ the tables onto ``device`` through ``scene/device.pack_scene``.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 from pathtracing_tpu_torch import resolve_device
 from pathtracing_tpu_torch.accel.builder_py import build_blas, build_tlas
 from pathtracing_tpu_torch.config import TESTING, RenderConfig
 from pathtracing_tpu_torch.io.obj import load_mesh
-from pathtracing_tpu_torch.scene.device import pack_scene
+from pathtracing_tpu_torch.scene.device import attach_wide, pack_scene
 from pathtracing_tpu_torch.scene.loader import make_transform
 from pathtracing_tpu_torch.scene.types import (
     Camera,
@@ -44,10 +46,21 @@ class SceneBuilder:
         self.scene = Scene()
         self._camera: Camera | None = None
         self._light: DirectionalLight | None = None
+        # host seconds per stage: load and blas summed over add_mesh, tlas,
+        # binary_pack and wide_pack of the last build
+        self.seconds: dict[str, float] = {}
+
+    def _lap(self, stage: str, t0: float) -> float:
+        now = time.perf_counter()
+        self.seconds[stage] = self.seconds.get(stage, 0.0) + now - t0
+        return now
 
     def add_mesh(self, name: str, obj_path: str) -> None:
+        t0 = time.perf_counter()
         m = load_mesh(self.scene.mesh_buf, obj_path)
+        t0 = self._lap("load", t0)
         blas = build_blas(m, self.scene.mesh_buf.arrays(), self.scene.bvh_buf)
+        self._lap("blas", t0)
         self.scene.meshes[name] = (m, blas)
 
     def add_instance(
@@ -124,6 +137,9 @@ class SceneBuilder:
         if cam.aspect_ratio == 16 / 9:
             cam = Camera(**{**cam.__dict__, "aspect_ratio": config.image_width / float(config.image_height)})
 
+        for stage in ("tlas", "binary_pack", "wide_pack"):
+            self.seconds.pop(stage, None)
+        t0 = time.perf_counter()
         tlas = build_tlas(
             s.instances,
             list(range(len(s.instances))),
@@ -135,18 +151,16 @@ class SceneBuilder:
             for _ in range(config.subframe_count)
         ]
         s.static_instance_count = len(s.instances)
+        t0 = self._lap("tlas", t0)
+        args = (s.mesh_buf.arrays(), s.bvh_buf.nodes, s.bvh_buf.links, s.instances,
+                s.subframes)
+        scene_device = pack_scene(*args, emissive_nee=emissive_nee, device=device)
+        t0 = self._lap("binary_pack", t0)
         if wide is None:
             wide = device.type == "cuda"
-        scene_device = pack_scene(
-            s.mesh_buf.arrays(),
-            s.bvh_buf.nodes,
-            s.bvh_buf.links,
-            s.instances,
-            s.subframes,
-            emissive_nee=emissive_nee,
-            wide=wide,
-            device=device,
-        )
+        if wide:
+            scene_device = attach_wide(scene_device, *args)
+            self._lap("wide_pack", t0)
         return s, scene_device
 
 

@@ -197,16 +197,24 @@ def attach_wide(
     leaf_bundle: int | None = 8,
     layout="w8",
 ) -> SceneDevice:
-    """Attach the wide-BVH mega-table (accel/wide.py) to a packed scene, on
-    the scene's device."""
+    """Attach the wide-BVH mega-table (accel/wide.py) and the packed shading
+    rows to a packed scene, on the scene's device."""
     mega, root_by_off = build_wide_tables(
         mesh_arrays, bvh_nodes, bvh_links, instances, subframes,
         leaf_bundle=leaf_bundle, layout=_wide_layout(layout),
     )
     device = scene.nl8.device
+    tri_shade = pack_tri_shade(*mesh_arrays, [i.mesh for i in instances])
     return scene._replace(
-        wide_rows=to_device(mega, device), wide_root=to_device(root_by_off, device)
+        wide_rows=to_device(mega, device), wide_root=to_device(root_by_off, device),
+        tri_shade=to_device(tri_shade, device),
     )
+
+
+def binary_tables(scene: SceneDevice) -> SceneDevice:
+    """A scene packed with both table kinds, as the binary walks see it: the
+    same tensors without the wide ones."""
+    return scene._replace(wide_rows=None, wide_root=None, tri_shade=None)
 
 
 def pack_scene(
@@ -264,14 +272,6 @@ def pack_scene(
         scene = attach_wide(
             scene, mesh_arrays, bvh_nodes, bvh_links, instances, subframes,
             leaf_bundle=leaf_bundle, layout=wide_layout,
-        )
-        scene = scene._replace(
-            tri_shade=dev(
-                pack_tri_shade(
-                    indices, pos, normal, albedo, material,
-                    [i.mesh for i in instances],
-                )
-            )
         )
     return scene
 

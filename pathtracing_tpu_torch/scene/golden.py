@@ -20,7 +20,6 @@ from pathtracing_tpu_torch.scene.device import (
     attach_wide,
     pack_nl8,
     pack_scene,
-    pack_tri_shade,
     pack_tri_tables,
     pack_vattr,
     to_device,
@@ -143,7 +142,4 @@ def scene_device_from_motion_golden(
             scene, mesh_arrays, g["mb_nodes"], g["mb_links"], instances,
             subframes, layout=wide_layout,
         )
-        scene = scene._replace(tri_shade=dev(pack_tri_shade(
-            *mesh_arrays, [i.mesh for i in instances]
-        )))
     return scene

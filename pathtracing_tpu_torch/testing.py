@@ -1,30 +1,18 @@
-"""Shared helpers of the port's tests (``tests/test_torch_*.py``) and of
-``chip_smoke.py``.
+"""Shared helpers of the port's tests (``tests/test_torch_*.py``).
 
 The tests feed the same numpy inputs to a JAX function and to its
 counterpart here (``device="cpu"``); these helpers move arrays in and out
-of the port's SoA types. The large procedural scene's recipe is here too,
-so that a CPU test can rebuild it small with both packages and the card
-run at full size. Imports no JAX. Importing this module pins PyTorch to one
-thread: the test suite runs several worker processes side by side.
+of the port's SoA types. Imports no JAX. Importing this module pins PyTorch
+to one thread: the test suite runs several worker processes side by side.
 """
 
 from __future__ import annotations
 
-import os
 import pathlib
-import time
 
 import numpy as np
 import torch
 
-from pathtracing_tpu_torch import resolve_device
-from pathtracing_tpu_torch.accel.builder_py import build_blas, build_tlas
-from pathtracing_tpu_torch.io.obj import load_mesh
-from pathtracing_tpu_torch.scene import assets
-from pathtracing_tpu_torch.scene.builder import SceneBuilder
-from pathtracing_tpu_torch.scene.device import attach_wide, pack_scene, pack_tri_shade, to_device
-from pathtracing_tpu_torch.scene.types import Camera, Subframe
 from pathtracing_tpu_torch.utils.goldenio import load_golden
 from pathtracing_tpu_torch.utils.vec import Vec3
 
@@ -106,119 +94,3 @@ def assert_hits_agree(hit_t, occ_t, hit_j, occ_j) -> None:
             n(getattr(hit_t, k))[exact], n(getattr(hit_j, k))[exact],
             rtol=1e-4, atol=1e-5,
         )
-
-
-# ------------------------------------------------ the large procedural scene
-#
-# The generated terrain at n x n vertices, plus LARGE_INSTANCES placements
-# (the reference's OBJECT_COUNT, scene/loader.py), half pine, half bunny, at
-# seeded (x, _height(x, z), z) inside the terrain's extent with a seeded
-# yaw; a camera looking down onto the terrain and the sun of sphere_ground.
-# At n = 512: 522,994 triangles; tables of 280 MB (binary) and 230 MB (w8),
-# 5-6x the card's 50 MB L2.
-
-LARGE_TERRAIN_N = 512
-LARGE_INSTANCES = 1024
-LARGE_SEED = 7
-LARGE_EXTENT = 130.0  # write_terrain_obj's default extent
-LARGE_CAMERA = {"position": (0.0, 90.0, 100.0), "pitch_yaw_roll": (55.0, 0.0, 0.0),
-                "fov": 50.0}
-LARGE_SUN = {"direction": (0.45, 1.0, 0.35), "color": (4, 4, 4)}
-
-
-def large_scene_placements(height, count=LARGE_INSTANCES, seed=LARGE_SEED,
-                           extent=LARGE_EXTENT):
-    """[(mesh name, (x, y, z), yaw in degrees)] of the large scene's
-    instances; ``height`` is the terrain's ``_height`` (either package's)."""
-    rs = np.random.default_rng(seed)
-    xz = rs.uniform(-0.9 * extent, 0.9 * extent, (count, 2)).astype(np.float32)
-    yaw = rs.uniform(0.0, 360.0, count).astype(np.float32)
-    y = height(xz[:, 0], xz[:, 1])
-    return [("pine_tree" if i % 2 == 0 else "bunny",
-             (float(xz[i, 0]), float(y[i]), float(xz[i, 1])), float(yaw[i]))
-            for i in range(count)]
-
-
-def large_scene_files(asset_dir, assets, n=LARGE_TERRAIN_N) -> dict:
-    """Writes the large scene's OBJ files with ``assets`` (either package's
-    ``scene/assets`` module) unless they are there; returns name -> path."""
-    paths = assets.ensure_substitutes(str(asset_dir))
-    paths["terrain"] = os.path.join(str(asset_dir), f"terrain_n{n}.obj")
-    if not os.path.exists(paths["terrain"]):
-        assets.write_terrain_obj(paths["terrain"], n=n)
-    return paths
-
-
-def describe_large_scene(b, paths, placements) -> None:
-    """The large scene through a SceneBuilder (either package's): meshes,
-    the terrain instance, the placements, camera and sun."""
-    for name in ("terrain", "pine_tree", "bunny"):
-        b.add_mesh(name, paths[name])
-    b.add_instance("terrain")
-    for name, pos, yaw in placements:
-        b.add_instance(name, pos=pos, pitch_yaw_roll=(0.0, yaw, 0.0))
-    b.set_camera(**LARGE_CAMERA)
-    b.set_light(**LARGE_SUN)
-
-
-def build_large_scene(asset_dir, config, device=None, n=LARGE_TERRAIN_N,
-                      count=LARGE_INSTANCES, seed=LARGE_SEED, layout="w8"):
-    """The port's large scene, built step by step as ``SceneBuilder.add_mesh``
-    and ``SceneBuilder.build(wide=True)`` build it (the same bytes;
-    tests/test_torch_models.py), each stage on the host's clock.
-
-    Returns (Scene, SceneDevice with both table kinds, {stage: seconds}):
-    write (the OBJ files), load, blas, tlas, binary_pack, wide_pack."""
-    device = resolve_device(device)
-    sec = {}
-    t0 = time.perf_counter()
-
-    def lap(stage):
-        nonlocal t0
-        now = time.perf_counter()
-        sec[stage] = now - t0
-        t0 = now
-
-    paths = large_scene_files(asset_dir, assets, n)
-    lap("write")
-    b = SceneBuilder()
-    s = b.scene
-    handles = {name: load_mesh(s.mesh_buf, paths[name])
-               for name in ("terrain", "pine_tree", "bunny")}
-    lap("load")
-    for name, m in handles.items():
-        s.meshes[name] = (m, build_blas(m, s.mesh_buf.arrays(), s.bvh_buf))
-    lap("blas")
-    b.add_instance("terrain")
-    for name, pos, yaw in large_scene_placements(assets._height, count, seed):
-        b.add_instance(name, pos=pos, pitch_yaw_roll=(0.0, yaw, 0.0))
-    b.set_camera(**LARGE_CAMERA)
-    b.set_light(**LARGE_SUN)
-    cam = b._camera
-    if cam.aspect_ratio == 16 / 9:
-        cam = Camera(**{**cam.__dict__,
-                        "aspect_ratio": config.image_width / float(config.image_height)})
-    tlas = build_tlas(s.instances, list(range(len(s.instances))), s.bvh_buf.nodes,
-                      s.bvh_buf)
-    s.subframes = [Subframe(tlas, cam, b._light) for _ in range(config.subframe_count)]
-    s.static_instance_count = len(s.instances)
-    lap("tlas")
-    arrays = s.mesh_buf.arrays()
-    args = (arrays, s.bvh_buf.nodes, s.bvh_buf.links, s.instances, s.subframes)
-    scene = pack_scene(*args, device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    lap("binary_pack")
-    scene = attach_wide(scene, *args, layout=layout)
-    scene = scene._replace(tri_shade=to_device(
-        pack_tri_shade(*arrays, [i.mesh for i in s.instances]), device))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    lap("wide_pack")
-    return s, scene, sec
-
-
-def binary_tables(scene):
-    """A scene packed with both table kinds, as the binary walks see it: the
-    same tensors without the wide ones."""
-    return scene._replace(wide_rows=None, wide_root=None, tri_shade=None)

@@ -4,24 +4,22 @@ BVH builders), and count which builder served each call.
 Each source (``io/native/obj_loader.cc``, ``accel/native/bvh_builder.cc``,
 ``accel/native/wide_builder.cc``) is compiled with ``g++`` at first use into
 ``build/torch_native/`` at the root of the checkout, under a name keyed by a
-hash of the source and the flags, and loaded with ``ctypes``. The directory
-is the port's own: the JAX package keeps its libraries elsewhere, keyed by
-modification time against its own sources, so neither package can load the
-other's library. A build goes to a temporary name and is moved into place
-with ``os.replace``, so concurrent processes never load half a file. Where
-``g++`` is missing or fails, ``load`` returns None and the caller takes the
-Python builder, which gives the same bytes.
+hash of the source and the flags, and loaded with ``ctypes``, by the steps
+of ``utils/shared_lib`` that the CUDA kernels' libraries take too. The
+directory is the port's own: the JAX package keeps its libraries elsewhere,
+keyed by modification time against its own sources, so neither package can
+load the other's library. Where ``g++`` is missing or fails, ``load``
+returns None and the caller takes the Python builder, which gives the same
+bytes.
 """
 
 from __future__ import annotations
 
 import collections
-import ctypes
-import hashlib
-import os
 import pathlib
-import subprocess
 import threading
+
+from pathtracing_tpu_torch.utils.shared_lib import bind, compile_into, hashed_path
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG.parent / "build" / "torch_native"
@@ -51,9 +49,7 @@ class HostLibrary:
         self._lib = None
 
     def path(self) -> pathlib.Path:
-        h = hashlib.sha256(self.source.read_bytes())
-        h.update(" ".join(GXX_FLAGS).encode())
-        return BUILD_DIR / f"lib{self.source.stem}_{h.hexdigest()[:16]}.so"
+        return hashed_path(BUILD_DIR, f"lib{self.source.stem}", (self.source,), GXX_FLAGS)
 
     def build(self) -> pathlib.Path | None:
         """The library's path, built if its hash-named file is missing;
@@ -61,16 +57,12 @@ class HostLibrary:
         out = self.path()
         if out.exists():
             return out
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         try:
-            subprocess.run(["g++", *GXX_FLAGS, str(self.source), "-o", str(tmp)],
-                           check=True, capture_output=True)
-        except (subprocess.CalledProcessError, FileNotFoundError):
-            tmp.unlink(missing_ok=True)
+            proc = compile_into(out, lambda tmp: ["g++", *GXX_FLAGS, str(self.source),
+                                                  "-o", str(tmp)])
+        except FileNotFoundError:
             return None
-        os.replace(tmp, out)
-        return out
+        return out if proc.returncode == 0 else None
 
     def load(self):
         """The loaded library, or None when it cannot be built."""
@@ -78,11 +70,5 @@ class HostLibrary:
             if not self._tried:
                 self._tried = True
                 so = self.build()
-                if so is not None:
-                    lib = ctypes.CDLL(str(so))
-                    for name, (argtypes, restype) in self.symbols.items():
-                        fn = getattr(lib, name)
-                        fn.argtypes = list(argtypes)
-                        fn.restype = restype
-                    self._lib = lib
+                self._lib = None if so is None else bind(so, self.symbols)
             return self._lib

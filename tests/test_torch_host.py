@@ -65,7 +65,7 @@ def native_libraries():
     """Both packages' native libraries build here (g++ is on the test
     machines); a test of the native path must not pass on the Python one."""
     assert native_loader.LIBRARY.load() is not None
-    assert tnative.get_lib() is not None and tnative.get_wide_lib() is not None
+    assert tnative.BVH_LIBRARY.load() is not None and tnative.WIDE_LIBRARY.load() is not None
     assert jnative.get_lib() is not None and jnative.get_wide_lib() is not None
 
 
@@ -126,6 +126,30 @@ def test_native_and_python_loaders(monkeypatch):
     _, parr = _load(tobj, OBJS["bunny"], "python", monkeypatch)
     _, narr = _load(tobj, OBJS["bunny"], "native", monkeypatch)
     assert (len(parr[1]), len(narr[1])) == (396, 705)
+
+
+@pytest.mark.parametrize("name", ["bunny", "pine_tree"])
+def test_substitutes_with_normals_load_alike(name, tmp_path, monkeypatch):
+    """Written with vertex normals and slashed faces, the bunny and the pine
+    load to the same bytes by every loader of both packages: the Python
+    loader's mesh of the bare faces, with unit normals turned outward."""
+    path = tmp_path / f"{name}.obj"
+    {"bunny": tassets.write_bunny_obj, "pine_tree": tassets.write_pine_obj}[name](
+        str(path), normals=True)
+    ref_m, ref = _load(tobj, path, "python", monkeypatch)
+    for module in (tobj, jobj):
+        for loader in ("python", "native"):
+            m, arr = _load(module, path, loader, monkeypatch)
+            assert m.__dict__ == ref_m.__dict__
+            assert all(a.tobytes() == b.tobytes() for a, b in zip(arr, ref))
+    _, bare = _load(tobj, OBJS[name], "python", monkeypatch)
+    for k in (0, 1, 3, 4):  # indices, positions, albedo, material
+        assert ref[k].tobytes() == bare[k].tobytes()
+    pos, nrm = ref[1], ref[2]
+    np.testing.assert_allclose(np.linalg.norm(nrm, axis=1), 1.0, atol=1e-3)
+    # outward: at the mesh's extreme vertices the normal points out of it
+    for k in range(3):
+        assert nrm[np.argmax(pos[:, k]), k] > 0 and (k == 1 or nrm[np.argmin(pos[:, k]), k] < 0)
 
 
 def test_two_meshes_share_the_buffers(monkeypatch):

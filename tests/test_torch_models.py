@@ -13,22 +13,15 @@ import pytest
 import torch
 
 from pathtracing_tpu import models as jmodels
-from pathtracing_tpu.scene import assets as jassets
 from pathtracing_tpu.scene import builder as jbuilder
 from pathtracing_tpu_torch import models as tmodels
 from pathtracing_tpu_torch.config import TESTING
 from pathtracing_tpu_torch.convert import scene_from_jax
 from pathtracing_tpu_torch.render import render_frame
-from pathtracing_tpu_torch.scene import assets as tassets
 from pathtracing_tpu_torch.scene import builder as tbuilder
-from pathtracing_tpu_torch.testing import (
-    assert_same_tables,
-    binary_tables,
-    build_large_scene,
-    describe_large_scene,
-    large_scene_files,
-    large_scene_placements,
-)
+from pathtracing_tpu_torch.scene import large_scene
+from pathtracing_tpu_torch.scene.device import binary_tables
+from pathtracing_tpu_torch.testing import assert_same_tables
 from pathtracing_tpu_torch.utils import native_build
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -112,19 +105,20 @@ def test_preset_registry():
 @pytest.fixture(scope="module")
 def large_small(tmp_path_factory):
     """The large scene's recipe at n = 24 with 16 instances, by the port's
-    step-by-step build, by the port's SceneBuilder and by the JAX one."""
+    large_scene.build, and by a SceneBuilder of either package described as
+    the recipe describes it on the same files."""
     d = tmp_path_factory.mktemp("large")
     native_build.reset_builds()
-    s, dev, sec = build_large_scene(d, CFG, device="cpu", n=SMALL_N, count=SMALL_COUNT)
+    s, dev, sec = large_scene.build(d, CFG, n=SMALL_N, count=SMALL_COUNT, wide=True,
+                                    device="cpu")
     builds = dict(native_build.builds)
-    paths = large_scene_files(d, tassets, SMALL_N)
+    paths = large_scene.write_files(d, SMALL_N)
 
     def builder(pkg):
-        """A fresh SceneBuilder of either package described as the recipe
-        describes it (a builder's TLAS goes into its buffers at each build)."""
+        """A fresh SceneBuilder (a builder's TLAS goes into its buffers at
+        each build)."""
         b = pkg.SceneBuilder()
-        height = (tassets if pkg is tbuilder else jassets)._height
-        describe_large_scene(b, paths, large_scene_placements(height, SMALL_COUNT))
+        large_scene.describe(b, paths, large_scene.placements(SMALL_COUNT))
         return b
 
     return (s, dev, sec, builds), builder
@@ -133,17 +127,23 @@ def large_small(tmp_path_factory):
 def test_large_scene_recipe_matches_jax(large_small):
     (s, dev, sec, builds), builder = large_small
     assert set(sec) == {"write", "load", "blas", "tlas", "binary_pack", "wide_pack"}
+    assert all(v >= 0 for v in sec.values())
     assert builds == {"obj_native": 3, "bvh_native": 4, "wide_native": 2}
     assert len(s.instances) == SMALL_COUNT + 1
     assert dev.tri_pos.shape[0] == 2 * (SMALL_N - 1) ** 2 + 2 + 46 + 704
     ts, tdev = builder(tbuilder).build(CFG, wide=True, device="cpu")
     js, jdev = builder(jbuilder).build(CFG, wide=True)
-    assert_same_tables(dev, tdev)  # the steps one by one = SceneBuilder.build
+    assert_same_tables(dev, tdev)
     assert_same_tables(tdev, jdev)
     assert binary_tables(dev).wide_rows is None
     # the binary tables alone, as SceneBuilder.build(wide=False) packs them
     _, jbin = builder(jbuilder).build(CFG, wide=False)
     assert_same_tables(binary_tables(dev), jbin)
+    # the placed objects are whole meshes (vertex normals, slashed faces):
+    # the pine 5.2 units wide, not a sliver
+    pine = s.meshes["pine_tree"][0]
+    ppos = s.mesh_buf.arrays()[1][pine.base_vertex_offset:][:pine.vertex_count]
+    np.testing.assert_allclose(np.ptp(ppos[:, 0]), 5.2, atol=1e-3)
 
 
 def test_own_build_renders_as_the_jax_build(large_small):

@@ -137,6 +137,19 @@ def test_sample_bsdf_matches_oracle():
     # ulps; almost all cases must match tightly
     assert np.quantile(rel, 0.995) < 1e-3, np.quantile(rel, 0.995)
     assert np.median(rel) < 1e-5
+    # the hemisphere's z against the oracle's own: a diffuse sample's
+    # direction is the cosine hemisphere's (x, y, z) as drawn; on every
+    # diffuse row whose x and y equal the oracle's (the sines and cosines
+    # differ by ulps elsewhere), z = sqrt(max(1 - (x*x + y*y), 0)) equals it
+    # too (measured: 348 of the golden's 376 diffuse rows, z down to 0.025)
+    f0 = tbsdf._f0_of(eta)
+    rp, tp, _ = tbsdf._lobe_probs(view.z, albedo, rough, metal, trans, eta, f0)
+    gs = g["sample"]
+    diffuse = n(u.z - rp - tp > 0) & (gs[:, 2] != 1)  # not the (0, 0, 1) of a bad sample
+    d = n(stack(s.direction))
+    same_xy = diffuse & (d[:, 0] == gs[:, 0]) & (d[:, 1] == gs[:, 1])
+    assert same_xy.sum() >= 340
+    np.testing.assert_array_equal(d[same_xy, 2], gs[same_xy, 2])
 
 
 def test_bsdf_matches_jax_on_golden_inputs():
