@@ -13,7 +13,12 @@ per spp chunk) — at the PRODUCTION preset's geometry (1920x1080, 5 bounces)
 with spp cut from 1024 to 8 (one motion-blur step); ``render_frame(...,
 wavefront=True)`` on the binary scene, which on the card renders through the
 ``wavefront`` kernel (whole paths for any pixel list, one launch per tile and
-spp chunk); the row-gather probe (``gather_rows`` kernel); and the gradient
+spp chunk); the row-gather probe (``gather_rows`` kernel); the animated
+frame loop, the system's own main path, through the port's CLI
+(``python -m pathtracing_tpu_torch.cli``: ``load_scene``, whose placement
+rays the ``ray_query`` kernel traces, ``setup_animation_frame``, the chunked
+``DevicePacker``, frames by the ``megakernel`` kernel up to the production
+preset's 1024 spp and by the ``wavefront`` kernel); and the gradient
 path, ``diff/render.make_fast_grad_frame_fn`` on that frame at 1 spp: the
 megakernel's record build (``megakernel_record`` kernel, K6) records the
 hit topology, and autograd through the scan's replay runs the gathers'
@@ -135,6 +140,34 @@ Phases, one JSON object per line:
                     to the scan's; its time, device time and bound; the
                     share of primary rays that hit (must be >= 50 %) and
                     that hit a placed object (must be > 0)
+  animation_load, animation_frames, animation_chunked_k1,
+  animation_subframes, animation_cli
+                    the animated frame loop (phase_animation_cli), the
+                    system's own main path, on the reference's animated
+                    scene from stand-in meshes written to build/animation/:
+                    load_scene's placement traced on the card (one P1
+                    launch) equal to the CPU's, bit for bit; for frames 1000
+                    and 1750 at 1080p x 8 spp the chunked frame tables
+                    packed on the card byte-equal to the CPU's pack, the K2
+                    frame within the JAX bar of the scan frame on the
+                    binary frame tables (P1), K1 on the chunked tables
+                    (65,536 rays, primary and bounce batch) equal to its
+                    plain version and to P1, one 2 spp K2 launch timed;
+                    frame 1000 set up at 64 and at 1024 spp (8 and 128
+                    subframes, a dynamic TLAS each): the card's pack equal
+                    to the CPU's, and on the two samples across the last two
+                    subframes K2 (chunked), K5 (chunked, bit-equal to K2)
+                    and K5 (binary) within the JAX bar of the scan (P1);
+                    then the CLI in processes of its own: frames 1000-1002
+                    at 64 spp by K2, frame 1000 at 1024 spp (512 K2
+                    launches), frame 1000 at 64 spp by K5 on the binary
+                    frame tables, samples [0, 4) + [4, 8) merged (within 1
+                    LSB of the in-process K2 frame); each run's launches
+                    (P1 in load_scene, the frames' kernel only), seconds,
+                    Msamples/s, peak memory and table bytes, every BMP
+                    required, and the device's idle share of the first K2
+                    frame of the 64 and the 1024 spp run, from the trace
+                    that the CLI's --profile-dir takes of that frame
   record_check      the megakernel's record build (K6) vs its plain version
                     (path_trace_megakernel_plain(record=True)) on w8, w16, s8
                     and motion.gold's scene, spp 1 and spp 3: every record
@@ -200,6 +233,8 @@ import dataclasses
 import functools
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -251,6 +286,7 @@ from pathtracing_tpu_torch.ops.wide_traversal import wide_ray_query_plain
 from pathtracing_tpu_torch.probes import gather_probe as GP
 from pathtracing_tpu_torch.render import (
     CUDA_TILE_PIXELS,
+    LARGE_SCENE_NODES,
     _average,
     _bgra,
     _mk_spp_chunk,
@@ -261,7 +297,9 @@ from pathtracing_tpu_torch.render import (
     to_bgra,
 )
 from pathtracing_tpu_torch.scene import large_scene
-from pathtracing_tpu_torch.scene.device import binary_tables
+from pathtracing_tpu_torch.scene.device import DevicePacker, binary_tables
+from pathtracing_tpu_torch.scene.loader import load_scene, setup_animation_frame
+from pathtracing_tpu_torch.scene.standins import write_standins
 from pathtracing_tpu_torch.scene.golden import (
     scene_device_from_golden,
     scene_device_from_motion_golden,
@@ -1890,6 +1928,338 @@ def phase_large_scene(cfg, smi):
             "timing": timing, "k6": k6}
 
 
+# ------------------------------------------------- the animated frame loop
+
+ANIM_DIR = ROOT / "build" / "animation"  # stand-ins and the CLI's outputs (git-ignored)
+ANIM_FRAMES = (1000, 1003)  # frame 1000: aperture 0.4, the bunny and the dragon in view
+ANIM_SPP = 64  # 8 subframes; the production preset's 1024 (128 subframes) for one frame
+ANIM_CHECK_FRAMES = (1000, 1750)
+ANIM_CHECK_SPP = 8  # one subframe
+ANIM_SUBFRAME_SPP = (ANIM_SPP, PRODUCTION.samples_per_pixel)  # 8 and 128 subframes
+CLI_TIMEOUT = 300
+
+
+def cli_run(tag, *args, out=None, metrics=True) -> dict:
+    """``python -m pathtracing_tpu_torch.cli`` on the stand-ins at the
+    production preset, in a process of its own (its exit code required 0):
+    seconds, the metrics lines (load and frames, with each frame's kernel
+    launches) and the output folder."""
+    if out is None:  # a folder of its own
+        out = ANIM_DIR / tag
+        shutil.rmtree(out, ignore_errors=True)
+    log = ANIM_DIR / f"{tag}.jsonl"
+    log.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "pathtracing_tpu_torch.cli", "--preset", "production",
+           "--data-dir", str(ANIM_DIR / "standins"), "--out", str(out), *args]
+    if metrics:
+        cmd += ["--metrics", str(log)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    sec = time.perf_counter() - t0
+    require(r.returncode == 0, f"cli {tag}: exit {r.returncode}\n{r.stdout[-3000:]}\n"
+                               f"{r.stderr[-3000:]}")
+    res = {"seconds": sec, "out": out, "stdout_tail": r.stdout.strip().splitlines()[-4:]}
+    if metrics:
+        lines = [json.loads(x) for x in log.read_text().splitlines()]
+        load = [x for x in lines if x["kind"] == "load"]
+        require(len(load) == 1 and load[0]["device"] == "cuda", f"cli {tag}: {load}")
+        res.update(load=load[0], frames=[x for x in lines if x["kind"] == "frame"])
+    return res
+
+
+def cli_frames(tag, run, frames, launches, bmp=True) -> list:
+    """Each frame of a CLI run: the launches its render made (``launches``,
+    every other kernel 0), its BMP (1920x1080, not flat; ``bmp=False`` for a
+    sample-range run, which writes partial sums instead) and its numbers."""
+    zero = {"ray_query": 0, "wide_ray_query": 0, "megakernel": 0, "wavefront": 0}
+    require([x["frame"] for x in run["frames"]] == list(frames), f"cli {tag}: frames")
+    out = []
+    for x in run["frames"]:
+        require(x["launches"] == {**zero, **launches},
+                f"cli {tag} frame {x['frame']}: launches {x['launches']}, want {launches}")
+        if bmp:
+            path = run["out"] / f"frame_{x['frame']:04d}.bmp"
+            require(path.exists(), f"cli {tag}: no {path.name}")
+            img = read_bmp(str(path))
+            require(img.shape == (1080, 1920, 3) and float(img.std()) > 1.0,
+                    f"cli {tag}: {path.name} {img.shape} std {float(img.std())}")
+            x = {**x, "bmp_mean": float(img.mean())}
+        out.append(x)
+    return out
+
+
+def trace_device_time(path, kernel) -> dict:
+    """The device time of a Chrome trace written by ``utils.profiling.trace_to``
+    (the CLI's ``--profile-dir``): the union of its kernel, copy and set
+    intervals in ms, and the launches and summed ms of the kernels whose name
+    holds ``kernel`` and of the other kernels."""
+    events = [e for e in json.loads(pathlib.Path(path).read_text())["traceEvents"]
+              if e.get("ph") == "X"
+              and str(e.get("cat", "")).lower() in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    launches = [e for e in events if str(e["cat"]).lower() == "kernel"]
+    mine = [float(e["dur"]) for e in launches if kernel in e["name"]]
+    other = [float(e["dur"]) for e in launches if kernel not in e["name"]]
+    return {"device_busy_ms": busy_us / 1e3, "kernel_launches": len(mine),
+            "kernel_ms": sum(mine) / 1e3, "other_kernel_launches": len(other),
+            "other_kernel_ms": sum(other) / 1e3}
+
+
+def packs_equal(tag, dev, dev_cpu) -> None:
+    """A frame's tables packed on the card equal the CPU's pack, byte for byte."""
+    host = lambda v: v.cpu().numpy().tobytes()
+    differ = [k for k in dev._fields
+              if (getattr(dev, k) is None) != (getattr(dev_cpu, k) is None)
+              or (getattr(dev, k) is not None
+                  and host(getattr(dev, k)) != host(getattr(dev_cpu, k)))]
+    require(not differ, f"{tag}: card pack vs CPU pack: {differ}")
+
+
+def subframe_check(s, s_cpu, packer, packer_cpu, frame, spp) -> dict:
+    """Frame ``frame`` set up at ``spp`` samples per pixel, as the CLI sets it
+    up: spp / 8 subframes, each with a dynamic TLAS of its own whose exits
+    chain into the static root. The card's pack equals the CPU's. On the two
+    samples that straddle the last two subframes (the last of the one before
+    the last, the first of the last), at 1920x1080, each within the JAX bar
+    of the scan on the binary frame tables (P1) on the same samples: one K2
+    launch on the chunked tables (the CLI's default), one K5 launch on the
+    same tables and the row-major list, whose sums must equal K2's bit for
+    bit, and one K5 launch on the binary frame tables (the CLI's
+    ``--wavefront --wide 0``). These launches are checks, outside every
+    counted run."""
+    cfg = dataclasses.replace(PRODUCTION, samples_per_pixel=spp)
+    W, H = cfg.image_width, cfg.image_height
+    n = W * H
+    step = cfg.samples_per_motion_blur_step
+    t0 = time.perf_counter()
+    setup_animation_frame(s, frame, cfg)
+    dev = packer.pack_frame(s)
+    torch.cuda.synchronize()
+    setup_pack_s = time.perf_counter() - t0
+    setup_animation_frame(s_cpu, frame, cfg)
+    packs_equal(f"animation frame {frame} at {spp} spp", dev, packer_cpu.pack_frame(s_cpu))
+    sub = cfg.subframe_count
+    roots = {sf.tlas.node_offset for sf in s.subframes}
+    require(len(s.subframes) == sub == spp // step and len(roots) == sub,
+            f"frame {frame} at {spp} spp: {len(s.subframes)} subframes, {len(roots)} TLASes")
+    base, k = (sub - 1) * step - 1, 2
+    xs, ys = frame_pixels(cfg)
+    xs_t, ys_t = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    binary = binary_tables(dev)
+    k2 = CM.megakernel_cuda(cfg, dev, n, k, sample_base=base)
+    k5w = CWF.wavefront_cuda(cfg, dev, xs_t, ys_t, k, sample_base=base)
+    k5b = CWF.wavefront_cuda(cfg, binary, xs_t, ys_t, k, sample_base=base)
+    torch.cuda.synchronize()
+    scan = torch.from_numpy(render_pixels(cfg, binary, xs, ys, spp=k, sample_base=base,
+                                          average=False, megakernel=False))
+    ref = tuple(scan[:, c] for c in range(3))
+    require(all(torch.equal(a, b) for a, b in zip(k2[:3], k5w[:3])),
+            f"frame {frame} at {spp} spp: K2 vs K5 on the chunked tables, not bit-equal")
+    tag = f"animation frame {frame} at {spp} spp, samples {base}..{base + k - 1}"
+    keys = ("finite_share", "close_share", "bar", "bit_equal_share", "max_abs_err")
+    out = {"subframes": sub, "tlas_roots": len(roots), "sample_base": base, "samples": k,
+           "subframes_walked": [base // step, (base + k - 1) // step],
+           "setup_pack_s": setup_pack_s, "card_pack_equals_cpu": True,
+           "k2_equals_k5_chunked": True,
+           "truncated": {"k2": int(k2[4].item()), "k5_chunked": int(k5w[4].item()),
+                         "k5_binary": int(k5b[4].item())}}
+    for name, got in (("k2_vs_scan", k2), ("k5_binary_vs_scan", k5b)):
+        cmp = mk_compare(f"{tag}: {name}", got[:3], ref, k, base, 0, W)
+        out[name] = {key: cmp[key] for key in keys}
+    del dev, binary, k2, k5w, k5b
+    return out
+
+
+def phase_animation_cli(smi):
+    """The animated frame loop, the system's own main path: load_scene ->
+    per frame setup_animation_frame + DevicePacker.pack_frame -> render ->
+    BMP, on the reference's animated scene from stand-in meshes
+    (scene/standins.py; the repo's generated terrain).
+    In process, at 1920x1080 x 5 bounces x 8 spp (one subframe): the
+    placement's 1,024 rays traced on the card (P1, one launch) give the
+    instance list and transforms of the CPU's placement, bit for bit; for
+    frames 1000 and 1750 the chunked frame tables packed on the card equal
+    the CPU's pack byte for byte, the K2 frame is within the JAX bar of the
+    scan frame on the binary frame tables (P1), and for frame 1000 K1 on the
+    chunked tables (65,536 of its rays, the primary and first bounce batch)
+    equals its plain version (ids equal, 1e-6) and P1 on the same rays; one
+    K2 launch at the frames' dispatch is timed.
+    Then the CLI, each run a process of its own: frames 1000-1002 at 64 spp
+    with the wide tables (K2), frame 1000 at the production preset's 1024
+    spp, frame 1000 at 64 spp by the wavefront on the binary frame tables
+    (K5), and samples [0, 4) + [4, 8) of frame 1000 merged, which must give
+    the in-process K2 frame's BMP within 1 LSB. Every run's placement
+    launches P1; each frame's launches are the expected kernel's only."""
+    standins = ANIM_DIR / "standins"
+    t0 = time.perf_counter()
+    write_standins(standins)
+    write_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(PRODUCTION, samples_per_pixel=ANIM_CHECK_SPP)
+    W, H = cfg.image_width, cfg.image_height
+    n = W * H
+    counters = (CT, CW, CM, CWF)
+    tiles = -(-n // CUDA_TILE_PIXELS)
+
+    # the placement: on the card (P1) and on the CPU
+    native_build.reset_builds()
+    s, load_s, load_peak, _ = frame_launches("animation load_scene", counters, {CT: 1},
+                                              lambda: load_scene(str(standins), config=cfg))
+    builds = dict(native_build.builds)
+    t0 = time.perf_counter()
+    s_cpu = load_scene(str(standins), config=cfg, device="cpu")
+    cpu_load_s = time.perf_counter() - t0
+    key = lambda sc: [(i.blas.node_offset, i.blas.node_count) for i in sc.instances]
+    require(key(s) == key(s_cpu), "placement on the card vs the CPU: instance list")
+    tf = lambda sc: np.stack([i.transform for i in sc.instances]).tobytes()
+    require(tf(s) == tf(s_cpu), "placement on the card vs the CPU: transforms")
+    name_of = {b.node_offset: k for k, (_, b) in s.meshes.items()}
+    placed = {}
+    for i in s.instances:
+        placed[name_of[i.blas.node_offset]] = placed.get(name_of[i.blas.node_offset], 0) + 1
+    t0 = time.perf_counter()
+    packer = DevicePacker(s, wide=True, chunked=True)
+    torch.cuda.synchronize()
+    packer_s = time.perf_counter() - t0
+    packer_cpu = DevicePacker(s_cpu, wide=True, chunked=True, device="cpu")
+    load = {"standins_write_s": write_s, "load_scene_s": load_s,
+            "load_scene_cpu_s": cpu_load_s, "packer_s": packer_s,
+            "host_builders": builds, "instances": len(s.instances),
+            "placed_by_mesh": placed, "placement_bit_equal_to_cpu": True,
+            "triangles": int(sum(m.triangle_count for m, _ in s.meshes.values())),
+            "peak_memory_after_load_bytes": int(load_peak)}
+    emit("animation_load", **load, card=smi)
+
+    frames = {}
+    sums = lambda c: tuple(torch.from_numpy(np.ascontiguousarray(c[..., k].reshape(-1)
+                                                                 * ANIM_CHECK_SPP))
+                           for k in range(3))
+    for frame in ANIM_CHECK_FRAMES:
+        t0 = time.perf_counter()
+        setup_animation_frame(s, frame, cfg)
+        setup_s = time.perf_counter() - t0
+        dev = packer.pack_frame(s)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0 - setup_s
+        setup_animation_frame(s_cpu, frame, cfg)
+        dev_cpu = packer_cpu.pack_frame(s_cpu)
+        packs_equal(f"animation frame {frame}", dev, dev_cpu)
+        tables = field_bytes(dev, BINARY_TABLES + ("wide_rows", "wide_root", "tri_shade"))
+        chunk = _mk_spp_chunk(n, ANIM_CHECK_SPP, dev)
+        k2_n = -(-ANIM_CHECK_SPP // chunk)
+        c_k2, k2_s, k2_peak, _ = frame_launches(
+            f"animation {frame} K2", counters, {CM: k2_n},
+            lambda: render_frame(cfg, dev, spp=ANIM_CHECK_SPP)[0])
+        binary = binary_tables(dev)
+        c_scan, scan_s, scan_peak, _ = frame_launches(
+            f"animation {frame} scan", counters,
+            {CT: tiles * ANIM_CHECK_SPP * (1 + cfg.max_bounces)},
+            lambda: render_pixels(cfg, binary, *frame_pixels(cfg), spp=ANIM_CHECK_SPP,
+                                  megakernel=False).reshape(H, W, 3))
+        cmp = mk_compare(f"animation {frame} K2 vs scan", sums(c_k2), sums(c_scan),
+                         ANIM_CHECK_SPP, 0, 0, W)
+        frames[frame] = {
+            "setup_s": setup_s, "pack_s": pack_s, "table_bytes": tables,
+            "table_bytes_total": sum(tables.values()),
+            "over_l2": {k: v / L2_BYTES for k, v in tables.items()},
+            "k2": {"seconds": k2_s, "launches": k2_n, "spp_per_launch": chunk,
+                   "msamples_per_s": n * ANIM_CHECK_SPP / k2_s / 1e6,
+                   "peak_memory_allocated_bytes": int(k2_peak)},
+            "scan_binary": {"seconds": scan_s, "msamples_per_s": n * ANIM_CHECK_SPP / scan_s / 1e6,
+                            "peak_memory_allocated_bytes": int(scan_peak)},
+            "k2_vs_scan": {k: cmp[k] for k in ("finite_share", "close_share", "bar",
+                                               "bit_equal_share", "max_abs_err")},
+        }
+        if frame == ANIM_CHECK_FRAMES[0]:
+            # the CLI's dispatches: the scene is large (over LARGE_SCENE_NODES
+            # nodes), whatever its subframe count
+            require(dev.nl8.shape[0] // 8 > LARGE_SCENE_NODES, "animated scene: not large")
+            chunks = {spp: _mk_spp_chunk(n, spp, dev)
+                      for spp in (ANIM_SPP, PRODUCTION.samples_per_pixel, ANIM_CHECK_SPP // 2)}
+            k2_rgb = to_bgra(c_k2)[..., [2, 1, 0]]
+            t = time_launches({"k2": lambda: CM.megakernel_cuda(cfg, dev, n, chunk)})
+            k2_launch = {"spp": chunk, "ms": t["k2"][0], "ms_all": t["k2"][1],
+                         **launch_device_ms(lambda: CM.megakernel_cuda(cfg, dev, n, chunk),
+                                            "megakernel")}
+            idx = torch.arange(LARGE_BATCH, dtype=torch.int64, device="cuda") * n // LARGE_BATCH
+            q = capture_queries(cfg, dev, (idx % W).to(torch.int32), (idx // W).to(torch.int32))
+            k1 = [measure_wide_shape(f"animation chunked {k}", *q[i])
+                  for i, k in enumerate(("primary", "bounce"))]
+            del q
+        del c_k2, c_scan, dev, dev_cpu, binary
+    emit("animation_frames", width=W, height=H, bounces=cfg.max_bounces, spp=ANIM_CHECK_SPP,
+         frames=frames, k2_launch=k2_launch, card=smi)
+    emit("animation_chunked_k1", batch=LARGE_BATCH, k1=k1, card=smi)
+    subframes = {spp: subframe_check(s, s_cpu, packer, packer_cpu, ANIM_CHECK_FRAMES[0], spp)
+                 for spp in ANIM_SUBFRAME_SPP}
+    emit("animation_subframes", frame=ANIM_CHECK_FRAMES[0], checks=subframes, card=smi)
+    del s, s_cpu, packer, packer_cpu
+    torch.cuda.empty_cache()
+
+    # the CLI, each run a process of its own
+    zero = {"ray_query": 0, "wide_ray_query": 0, "megakernel": 0, "wavefront": 0}
+    f0 = str(ANIM_FRAMES[0])
+    one = (f0, str(ANIM_FRAMES[0] + 1))
+    profile = lambda tag: ("--profile-dir", str(ANIM_DIR / f"{tag}_profile"))
+    runs = {
+        "frames64": (cli_run("frames64", "--spp", str(ANIM_SPP), "--frames",
+                             *map(str, ANIM_FRAMES), "--wide", "1", *profile("frames64")),
+                     range(*ANIM_FRAMES), {"megakernel": -(-ANIM_SPP // chunks[ANIM_SPP])}),
+        "frame1024": (cli_run("frame1024", "--frames", *one, "--wide", "1",
+                              *profile("frame1024")),
+                      [ANIM_FRAMES[0]],
+                      {"megakernel": -(-PRODUCTION.samples_per_pixel
+                                       // chunks[PRODUCTION.samples_per_pixel])}),
+        "wavefront64": (cli_run("wavefront64", "--spp", str(ANIM_SPP), "--frames", *one,
+                                "--wavefront", "--wide", "0"),
+                        [ANIM_FRAMES[0]], {"wavefront": tiles * -(-ANIM_SPP // chunks[ANIM_SPP])}),
+    }
+    parts = ANIM_DIR / "ranges"
+    shutil.rmtree(parts, ignore_errors=True)
+    half = ANIM_CHECK_SPP // 2
+    for a, b in ((0, half), (half, ANIM_CHECK_SPP)):
+        runs[f"range_{a}_{b}"] = (
+            cli_run(f"range_{a}_{b}", "--spp", str(ANIM_CHECK_SPP), "--frames", *one,
+                    "--sample-range", str(a), str(b), "--wide", "1", out=parts),
+            [ANIM_FRAMES[0]], {"megakernel": -(-half // chunks[half])})
+    merge = cli_run("merge", "--merge", out=parts, metrics=False)
+    merged = read_bmp(str(parts / f"frame_{ANIM_FRAMES[0]:04d}.bmp"))
+    lsb = np.abs(merged.astype(np.int16) - k2_rgb.astype(np.int16))
+    require(int(lsb.max()) <= 1, f"merged sample ranges vs the K2 frame: {int(lsb.max())} LSB")
+    cli = {}
+    for tag, (run, want_frames, launches) in runs.items():
+        require(run["load"]["launches"] == {**zero, "ray_query": 1},
+                f"cli {tag}: load_scene launches {run['load']['launches']}")
+        fr = cli_frames(tag, run, want_frames, launches, bmp=not tag.startswith("range"))
+        program_ms = [float(m.group(1)) for line in run["stdout_tail"]
+                      if (m := re.search(r"FRAMES: (\d+)ms", line))]
+        cli[tag] = {"seconds": run["seconds"], "load": run["load"], "frames": fr,
+                    "program_ms": program_ms[0] if program_ms else None,
+                    "setup_plus_render_ms": sum(x["setup_ms"] + x["render_ms"] for x in fr)}
+    # the device's idle share of a K2 frame's render, from the trace that
+    # --profile-dir took of the run's first frame (render_ms is timed inside
+    # the trace and excludes its export)
+    for tag in ("frames64", "frame1024"):
+        x = cli[tag]["frames"][0]
+        tr = trace_device_time(ANIM_DIR / f"{tag}_profile" / "trace.json", "megakernel")
+        require(tr["kernel_launches"] == x["launches"]["megakernel"],
+                f"cli {tag}: traced {tr}, counted {x['launches']}")
+        x["traced"] = {**tr, "idle_share": 1.0 - tr["device_busy_ms"] / x["render_ms"]}
+    cli["merge"] = {"seconds": merge["seconds"], "max_lsb_vs_k2_frame": int(lsb.max()),
+                    "equal_share": float((lsb == 0).mean())}
+    for run in cli.values():
+        for x in run.get("frames", ()):
+            x["table_bytes_total"] = sum(x["table_bytes"].values())
+            x["tables_over_l2"] = x["table_bytes_total"] / L2_BYTES
+    emit("animation_cli", load_scene_s=load["load_scene_s"], packer_s=load["packer_s"],
+         **cli, card=smi)
+    return {"load": load, "frames": frames, "k1": k1, "k2_launch": k2_launch, "cli": cli,
+            "subframes": subframes}
+
+
 # ------------------------------------------------- the path kernels' designs
 
 # The pixel orders the design timing runs each path kernel on: "row_major"
@@ -2716,6 +3086,19 @@ def design_summary(kernel, designs, split) -> dict:
                                             if k.startswith(kernel + "_")}}
 
 
+def anim_kernel(anim, tag, kernel) -> dict:
+    """A kernel's launches and frames on one CLI run of the animated frame
+    loop (phase_animation_cli), for the kernels line."""
+    run = anim["cli"][tag]
+    return {"run": tag, "launches_per_frame": [x["launches"][kernel] for x in run["frames"]],
+            "render_ms": [x["render_ms"] for x in run["frames"]],
+            "setup_ms": [x["setup_ms"] for x in run["frames"]],
+            "pack_ms": [x["pack_ms"] for x in run["frames"]],
+            "msamples_per_s": [x["msamples_per_s"] for x in run["frames"]],
+            "peak_memory_allocated_bytes": [x["peak_memory_allocated_bytes"]
+                                            for x in run["frames"]]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2784,6 +3167,7 @@ def main() -> int:
     mk_time = phase_megakernel_timing(prod_cfg, prod_wide, smi)
     wf_time = phase_wavefront_timing(prod_cfg, prod_scene, prod_wide, smi)
     large = phase_large_scene(prod_cfg, smi)
+    anim = phase_animation_cli(smi)
     rec_err = phase_record_check(wide_scenes, motion_wide)
     grad_k = phase_grad_kernel_check(prod_cfg, prod_wide, smi)
     phase_grad_slow_check(scene, wide_scenes[MAIN_LAYOUT])
@@ -2829,6 +3213,12 @@ def main() -> int:
             "blocks_per_sm": built["ray_query"]["blocks_per_sm"],
             "lane_fill": {**walk(shapes[0]), **walk(bounce)},
             "large_scene": large_walk(large, "p1", "scan_binary"),
+            # the animated frame loop: load_scene's placement in every CLI
+            # process, and the in-process scan frames on the frame tables
+            "animation_cli": {
+                "launches_load_scene": anim["cli"]["frames64"]["load"]["launches"]["ray_query"],
+                "scan_frame_seconds": {f: v["scan_binary"]["seconds"]
+                                       for f, v in anim["frames"].items()}},
             "card": smi,
         },
         {
@@ -2852,6 +3242,9 @@ def main() -> int:
             "blocks_per_sm": built["wide_ray_query"]["blocks_per_sm"],
             "lane_fill": {**walk(wide_shapes[0]), **walk(wbounce)},
             "large_scene": large_walk(large, "k1", "scan_w8"),
+            "animation_chunked": [{k: sh[k] for k in five + ("max_abs_err", "p1_ms_same_batch",
+                                                             "id_mismatches_vs_ray_query")}
+                                  for sh in anim["k1"]],
             "card": smi,
         },
         {
@@ -2905,6 +3298,14 @@ def main() -> int:
             "blocks_per_sm_first_design": built["megakernel"]["blocks_per_sm"],
             **design_summary("megakernel", designs, split),
             "large_scene": large_path(large, "k2_w8", "megakernel_w8"),
+            "animation_cli": {**anim_kernel(anim, "frames64", "megakernel"),
+                              "frame_1024_spp": anim_kernel(anim, "frame1024", "megakernel"),
+                              "launch_at_frame_dispatch": anim["k2_launch"],
+                              "traced_first_frame": {
+                                  tag: anim["cli"][tag]["frames"][0]["traced"]
+                                  for tag in ("frames64", "frame1024")},
+                              "last_subframes_vs_scan": {
+                                  spp: v["k2_vs_scan"] for spp, v in anim["subframes"].items()}},
             "card": smi,
         },
         {
@@ -2937,6 +3338,10 @@ def main() -> int:
             "large_scene": large_path(large, "k5_binary", "wavefront_binary"),
             "large_scene_w8": large_path(large, "k5_w8", "wavefront_w8"),
             "tonemap_check": tonemap_res,
+            "animation_cli": {**anim_kernel(anim, "wavefront64", "wavefront"),
+                              "last_subframes_vs_scan": {
+                                  spp: v["k5_binary_vs_scan"]
+                                  for spp, v in anim["subframes"].items()}},
             "card": smi,
         },
         {

@@ -15,15 +15,19 @@ arguments go to the preset, ``device=`` among them (None: CUDA).
     scene, dev = models.build("sphere_ground")                  # on the card
     scene, dev = models.build("sphere_ground", device="cpu")    # on the CPU
 
-Presets ported so far (the JAX package's registry, same names):
+Presets (the JAX package's registry, same names):
+  full_animation  the reference's animated scene at a given frame
+                  (terrain placement, animation table, sunset — the
+                  flagship; needs the reference's meshes or stand-ins,
+                  scene/standins.py)
+  teapot_rocks    teapot + five rocks on a ground slab (the golden-test
+                  family; the same meshes)
   cornell_box     procedural Cornell box with an emissive ceiling panel —
                   exercises the emission path with no sun/sky light; its
                   default emissive_nee=True raises NotImplementedError until
                   the area lights are ported, emissive_nee=False renders
   sphere_ground   dense smooth sphere over a ground plane — the
                   inverse-pose optimization scene (procedural)
-The JAX package's ``full_animation`` and ``teapot_rocks`` come with the
-animated loader in the next slice.
 """
 
 from __future__ import annotations
@@ -66,7 +70,9 @@ def _load():
     _loaded = True
     from pathtracing_tpu_torch.models import (  # noqa: F401
         cornell_box,
+        full_animation,
         sphere_ground,
+        teapot_rocks,
     )
 
 

@@ -121,12 +121,20 @@ def step_cap(scene) -> int:
         later slots (j + 1 after slot j's subtree). So a tree walk visits each
         cursor at most once: at most rows x slots steps.
     Hence (instances + 1) x nl8 nodes, or (instances + 1) x mega-table rows x
-    slots, clipped to int32. tests/test_torch_wavefront.py holds it above the
+    slots, clipped to int32. A frame packer's mega-table (``wide_root_base``
+    set, scene/device.DevicePacker) may be chunked (accel/chunks.py): there
+    an instance has one INST row per chunk, and a ray walks a per-subframe
+    TLAS, the static TLAS it exits into, and each INST row's tree at most
+    once per TLAS walk; every INST row is a row, so its trees are at most
+    rows + 2. tests/test_torch_wavefront.py holds the cap above the
     longest walk of the plain walks' ``lane_steps`` on the golden and the
-    motion scene, both table kinds.
+    motion scene, both table kinds, and tests/test_torch_packer.py on the
+    animated scene's chunked tables.
     """
     trees = scene.inst_u.shape[0] + 1
     if getattr(scene, "wide_rows", None) is not None:
+        if getattr(scene, "wide_root_base", None) is not None:
+            trees = scene.wide_rows.shape[0] + 2
         per_tree = scene.wide_rows.shape[0] * _layout_of(scene).n_slots
     else:
         per_tree = scene.nl8.shape[0] // 8

@@ -18,7 +18,11 @@ and, for a scene packed with ``wide=True``:
   tri_shade (T, 48)     per triangle: 3 x 11 vertex attributes + 9 positions
 
 The packers are numpy on the host and produce the same bytes as the JAX
-package's; only the upload differs. ``nl8[:, 6:8]`` hold int32 link bit
+package's; only the upload differs. ``DevicePacker`` is the animated frame
+loop's packer: the static tables go to the device once, and each frame
+uploads only its tail (instance rows, subframe rows, the TLAS tail of
+``nl8`` and of the mega-table), concatenated to the static part on the
+device. ``nl8[:, 6:8]`` hold int32 link bit
 patterns (small ids are subnormals, some patterns are NaNs), and so do the
 link, prim-id and instance-id columns of ``wide_rows``: they are copied and
 bit-viewed, never sent through a float op.
@@ -33,9 +37,12 @@ import torch
 
 from pathtracing_tpu_torch import resolve_device
 from pathtracing_tpu_torch.accel.wide import (
+    END_TLAS,
     LAYOUT_S8,
     LAYOUT_W8,
     LAYOUT_W16,
+    WideStaticRegion,
+    build_frame_tail,
     build_wide_tables,
 )
 
@@ -78,6 +85,18 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
     """Upload a host table bit-exactly (a byte copy, no float op). Always a
     copy: the tensor never aliases the caller's (maybe read-only) array."""
     return torch.tensor(np.ascontiguousarray(a), device=device)
+
+
+def _concat_rows_bitsafe(static_dev: torch.Tensor, tail_host: np.ndarray) -> torch.Tensor:
+    """A device-resident f32 table with a host tail appended below it,
+    concatenated as int32: the tables carry uint32 link and cursor bit
+    patterns viewed as f32 (small row ids are subnormal patterns, some are
+    NaNs), and an int32 copy keeps every bit whatever the device does with
+    subnormal floats (the JAX package's rule: its TPU's f32 concatenate
+    flushed them). The tail is uploaded to ``static_dev``'s device."""
+    tail = to_device(np.ascontiguousarray(tail_host, f32).view(np.int32),
+                     static_dev.device)
+    return torch.cat([static_dev.view(torch.int32), tail]).view(torch.float32)
 
 
 def _instance_rows(instances, pad_to: int = 1):
@@ -296,3 +315,187 @@ def _subframe_rows(subframes):
         sf_light[i, 3:6] = np.asarray(sf.light.color, f32)
         sf_light[i, 6] = sf.light.cos_solid_angle
     return sf_tlas, sf_cam, sf_light
+
+
+class DevicePacker:
+    """Incremental frame packing for the animated scene (the JAX package's
+    ``DevicePacker``, the same tables byte for byte).
+
+    The mesh/BLAS region of the buffers is immutable after load_scene; only
+    the per-frame TLAS tail, the instance list, and the subframe rows
+    change (reference: scene.cc:271-718). The static tables are uploaded
+    once to ``device`` (None: CUDA, raising when there is none); per frame
+    only the small tail is packed on the host, uploaded, and concatenated
+    on the device.
+
+    wide=True adds the mega-table (accel/wide.WideStaticRegion +
+    build_frame_tail); with ``chunked=True`` the chunked static region
+    (accel/chunks.py: meshes split into subtrees of at most
+    ``chunks.CHUNK_MAX`` triangles, an instance-split static TLAS built
+    here once, per-frame tails carrying only the dynamic instances). The hot-row
+    permutation (``hot_rows``) is a later slice of the port (S10).
+    """
+
+    # shape-stability buckets, kept from the JAX package (where every
+    # animation frame reuses one compiled kernel) so the tables stay byte
+    # for byte its tables: per-frame tails/tables are padded up to these
+    # multiples.
+    _NODE_BUCKET = 256     # binary-node tail granularity (nl8 rows = 8x)
+    _WIDE_BUCKET = 256     # mega-table tail rows
+    _ROOT_BUCKET = 64      # wide_root rows (indexed by tlas node_offset)
+    _INST_BUCKET = 8       # instance rows
+
+    def __init__(self, scene, wide: bool = False, leaf_bundle: int | None = 8,
+                 wide_layout="w8", chunked: bool = False,
+                 hot_rows: int = 0, device=None):
+        if hot_rows:
+            raise NotImplementedError(
+                "DevicePacker(hot_rows=): the hot-row tables are a later "
+                "slice of the port (S10, accel/hotperm.py)"
+            )
+        self.device = device = resolve_device(device)
+        mesh_arrays = scene.mesh_buf.arrays()
+        indices, pos, normal, albedo, material = mesh_arrays
+        blas_segments = [
+            (blas.node_offset, blas.node_count)
+            for (_, blas) in scene.meshes.values()
+        ]
+        # static region = the BLAS span; any subframe TLAS tail present at
+        # construction time is excluded (it is re-packed per frame)
+        self._static_node_count = max(
+            (off + cnt for off, cnt in blas_segments), default=0
+        )
+        n = self._static_node_count
+        dev = lambda a: to_device(a, device)
+        self._static_nl8 = dev(
+            pack_nl8(
+                scene.bvh_buf.nodes[:n],
+                scene.bvh_buf.links[: 8 * n],
+                blas_segments,
+            )
+        )
+        meshes = [m for (m, _) in scene.meshes.values()]
+        tri_pos, tri_idx = pack_tri_tables(indices, pos, meshes)
+        self._tri_pos = dev(tri_pos)
+        self._tri_idx = dev(tri_idx)
+        self._vattr = dev(pack_vattr(normal, albedo, material))
+
+        self._wide_static = None
+        self._chunked = False
+        if wide:
+            if chunked:
+                # Chunked fast path (accel/chunks.py): instance-split
+                # static TLAS built once here; per-frame tails carry only
+                # the dynamic instances. Traversal format is identical.
+                from pathtracing_tpu_torch.accel.chunks import ChunkedStaticRegion
+
+                self._wide_static = ChunkedStaticRegion(
+                    mesh_arrays,
+                    scene.bvh_buf.nodes[:n],
+                    scene.bvh_buf.links[: 8 * n],
+                    list(scene.meshes.values()),
+                    scene.instances[: scene.static_instance_count],
+                    leaf_bundle=leaf_bundle,
+                    layout=_wide_layout(wide_layout),
+                )
+                self._chunked = True
+            else:
+                self._wide_static = WideStaticRegion(
+                    mesh_arrays,
+                    scene.bvh_buf.nodes[:n],
+                    scene.bvh_buf.links[: 8 * n],
+                    list(scene.meshes.values()),
+                    leaf_bundle=leaf_bundle,
+                    layout=_wide_layout(wide_layout),
+                )
+            self._wide_static_dev = dev(self._wide_static.rows)
+            self._tri_shade = dev(
+                pack_tri_shade(indices, pos, normal, albedo, material, meshes)
+            )
+            self._root_base = torch.tensor(n, dtype=torch.int32, device=device)
+
+    @staticmethod
+    def _bucket(n: int, b: int) -> int:
+        return -(-max(n, 1) // b) * b
+
+    def pack_frame(self, scene) -> SceneDevice:
+        """Pack the current frame state (after setup_animation_frame)."""
+        n_static = self._static_node_count
+        nodes = scene.bvh_buf.nodes
+        links = scene.bvh_buf.links
+        tail_nodes = len(nodes) - n_static
+        if tail_nodes > 0:
+            # tail rows live at link indices >= 8*n_static; build only them.
+            # Padded to _NODE_BUCKET; pad rows are zero and unreachable (no
+            # link targets them).
+            tail_cap = self._bucket(tail_nodes, self._NODE_BUCKET)
+            tail = np.zeros((8 * tail_cap, 8), f32)
+            tail_links = np.ascontiguousarray(
+                links[8 * n_static :], np.uint32
+            ).view(f32)
+            for sf in scene.subframes:
+                off, cnt = sf.tlas.node_offset, sf.tlas.node_count
+                if cnt == 0:
+                    continue
+                lo = 8 * off - 8 * n_static
+                tail[lo : lo + 8 * cnt, 0:6] = np.tile(
+                    nodes[off : off + cnt], (8, 1)
+                )
+                tail[lo : lo + 8 * cnt, 6:8] = tail_links[lo : lo + 8 * cnt]
+            nl8 = _concat_rows_bitsafe(self._static_nl8, tail)
+        else:
+            nl8 = self._static_nl8
+
+        inst_f, inst_u = _instance_rows(
+            scene.instances,
+            pad_to=self._bucket(len(scene.instances), self._INST_BUCKET),
+        )
+        sf_tlas, sf_cam, sf_light = _subframe_rows(scene.subframes)
+        dev = lambda a: to_device(a, self.device)
+        out = SceneDevice(
+            nl8=nl8,
+            tri_pos=self._tri_pos,
+            tri_idx=self._tri_idx,
+            inst_f=dev(inst_f),
+            inst_u=dev(inst_u),
+            vattr=self._vattr,
+            sf_tlas_count=dev(sf_tlas[:, 0]),
+            sf_tlas_offset=dev(sf_tlas[:, 1]),
+            sf_cam=dev(sf_cam),
+            sf_light=dev(sf_light),
+        )
+        if self._wide_static is not None:
+            if self._chunked:
+                from pathtracing_tpu_torch.accel.chunks import (
+                    build_frame_tail_chunked,
+                )
+
+                tail_rows, root_by_off = build_frame_tail_chunked(
+                    self._wide_static, scene.instances, scene.subframes,
+                    scene.subframe_entries,
+                    (scene.static_instance_count, scene.frame_static_end),
+                    scene.static_instance_count, root_base=n_static,
+                )
+            else:
+                tail_rows, root_by_off = build_frame_tail(
+                    self._wide_static, nodes, links, scene.instances,
+                    scene.subframes, root_base=n_static,
+                )
+            cap = self._bucket(len(tail_rows), self._WIDE_BUCKET)
+            if len(tail_rows) < cap:
+                tail_rows = np.concatenate(
+                    [tail_rows, np.zeros((cap - len(tail_rows), tail_rows.shape[1]), f32)]
+                )
+            rcap = self._bucket(len(root_by_off), self._ROOT_BUCKET)
+            if len(root_by_off) < rcap:
+                pad = np.full(
+                    (rcap - len(root_by_off), 8), END_TLAS, np.uint32
+                ).view(np.int32)
+                root_by_off = np.concatenate([root_by_off, pad])
+            out = out._replace(
+                wide_rows=_concat_rows_bitsafe(self._wide_static_dev, tail_rows),
+                wide_root=dev(root_by_off),
+                wide_root_base=self._root_base,
+                tri_shade=self._tri_shade,
+            )
+        return out

@@ -61,9 +61,7 @@ class Subframe:
 
 @dataclasses.dataclass
 class Scene:
-    """reference: scene.hh:40-65. The JAX package's container also carries
-    the animated loader's per-subframe bookkeeping (``subframe_entries``,
-    ``frame_static_end``); it comes to the port with that loader."""
+    """reference: scene.hh:40-65."""
 
     mesh_buf: MeshBuffers = dataclasses.field(default_factory=MeshBuffers)
     bvh_buf: BvhBuffers = dataclasses.field(default_factory=BvhBuffers)
@@ -71,3 +69,10 @@ class Scene:
     instances: list = dataclasses.field(default_factory=list)
     static_instance_count: int = 0
     subframes: list = dataclasses.field(default_factory=list)
+    # per-frame bookkeeping mirrored from the reference's subframe_entries
+    # (scene.cc:651-676), consumed by the chunked packer
+    # (accel/chunks.build_frame_tail_chunked): absolute instance id ranges
+    # of each subframe's dynamic additions, and the frame-static span
+    # (logo/buddha) shared by every subframe.
+    subframe_entries: list = dataclasses.field(default_factory=list)
+    frame_static_end: int = 0

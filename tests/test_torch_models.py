@@ -93,9 +93,14 @@ def test_presets_match_jax(name, kwargs, wide, tmp_path):
     assert len(ts.instances) == len(js.instances)
 
 
-def test_preset_registry():
-    assert tmodels.names() == ["cornell_box", "sphere_ground"]
+def test_preset_registry(monkeypatch):
+    assert tmodels.names() == ["cornell_box", "full_animation", "sphere_ground",
+                               "teapot_rocks"]
     with pytest.raises(KeyError, match="unknown model"):
+        tmodels.build("no_such_model", CFG, device="cpu")
+    # the reference's meshes come from a folder the caller names
+    monkeypatch.delenv("PT_DATA_DIR", raising=False)
+    with pytest.raises(ValueError, match="data_dir"):
         tmodels.build("full_animation", CFG, device="cpu")
     # the area lights are a later slice: the Cornell box's default raises
     with pytest.raises(NotImplementedError):
