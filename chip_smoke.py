@@ -18,7 +18,8 @@ frame loop, the system's own main path, through the port's CLI
 (``python -m pathtracing_tpu_torch.cli``: ``load_scene``, whose placement
 rays the ``ray_query`` kernel traces, ``setup_animation_frame``, the chunked
 ``DevicePacker``, frames by the ``megakernel`` kernel up to the production
-preset's 1024 spp and by the ``wavefront`` kernel); and the gradient
+preset's geometry at 256 spp and by the ``wavefront`` kernel); the Cornell
+box's area lights, adaptive sampling, AOVs and denoiser (K8); and the gradient
 path, ``diff/render.make_fast_grad_frame_fn`` on that frame at 1 spp: the
 megakernel's record build (``megakernel_record`` kernel, K6) records the
 hit topology, and autograd through the scan's replay runs the gathers'
@@ -29,7 +30,8 @@ against the C++ oracle's goldens on the way.
 Phases, one JSON object per line:
 
   device            card name + power limit (nvidia-smi), torch / CUDA versions
-  build             the six libraries of csrc/, built side by side: seconds,
+  build             the nine libraries of csrc/ (the path kernels' area-light
+                    instances are two of them), built side by side: seconds,
                     ptxas' registers and spills per kernel, resident blocks
                     per SM of the ray-query kernels and the path kernels'
                     first design; wide_ray_query's and ray_query's registers
@@ -159,15 +161,41 @@ Phases, one JSON object per line:
                     subframes K2 (chunked), K5 (chunked, bit-equal to K2)
                     and K5 (binary) within the JAX bar of the scan (P1);
                     then the CLI in processes of its own: frames 1000-1002
-                    at 64 spp by K2, frame 1000 at 1024 spp (512 K2
+                    at 64 spp by K2, frame 1000 at 256 spp (128 K2
                     launches), frame 1000 at 64 spp by K5 on the binary
                     frame tables, samples [0, 4) + [4, 8) merged (within 1
                     LSB of the in-process K2 frame); each run's launches
                     (P1 in load_scene, the frames' kernel only), seconds,
                     Msamples/s, peak memory and table bytes, every BMP
                     required, and the device's idle share of the first K2
-                    frame of the 64 and the 1024 spp run, from the trace
+                    frame of the 64 and the 256 spp run, from the trace
                     that the CLI's --profile-dir takes of that frame
+  arealight_check   S9's area lights: K2 (w8) and K5 (binary, w8) with light
+                    tables (their AreaLights instances) vs their plain
+                    versions at 640x360 x 5 bounces on the Cornell box and on
+                    a panel scene of 144 light rows (build/arealights/):
+                    spp 1, spp 4 from sample 5 with the lum^2 plane, one
+                    launch each counted; two launches byte-equal; the
+                    counting build's light samples and pdfs; the scan with
+                    lights on the card vs the CPU's on 4,096 lanes
+  arealight_timing  one 1080p x 8 spp launch of each light instance on the
+                    Cornell box (K2 w8, K5 w8, K5 binary): time (L2
+                    flushed, median of 3), device time, bound from the
+                    counting build; the scan on the same work once
+  cornell_cli       the Cornell box through the CLI at 1920x1080 x 5 bounces
+                    x 64 spp by K2 and by K5 (--wavefront): launches,
+                    seconds, Msamples/s, peak; the two BMPs equal
+  adaptive_cli      the CLI's --adaptive 8 --spp 64 --aovs --wavefront on the
+                    Cornell box: pass 1 (K2 with lum^2), pass 2 (K5 a
+                    bucket) and the AOV pass (K1) in ms, launches, the AOV
+                    file; pass 2 on a 640x360 list by K5 and by the scan
+  denoise_check     K8 vs its plain version on the Cornell box's 1080p frame
+                    (render_with_variance's 8 spp frame and noise map,
+                    render_aovs' guides) at radius 2 and 4, with and without
+                    the noise map (rtol 1e-5, atol 1e-6 max|ref|); one
+                    launch through joint_bilateral_denoise counted; the
+                    denoised frame nearer a 64 spp frame than the 8 spp one;
+                    each radius timed with device time and bound
   record_check      the megakernel's record build (K6) vs its plain version
                     (path_trace_megakernel_plain(record=True)) on w8, w16, s8
                     and motion.gold's scene, spp 1 and spp 3: every record
@@ -245,13 +273,17 @@ import torch
 from torch.profiler import ProfilerActivity
 from torch.profiler import profile as torch_profile
 
+from pathtracing_tpu_torch import models
 from pathtracing_tpu_torch.accel.wide import (
     LAYOUT_S8,
     LAYOUT_W8,
     LAYOUT_W16,
     LAYOUTS_BY_WIDTH,
 )
+from pathtracing_tpu_torch.adaptive import render_adaptive, render_with_variance
+from pathtracing_tpu_torch.aov import render_aovs
 from pathtracing_tpu_torch.config import PRODUCTION, TESTING
+from pathtracing_tpu_torch.denoise import DEFAULT_SIGMAS, denoise_plain, joint_bilateral_denoise
 from pathtracing_tpu_torch.io.bmp import read_bmp, write_bmp
 from pathtracing_tpu_torch.diff import render as diff_render
 from pathtracing_tpu_torch.diff.render import (
@@ -263,6 +295,7 @@ from pathtracing_tpu_torch.diff.render import (
     replay_value_and_grad,
 )
 from pathtracing_tpu_torch.ops import cuda_build
+from pathtracing_tpu_torch.ops import cuda_denoise as CD
 from pathtracing_tpu_torch.ops import cuda_gather_grad as CG
 from pathtracing_tpu_torch.ops import cuda_megakernel as CM
 from pathtracing_tpu_torch.ops import cuda_traversal as CT
@@ -297,6 +330,7 @@ from pathtracing_tpu_torch.render import (
     to_bgra,
 )
 from pathtracing_tpu_torch.scene import large_scene
+from pathtracing_tpu_torch.scene.builder import SceneBuilder
 from pathtracing_tpu_torch.scene.device import DevicePacker, binary_tables
 from pathtracing_tpu_torch.scene.loader import load_scene, setup_animation_frame
 from pathtracing_tpu_torch.scene.standins import write_standins
@@ -340,6 +374,11 @@ MK_FLOPS = {
     "nee_evals": 236,     # cone sample, tangent space, bsdf_eval
     "nee_marches": 268,   # MIS weight + the 8-step transmittance march
     "bsdf_samples": 244,  # view, GGX VNDF, lobe pick, bsdf_core, new direction
+    # area lights: the CDF pick 1, barycentrics 5, the point 15, toward it 12,
+    # its solid-angle pdf 30, the emission 23, tangent space 15, bsdf_eval
+    # ~180, the MIS weight 4, the term 6 and its add 6
+    "light_samples": 297,
+    "light_pdfs": 30,     # a closest hit's solid-angle pdf on an emitter
 }
 # wide_ray_query's registers per layout and ray_query's (and 0 spill bytes
 # each) as the kernels compiled before their walks moved into wide_walk.cuh
@@ -367,7 +406,10 @@ EDGE_R = (1, 31, 33, 4097)  # one lane, just under / over a warp, a ragged block
 
 LIBRARIES = {"ray_query": CT.LIBRARY, "wide_ray_query": CW.LIBRARY,
              "gather_rows": GP.LIBRARY, "megakernel": CM.LIBRARY,
-             "wavefront": CWF.LIBRARY, "gather_grad": CG.LIBRARY}
+             "wavefront": CWF.LIBRARY, "gather_grad": CG.LIBRARY, "denoise": CD.LIBRARY,
+             # the path kernels' area-light instances: the same sources, built
+             # side by side as libraries of their own
+             "megakernel_lit": CM.LIT_LIBRARY, "wavefront_lit": CWF.LIT_LIBRARY}
 SOURCES = {k: str(lib.source.relative_to(ROOT)) for k, lib in LIBRARIES.items()}
 
 
@@ -377,8 +419,13 @@ def require(cond, what) -> None:
         raise AssertionError(str(what))
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the run's seconds so far (``t``)."""
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - T_START, 1), **kw}),
+          flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -707,15 +754,21 @@ def by_layout(kernels) -> dict:
 # the wavefront kernel's walk policy per table kind, as mangled in its name
 WALK_MANGLED = {"binary": "10BinaryWalk", **{k: "8WideWalk" + v for k, v in LAYOUT_MANGLED.items()}}
 # the path kernels' builds: (kernel, threads a block, count policy as
-# mangled; "" for none)
+# mangled, light policy as mangled; "" for none: the record build has no
+# light policy); the area-light instances (csrc/path.cuh, AreaLights) are
+# the lit_* builds
+SUN, LIT = "12NoAreaLights", "10AreaLights"
 MK_BUILDS = {
-    "first": ("megakernel", 128, "11NoPathCount"),
-    "wide": ("megakernel", 512, "11NoPathCount"),
-    "counting": ("megakernel", 128, "9PathCount"),
-    "phases_first": ("megakernel", 128, "10PhaseClock"),
-    "phases_wide": ("megakernel", 512, "10PhaseClock"),
-    "record_first": ("megakernel_record", 128, ""),
-    "record_wide": ("megakernel_record", 512, ""),
+    "first": ("megakernel", 128, "11NoPathCount", SUN),
+    "wide": ("megakernel", 512, "11NoPathCount", SUN),
+    "counting": ("megakernel", 128, "9PathCount", SUN),
+    "phases_first": ("megakernel", 128, "10PhaseClock", SUN),
+    "phases_wide": ("megakernel", 512, "10PhaseClock", SUN),
+    "record_first": ("megakernel_record", 128, "", ""),
+    "record_wide": ("megakernel_record", 512, "", ""),
+    "lit_first": ("megakernel", 128, "11NoPathCount", LIT),
+    "lit_wide": ("megakernel", 512, "11NoPathCount", LIT),
+    "lit_counting": ("megakernel", 128, "9PathCount", LIT),
 }
 WF_BUILDS = {k: ("wavefront", *v[1:]) for k, v in MK_BUILDS.items() if "record" not in k}
 # the megakernel's layout arguments follow its first two template arguments
@@ -726,14 +779,14 @@ def path_builds(kernels, builds, tags) -> dict:
     """ptxas' report of a path kernel per build and table kind: {build:
     {kind: (registers, spill bytes)}}; a kernel is picked by its name and
     first template argument as mangled (length, name, threads), its table
-    kind's tag and its count policy."""
+    kind's tag, its count policy and its light policy."""
     out = {}
-    for build, (name, threads, count) in builds.items():
+    for build, (name, threads, count, lights) in builds.items():
         out[build] = {}
         head = f"{len(name)}{name}ILi{threads}E"
         for kind, tag in tags.items():
             hit = [k for k in kernels if head in k["entry"]
-                   and tag in k["entry"] and count in k["entry"]]
+                   and tag in k["entry"] and count in k["entry"] and lights in k["entry"]]
             require(len(hit) == 1, f"{name} {build} {kind}: {len(hit)} kernels match "
                                    f"{head} {tag} {count} in {[k['entry'] for k in kernels]}")
             k = hit[0]
@@ -742,7 +795,7 @@ def path_builds(kernels, builds, tags) -> dict:
 
 
 def phase_build():
-    """All six libraries, one nvcc each, started together."""
+    """All nine libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         list(pool.map(lambda lib: lib.build(), LIBRARIES.values()))
@@ -764,12 +817,20 @@ def phase_build():
               for name, lay in LAYOUTS.items()}
     wf_occ = {name: CWF.LIBRARY.load().pt_wavefront_occupancy(w, 0)
               for name, w in (("binary", 0), *((k, v.w_row) for k, v in LAYOUTS.items()))}
-    require(all(v > 0 for v in [*occ.values(), *mk_occ.values(), *wf_occ.values()]),
-            f"occupancy query failed: {occ} {mk_occ} {wf_occ}")
+    # the area-light instances in the design each table kind takes
+    lit_occ = {"megakernel_w8": CM.LIT_LIBRARY.load().pt_megakernel_occupancy(
+                   LAYOUT_W8.w_row, CM.design_code(LAYOUT_W8.w_row, None)),
+               **{f"wavefront_{name}": CWF.LIT_LIBRARY.load().pt_wavefront_occupancy(
+                   w, CM.design_code(w, None))
+                  for name, w in (("binary", 0), ("w8", LAYOUT_W8.w_row))}}
+    require(all(v > 0 for v in [*occ.values(), *mk_occ.values(), *wf_occ.values(),
+                                *lit_occ.values()]),
+            f"occupancy query failed: {occ} {mk_occ} {wf_occ} {lit_occ}")
     report["ray_query"]["blocks_per_sm"] = occ["ray_query"]
     report["wide_ray_query"]["blocks_per_sm"] = {k: occ[k] for k in LAYOUTS}
     report["megakernel"]["blocks_per_sm"] = mk_occ
     report["wavefront"]["blocks_per_sm"] = wf_occ
+    report["area_light_blocks_per_sm"] = lit_occ
     # the walks moved into wide_walk.cuh and binary_walk.cuh: K1 and P1
     # compile as they did before
     k1 = by_layout(report["wide_ray_query"]["kernels"])
@@ -780,8 +841,10 @@ def phase_build():
     p1_regs = [(k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"]) for k in p1]
     require(p1_regs == [(P1_REGISTERS, 0)],
             f"ray_query registers/spills {p1_regs}, expected {P1_REGISTERS} / 0")
-    wf = path_builds(report["wavefront"]["kernels"], WF_BUILDS, WALK_MANGLED)
-    mk = path_builds(report["megakernel"]["kernels"], MK_BUILDS, MK_LAYOUT_TAGS)
+    wf = path_builds(report["wavefront"]["kernels"] + report["wavefront_lit"]["kernels"],
+                     WF_BUILDS, WALK_MANGLED)
+    mk = path_builds(report["megakernel"]["kernels"] + report["megakernel_lit"]["kernels"],
+                     MK_BUILDS, MK_LAYOUT_TAGS)
     report["wavefront"]["registers_spills_by_layout"] = wf
     report["megakernel"]["registers_spills_by_layout"] = mk
     # the instruments (counting, phase-cycle and record builds) are kernels
@@ -1608,6 +1671,10 @@ def path_kernel_bound(scene, counts, n: int, io_bytes: int, spp: int = MAIN_SPP)
         tables = (scene.nl8, scene.tri_pos, scene.inst_f, scene.inst_u, scene.tri_idx,
                   scene.vattr, scene.sf_cam, scene.sf_light, scene.sf_tlas_count,
                   scene.sf_tlas_offset)
+    if scene.lt_tris is not None:  # the light tables, and the emission's rows
+        tables += (scene.lt_tris, scene.lt_rows, scene.lt_cdf, scene.lt_seg, scene.lt_rank)
+        if scene.wide_rows is not None:
+            tables += (scene.tri_idx, scene.vattr)
     table_b = sum(nb(x) for x in tables)
     b = bound(table_b, io_bytes, 0, flops)
     return {"pixels": n, "spp": spp, "flops": flops, "table_bytes": table_b,
@@ -1936,6 +2003,10 @@ ANIM_SPP = 64  # 8 subframes; the production preset's 1024 (128 subframes) for o
 ANIM_CHECK_FRAMES = (1000, 1750)
 ANIM_CHECK_SPP = 8  # one subframe
 ANIM_SUBFRAME_SPP = (ANIM_SPP, PRODUCTION.samples_per_pixel)  # 8 and 128 subframes
+# the deep CLI frame's spp: the production preset asks for 1024; cut to 256
+# (32 subframes) so that the whole run stays under 600 s
+ANIM_DEEP_SPP = 256
+ANIM_DEEP = f"frame{ANIM_DEEP_SPP}"
 CLI_TIMEOUT = 300
 
 
@@ -1947,6 +2018,7 @@ def cli_run(tag, *args, out=None, metrics=True) -> dict:
     if out is None:  # a folder of its own
         out = ANIM_DIR / tag
         shutil.rmtree(out, ignore_errors=True)
+    ANIM_DIR.mkdir(parents=True, exist_ok=True)
     log = ANIM_DIR / f"{tag}.jsonl"
     log.unlink(missing_ok=True)
     cmd = [sys.executable, "-m", "pathtracing_tpu_torch.cli", "--preset", "production",
@@ -1958,7 +2030,8 @@ def cli_run(tag, *args, out=None, metrics=True) -> dict:
     sec = time.perf_counter() - t0
     require(r.returncode == 0, f"cli {tag}: exit {r.returncode}\n{r.stdout[-3000:]}\n"
                                f"{r.stderr[-3000:]}")
-    res = {"seconds": sec, "out": out, "stdout_tail": r.stdout.strip().splitlines()[-4:]}
+    res = {"seconds": sec, "out": out, "stdout_tail": r.stdout.strip().splitlines()[-4:],
+           "stdout": r.stdout}
     if metrics:
         lines = [json.loads(x) for x in log.read_text().splitlines()]
         load = [x for x in lines if x["kind"] == "load"]
@@ -2178,7 +2251,7 @@ def phase_animation_cli(smi):
             # nodes), whatever its subframe count
             require(dev.nl8.shape[0] // 8 > LARGE_SCENE_NODES, "animated scene: not large")
             chunks = {spp: _mk_spp_chunk(n, spp, dev)
-                      for spp in (ANIM_SPP, PRODUCTION.samples_per_pixel, ANIM_CHECK_SPP // 2)}
+                      for spp in (ANIM_SPP, ANIM_DEEP_SPP, ANIM_CHECK_SPP // 2)}
             k2_rgb = to_bgra(c_k2)[..., [2, 1, 0]]
             t = time_launches({"k2": lambda: CM.megakernel_cuda(cfg, dev, n, chunk)})
             k2_launch = {"spp": chunk, "ms": t["k2"][0], "ms_all": t["k2"][1],
@@ -2208,11 +2281,10 @@ def phase_animation_cli(smi):
         "frames64": (cli_run("frames64", "--spp", str(ANIM_SPP), "--frames",
                              *map(str, ANIM_FRAMES), "--wide", "1", *profile("frames64")),
                      range(*ANIM_FRAMES), {"megakernel": -(-ANIM_SPP // chunks[ANIM_SPP])}),
-        "frame1024": (cli_run("frame1024", "--frames", *one, "--wide", "1",
-                              *profile("frame1024")),
-                      [ANIM_FRAMES[0]],
-                      {"megakernel": -(-PRODUCTION.samples_per_pixel
-                                       // chunks[PRODUCTION.samples_per_pixel])}),
+        ANIM_DEEP: (cli_run(ANIM_DEEP, "--spp", str(ANIM_DEEP_SPP), "--frames", *one,
+                            "--wide", "1", *profile(ANIM_DEEP)),
+                    [ANIM_FRAMES[0]],
+                    {"megakernel": -(-ANIM_DEEP_SPP // chunks[ANIM_DEEP_SPP])}),
         "wavefront64": (cli_run("wavefront64", "--spp", str(ANIM_SPP), "--frames", *one,
                                 "--wavefront", "--wide", "0"),
                         [ANIM_FRAMES[0]], {"wavefront": tiles * -(-ANIM_SPP // chunks[ANIM_SPP])}),
@@ -2242,7 +2314,7 @@ def phase_animation_cli(smi):
     # the device's idle share of a K2 frame's render, from the trace that
     # --profile-dir took of the run's first frame (render_ms is timed inside
     # the trace and excludes its export)
-    for tag in ("frames64", "frame1024"):
+    for tag in ("frames64", ANIM_DEEP):
         x = cli[tag]["frames"][0]
         tr = trace_device_time(ANIM_DIR / f"{tag}_profile" / "trace.json", "megakernel")
         require(tr["kernel_launches"] == x["launches"]["megakernel"],
@@ -2578,8 +2650,8 @@ def kernel_split(fn, reps=5) -> dict:
         host.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
     # a profile now and then comes back without its device activity (seen
-    # after many profiles in one process): up to three profiles are taken
-    for _ in range(3):
+    # after many profiles in one process): up to five profiles are taken
+    for _ in range(5):
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 flush.bitwise_not_()
@@ -3042,6 +3114,351 @@ def phase_main_path_grad(cfg, scene, smi):
     return res
 
 
+# ------------------------------------------------------------ area lights
+
+LIGHT_DIR = ROOT / "build" / "arealights"  # the generated panel scene (git-ignored)
+# the light checks' frame: 640x360 at the production preset's 5 bounces
+LIGHT_CFG = dataclasses.replace(PRODUCTION, image_width=640, image_height=360,
+                                samples_per_pixel=MAIN_SPP)
+PANEL_GRID = 6  # quads a side of the emissive panel: 72 triangles an instance
+CORNELL_SPP = 64  # the Cornell box's CLI frames
+CORNELL_ADAPTIVE_BASE = 8  # the adaptive CLI frame's first pass
+# the in-process pass 2 on a 640x360 list: samples [0, 2) everywhere, then 2
+# more a pixel on average where the variance is (buckets up to 16 extra)
+ADAPTIVE_LIST_SPP = (2, 4)
+DENOISE_RADII = (2, 4)
+DENOISE_RTOL = 1e-5  # K8 vs its plain version on the card; atol 1e-6 max|ref|
+# K8's float operations a tap and a pixel, counted from csrc/denoise.cu (each
+# exp one): spatial 2, albedo 12, normal 10, depth 7, coverage 4, range 12,
+# sums 7; the centre's luminance, the denominators and the division 14
+DENOISE_TAP_FLOPS, DENOISE_PIXEL_FLOPS = 54, 14
+# inputs (colours, albedo, normal 3 x 12, depth, coverage, noise 3 x 4) and
+# output (12) bytes a pixel
+DENOISE_PIXEL_BYTES = 60
+
+
+def write_panel_scene(d, n=PANEL_GRID) -> None:
+    """tests/test_arealights.py's panel scene with the 8 x 8 panel cut into
+    an n x n grid of quads (2 n^2 emissive triangles), so that a light
+    sample's search of lt_cdf runs several levels: g.obj, p.obj, m.mtl."""
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "g.obj").write_text(
+        "mtllib m.mtl\nusemtl g\nv -20 0 -20\nv 20 0 -20\nv 20 0 20\nv -20 0 20\n"
+        "vn 0 1 0\nf 1//1 2//1 3//1\nf 1//1 3//1 4//1\n")
+    v = lambda i, j: j * (n + 1) + i + 1
+    verts = "".join(f"v {-4 + 8 * i / n} 6 {-4 + 8 * j / n}\n"
+                    for j in range(n + 1) for i in range(n + 1))
+    faces = "".join(f"f {v(i, j)}//1 {v(i + 1, j + 1)}//1 {v(i + 1, j)}//1\n"
+                    f"f {v(i, j)}//1 {v(i, j + 1)}//1 {v(i + 1, j + 1)}//1\n"
+                    for j in range(n) for i in range(n))
+    (d / "p.obj").write_text(f"mtllib m.mtl\nusemtl light\n{verts}vn 0 -1 0\n{faces}")
+    (d / "m.mtl").write_text("newmtl g\nKd 0.6 0.6 0.6\nPr 0.8\n"
+                             "newmtl light\nKd 3 3 3\nKe 3 3 3\nPr 1.0\n")
+
+
+def panel_scene(cfg, device="cuda", wide=True):
+    """The panel scene with its light tables: the ground, the panel scaled
+    x2 and a second panel beside it (144 light rows), and a sun, so that both
+    NEE terms add."""
+    write_panel_scene(LIGHT_DIR)
+    b = SceneBuilder()
+    b.add_mesh("g", str(LIGHT_DIR / "g.obj"))
+    b.add_mesh("p", str(LIGHT_DIR / "p.obj"))
+    b.add_instance("g")
+    b.add_instance("p", scale=(2, 1, 1))
+    b.add_instance("p", pos=(10, 1, -5))
+    b.set_camera(position=(0, 2.0, 12.0), pitch_yaw_roll=(8, 0, 0), fov=50)
+    b.set_light(direction=(0.3, 1, 0.2), color=(1, 1, 1))
+    return b.build(cfg, emissive_nee=True, wide=wide, device=device)[1]
+
+
+def phase_arealight_check(smi):
+    """The path kernels' area-light instances against their plain versions
+    (the scan's sample-ordered sums, on the card) on the Cornell box and on
+    the panel scene at 640x360 x 5 bounces: K2 on w8 over the row-major
+    frame, K5 on the binary and the w8 tables over a random list with
+    duplicates; spp 1 from sample 0 and spp 4 from sample 5 with the lum^2
+    plane; each launch counted on its kernel; two launches byte-equal; the
+    counting build's light samples and light pdfs. Then the scan with
+    lights on the card against the CPU's on 4,096 lanes of each scene."""
+    cfg = LIGHT_CFG
+    W, H = cfg.image_width, cfg.image_height
+    n = W * H
+    scenes = {"cornell": models.build("cornell_box", cfg, wide=True, device="cuda")[1],
+              "panel": panel_scene(cfg)}
+    require(scenes["panel"].lt_tris.shape[0] >= 64, "the panel scene's light rows")
+    rng = np.random.default_rng(ORDER_SEED)
+    xs_np = rng.integers(0, W, n).astype(np.int32)
+    ys_np = rng.integers(0, H, n).astype(np.int32)
+    xs, ys = torch.from_numpy(xs_np).cuda(), torch.from_numpy(ys_np).cuda()
+    cases, counts, max_err = [], {}, {"megakernel": 0.0, "wavefront": 0.0}
+    for name, s in scenes.items():
+        kinds = {"binary": binary_tables(s), "w8": s}
+        for spp, base in ((1, 0), (4, 5)):
+            stats = spp > 1
+            CM.reset_launches()
+            res, _ = mk_case(f"{name} K2 w8", cfg, s, n, spp, base, with_stats=stats)
+            require(CM.launches == 1, f"{name} K2: {CM.launches} launches")
+            for r in res:
+                emit("arealight_check", scene=name, **r)
+            cases += res
+            max_err["megakernel"] = max(max_err["megakernel"], *(r["max_abs_err"] for r in res))
+            for kind, sc in kinds.items():
+                CWF.reset_launches()
+                res, _ = wf_case(f"{name} K5 {kind}", cfg, sc, xs, ys, spp, base,
+                                 with_stats=stats)
+                require(CWF.launches == 1, f"{name} K5 {kind}: {CWF.launches} launches")
+                for r in res:
+                    emit("arealight_check", scene=name, **r)
+                cases += res
+                max_err["wavefront"] = max(max_err["wavefront"],
+                                           *(r["max_abs_err"] for r in res))
+        twice = {
+            "k2_w8": lambda: CM.megakernel_cuda(cfg, s, n, 4, 5, with_stats=True),
+            "k5_binary": lambda: CWF.wavefront_cuda(cfg, kinds["binary"], xs, ys, 4, 5,
+                                                    with_stats=True),
+            "k5_w8": lambda: CWF.wavefront_cuda(cfg, s, xs, ys, 4, 5, with_stats=True),
+        }
+        for tag, fn in twice.items():
+            a, b = fn(), fn()
+            require(all(x.cpu().numpy().tobytes() == y.cpu().numpy().tobytes()
+                        for x, y in zip(a[:4], b[:4])), f"{name} {tag}: two launches differ")
+        *_, cnt = CM.megakernel_cuda(cfg, s, n, 1, counts=True)
+        c = dict(zip(CM.COUNT_NAMES, cnt.tolist()))
+        require(c["light_samples"] > 0 and c["light_pdfs"] > 0,
+                f"{name}: the light instance counted {c}")
+        counts[name] = c
+        emit("arealight_check", scene=name, lights=int(s.lt_tris.shape[0]), counts=c,
+             two_launches_byte_equal=True)
+    # the scan with lights, the card's against the CPU's
+    scan = {}
+    lanes = 4096
+    idx = np.random.default_rng(ORDER_SEED + 1).integers(0, n, lanes).astype(np.int32)
+    cpu = {"cornell": models.build("cornell_box", cfg, wide=False, device="cpu")[1],
+           "panel": panel_scene(cfg, device="cpu", wide=False)}
+    for name, sc in cpu.items():
+        args = lambda d: [torch.from_numpy(a).to(d) for a in (idx % W, idx // W, idx % 7 + 3)]
+        ref = path_trace_samples(cfg, sc, *args("cpu"))
+        got = path_trace_samples(cfg, binary_tables(scenes[name]), *args("cuda"))
+        scan[name] = mk_compare(f"{name} scan, card vs CPU", tuple(got), tuple(ref), 1, 3, 0,
+                                W, xy=(idx % W, idx // W))
+        emit("arealight_check", scene=name, **scan[name])
+    return {"cases": cases, "max_abs_err": max_err, "counts": counts, "scan": scan,
+            "lights": {k: int(s.lt_tris.shape[0]) for k, s in scenes.items()}, "card": smi}
+
+
+def cornell_scene(spp=CORNELL_SPP):
+    """The Cornell box at the production preset's 1920x1080 x 5 bounces,
+    packed for ``spp`` samples, wide and light tables, on the card."""
+    cfg = dataclasses.replace(PRODUCTION, samples_per_pixel=spp)
+    return cfg, models.build("cornell_box", cfg, wide=True, device="cuda")[1]
+
+
+def phase_arealight_timing(smi):
+    """One launch of each path kernel's area-light instance on the Cornell
+    box at 1080p x 8 spp (K2 on w8, K5 on w8 and on the binary tables; L2
+    flushed, median of 3 in turns), its device time, and its bound from the
+    counting build's counters of the same work; the plain version (the
+    scan) on the same work once."""
+    cfg, s = cornell_scene(MAIN_SPP)
+    n = cfg.image_width * cfg.image_height
+    xs, ys = frame_list(cfg)
+    binary = binary_tables(s)
+    fns = {
+        "k2_w8": lambda: CM.megakernel_cuda(cfg, s, n, MAIN_SPP),
+        "k5_w8": lambda: CWF.wavefront_cuda(cfg, s, xs, ys, MAIN_SPP),
+        "k5_binary": lambda: CWF.wavefront_cuda(cfg, binary, xs, ys, MAIN_SPP),
+    }
+    t = time_launches(fns, reps=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = path_trace_wavefront_plain(cfg, binary, xs, ys, MAIN_SPP)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    k2 = CM.megakernel_cuda(cfg, s, n, MAIN_SPP)
+    err = float(max((a - b).abs().max() for a, b in zip(k2[:3], plain[:3])))
+    out = {"plain_ms": plain_ms, "k2_vs_plain_max_abs_err": err}
+    for tag, fn in fns.items():
+        kernel = "megakernel" if tag.startswith("k2") else "wavefront"
+        scene = binary if tag.endswith("binary") else s
+        dev_ms = launch_device_ms(fn, kernel)
+        cnt = (CM.megakernel_cuda(cfg, s, n, MAIN_SPP, counts=True) if kernel == "megakernel"
+               else CWF.wavefront_cuda(cfg, scene, xs, ys, MAIN_SPP, counts=True))[-1]
+        io = 3 * 4 * n if kernel == "megakernel" else (2 * 4 + 3 * 4) * n
+        res = path_kernel_bound(scene, cnt, n, io)
+        require(res["counts"]["samples"] == n * MAIN_SPP, f"{tag}: counted {res['counts']}")
+        res.update(kernel=tag, ms=t[tag][0], ms_all=t[tag][1], **dev_ms,
+                   roofline_share=res["bound_ms"] / t[tag][0], plain_ms=plain_ms, card=smi)
+        emit("arealight_timing", **res)
+        out[tag] = res
+    return out
+
+
+def phase_cornell_cli(smi):
+    """The Cornell box through the CLI at 1920x1080 x 5 bounces x 64 spp
+    (its default area lights), in processes of its own: by K2 (w8, the
+    default on the card) and with --wavefront by K5 (w8); each run's launches
+    (that kernel's only, one a dispatch of _mk_spp_chunk's spp), seconds,
+    Msamples/s, peak memory; the two BMPs equal (K5 on the row-major list is
+    K2's sums, bit for bit)."""
+    cfg, s = cornell_scene()
+    n = cfg.image_width * cfg.image_height
+    chunks = -(-CORNELL_SPP // _mk_spp_chunk(n, CORNELL_SPP, s))
+    runs = {}
+    for tag, kernel, extra in (("cornell64", "megakernel", ()),
+                               ("cornell64_wavefront", "wavefront", ("--wavefront",))):
+        run = cli_run(tag, "--model", "cornell_box", "--spp", str(CORNELL_SPP), *extra)
+        frames = cli_frames(tag, run, [0], {kernel: chunks})
+        runs[tag] = {"seconds": run["seconds"], "frame": frames[0],
+                     "launches": frames[0]["launches"][kernel],
+                     "load_ms": run["load"]["load_ms"]}
+        emit("cornell_cli", run=tag, kernel=kernel, **runs[tag], card=smi)
+    a, b = (read_bmp(str(ANIM_DIR / t / "frame_0000.bmp")) for t in runs)
+    require((a == b).all(), "cornell CLI: the K5 frame differs from the K2 frame")
+    return runs
+
+
+def phase_adaptive_cli(smi):
+    """The adaptive workflow through the CLI on the Cornell box at 1080p x 5
+    bounces: --adaptive 8 --spp 64 --aovs --wavefront (pass 1 by K2 with its
+    lum^2 plane, pass 2 by K5 per bucket of equal extra counts, the AOV pass
+    by K1): pass 1, pass 2 and the AOV pass's ms, launches, the samples per
+    pixel, the AOV file. Then, for the open choice of render_pixels' pick on
+    lists that are not row-major, pass 2 on a 640x360 frame in process
+    (ADAPTIVE_LIST_SPP, the scene packed for 64 spp: the buckets are not
+    row-major lists), by K5 and by the scan (K1), the same buckets: seconds
+    and launches, and the two frames against each other. (The CLI's frame
+    is packed for its own 64 spp, so its cap of 56 extra samples is every
+    pixel's share: pass 2 is one row-major bucket, as in the JAX CLI.)"""
+    run = cli_run("cornell_adaptive", "--model", "cornell_box", "--spp", str(CORNELL_SPP),
+                  "--adaptive", str(CORNELL_ADAPTIVE_BASE), "--aovs", "--wavefront")
+    require(len(run["frames"]) == 1, "adaptive CLI: one frame")
+    fr = run["frames"][0]
+    la = fr["launches"]
+    require(la["megakernel"] == 1 and la["wavefront"] >= 1 and la["ray_query"] == 0
+            and la["wide_ray_query"] == min(CORNELL_SPP, 8), f"adaptive CLI launches {la}")
+    line = [x for x in run["stdout"].splitlines() if "adaptive samples/pixel" in x]
+    require(len(line) == 1, f"adaptive CLI: no samples line in {run['stdout'][-2000:]}")
+    out_dir = ANIM_DIR / "cornell_adaptive"
+    require((out_dir / "frame_0000.bmp").exists(), "adaptive CLI: no BMP")
+    aovs = np.load(out_dir / "frame_0000.aovs.npz")
+    require(sorted(aovs.files) == ["albedo", "coverage", "depth", "normal"]
+            and aovs["albedo"].shape == (1080, 1920, 3) and aovs["depth"].shape == (1080, 1920),
+            f"adaptive CLI: AOV file {aovs.files}")
+    cli = {"seconds": run["seconds"], "render_ms": fr["render_ms"],
+           "pass1_ms": fr["pass1_ms"], "pass2_ms": fr["pass2_ms"], "aov_ms": fr["aov_ms"],
+           "launches": la, "peak_memory_allocated_bytes": fr["peak_memory_allocated_bytes"],
+           "samples_line": line, "coverage_mean": float(aovs["coverage"].mean())}
+    emit("adaptive_cli", **cli, card=smi)
+    # pass 2 on a 640x360 list: K5 against the scan
+    cfg = dataclasses.replace(LIGHT_CFG, samples_per_pixel=CORNELL_SPP)
+    s = models.build("cornell_box", cfg, wide=True, device="cuda")[1]
+    W, H = cfg.image_width, cfg.image_height
+    idx = np.arange(W * H, dtype=np.int32)
+    res = {}
+    counters = (CT, CW, CM, CWF)
+    for tag, wf in (("k5", True), ("scan", False)):
+        timings = {}
+        for mod in counters:
+            mod.reset_launches()
+        colors, spp_px = render_adaptive(cfg, s, idx % W, idx // W, *ADAPTIVE_LIST_SPP,
+                                         wavefront=wf, device="cuda", timings=timings)
+        res[tag] = {"pass1_s": timings["pass1_s"], "pass2_s": timings["pass2_s"],
+                    "launches": {m.__name__.rsplit(".", 1)[-1]: m.launches for m in counters},
+                    # the extra counts of pass 2, one launch each on K5
+                    "buckets": int(len(np.unique(spp_px[spp_px > ADAPTIVE_LIST_SPP[0]]))),
+                    "colors": colors,
+                    "samples_mean": float(spp_px.mean())}
+    buckets = res["k5"]["buckets"]
+    la, lb = res["k5"]["launches"], res["scan"]["launches"]
+    require(buckets > 1 and la["cuda_megakernel"] == lb["cuda_megakernel"] == 1
+            and la["cuda_wavefront"] == buckets and lb["cuda_wavefront"] == 0
+            and lb["cuda_wide_traversal"] > 0, f"adaptive pass 2: {res}")
+    cmp = mk_compare("adaptive 640x360, K5 pass 2 vs scan pass 2",
+                     tuple(torch.from_numpy(res["k5"]["colors"][:, k]) for k in range(3)),
+                     tuple(torch.from_numpy(res["scan"]["colors"][:, k]) for k in range(3)),
+                     CORNELL_SPP, 0, 0, W)
+    for r in res.values():
+        r.pop("colors")
+    emit("adaptive_pass2", **res, vs_scan=cmp, card=smi)
+    return {"cli": cli, "pass2_640x360": res, "k5_vs_scan": cmp}
+
+
+def denoise_bound(n: int, radius: int) -> dict:
+    taps = (2 * radius + 1) ** 2
+    return bound(0, DENOISE_PIXEL_BYTES * n, 0,
+                 n * (DENOISE_TAP_FLOPS * taps + DENOISE_PIXEL_FLOPS))
+
+
+def phase_denoise_check(smi):
+    """K8 on the Cornell box's 1080p frame: the 8 spp frame and its noise
+    map from render_with_variance (K2 with lum^2) and its AOVs from
+    render_aovs (K1), denoised through joint_bilateral_denoise (one K8
+    launch, counted); K8 against its plain version on the card at radius 2
+    and 4, with and without the noise map (rtol DENOISE_RTOL, atol 1e-6
+    max|ref|); the denoised frame nearer a 64 spp frame of disjoint samples
+    than the 8 spp frame (tests/test_denoise.py's bar, with and without the
+    noise map); each radius timed (L2 flushed, median of 5, beside the plain
+    version), its device time and its bound."""
+    cfg, s = cornell_scene(2 * CORNELL_SPP)
+    W, H = cfg.image_width, cfg.image_height
+    n = W * H
+    idx = np.arange(n, dtype=np.int32)
+    xs, ys = idx % W, idx // W
+    t0 = time.perf_counter()
+    noisy, stderr = render_with_variance(cfg, s, xs, ys, MAIN_SPP, device="cuda")
+    t1 = time.perf_counter()
+    aovs = render_aovs(cfg, s, xs, ys, spp=MAIN_SPP, device="cuda")
+    t2 = time.perf_counter()
+    ref = render_pixels(cfg, s, xs, ys, spp=CORNELL_SPP, sample_base=CORNELL_SPP,
+                        device="cuda").reshape(H, W, 3)
+    noisy = noisy.reshape(H, W, 3)
+    aovs = {k: v.reshape(H, W, -1).squeeze() for k, v in aovs.items()}
+    CD.reset_launches()
+    den = joint_bilateral_denoise(noisy, aovs, device="cuda")
+    launches = CD.launches
+    require(launches == 1, f"denoise: {launches} K8 launches")
+    ranged = joint_bilateral_denoise(noisy, aovs, noise=stderr.reshape(H, W), device="cuda")
+    clip = lambda a: np.clip(a, 0, 10)
+    mse = lambda a: float(np.mean((clip(a) - clip(ref)) ** 2))
+    quality = {"mse_noisy": mse(noisy), "mse_denoised": mse(den), "mse_ranged": mse(ranged)}
+    require(quality["mse_denoised"] < quality["mse_noisy"]
+            and quality["mse_ranged"] < quality["mse_noisy"], f"denoise quality {quality}")
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+    guides = [up(noisy), up(aovs["albedo"]), up(aovs["normal"]), up(aovs["depth"]),
+              up(aovs["coverage"])]
+    noises = {"noise": up(stderr.reshape(H, W)),
+              "no_noise": torch.full((H, W), float("inf"), device="cuda")}
+    checks, timing, max_err = [], {}, 0.0
+    for radius in DENOISE_RADII:
+        for tag, nz in noises.items():
+            got = CD.denoise_cuda(*guides, nz, radius, DEFAULT_SIGMAS)
+            want = denoise_plain(*guides, nz, radius)
+            err = (got - want).abs()
+            tol = DENOISE_RTOL * want.abs() + 1e-6 * float(want.abs().max())
+            c = {"radius": radius, "case": tag, "max_abs_err": float(err.max()),
+                 "bit_equal_share": float((got == want).float().mean()),
+                 "within_tol": bool((err <= tol).all())}
+            require(c["within_tol"] and bool(torch.isfinite(got).all()), f"denoise {c}")
+            max_err = max(max_err, c["max_abs_err"])
+            checks.append(c)
+        nz = noises["noise"]
+        t = time_launches({"k8": lambda: CD.denoise_cuda(*guides, nz, radius, DEFAULT_SIGMAS),
+                           "plain": lambda: denoise_plain(*guides, nz, radius)})
+        timing[radius] = {"ms": t["k8"][0], "ms_all": t["k8"][1], "plain_ms": t["plain"][0],
+                          **launch_device_ms(
+                              lambda: CD.denoise_cuda(*guides, nz, radius, DEFAULT_SIGMAS),
+                              "denoise_kernel"),
+                          **denoise_bound(n, radius)}
+        timing[radius]["roofline_share"] = timing[radius]["bound_ms"] / timing[radius]["ms"]
+    res = {"launches": launches, "checks": checks, "max_abs_err": max_err, "timing": timing,
+           "quality": quality, "variance_pass_s": t1 - t0, "aov_pass_s": t2 - t1,
+           "registers": [(k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"])
+                         for k in CD.LIBRARY.resources()], "card": smi}
+    emit("denoise_check", **res)
+    return res
+
+
 def large_walk(large, kernel, frame) -> dict:
     """A ray-query kernel's readings on the large scene for the kernels
     line: its launches in the scan frame, the 65,536-ray batches and the
@@ -3166,6 +3583,13 @@ def main() -> int:
     tonemap_res = phase_tonemap_check(prod_cfg, prod_wide)
     mk_time = phase_megakernel_timing(prod_cfg, prod_wide, smi)
     wf_time = phase_wavefront_timing(prod_cfg, prod_scene, prod_wide, smi)
+    # S9: area lights through K2 and K5, the Cornell box and the adaptive /
+    # AOV / denoise workflow (K8)
+    lights = phase_arealight_check(smi)
+    light_time = phase_arealight_timing(smi)
+    cornell = phase_cornell_cli(smi)
+    adaptive = phase_adaptive_cli(smi)
+    dn = phase_denoise_check(smi)
     large = phase_large_scene(prod_cfg, smi)
     anim = phase_animation_cli(smi)
     rec_err = phase_record_check(wide_scenes, motion_wide)
@@ -3299,11 +3723,12 @@ def main() -> int:
             **design_summary("megakernel", designs, split),
             "large_scene": large_path(large, "k2_w8", "megakernel_w8"),
             "animation_cli": {**anim_kernel(anim, "frames64", "megakernel"),
-                              "frame_1024_spp": anim_kernel(anim, "frame1024", "megakernel"),
+                              f"frame_{ANIM_DEEP_SPP}_spp": anim_kernel(anim, ANIM_DEEP,
+                                                                        "megakernel"),
                               "launch_at_frame_dispatch": anim["k2_launch"],
                               "traced_first_frame": {
                                   tag: anim["cli"][tag]["frames"][0]["traced"]
-                                  for tag in ("frames64", "frame1024")},
+                                  for tag in ("frames64", ANIM_DEEP)},
                               "last_subframes_vs_scan": {
                                   spp: v["k2_vs_scan"] for spp, v in anim["subframes"].items()}},
             "card": smi,
@@ -3400,6 +3825,73 @@ def main() -> int:
                      "passes": grad_k[f"row_grad_{tab}"]["passes"]}
                for tab in ("inst_f", "tri_pos", "tri_pos_two_pass")},
             **regs("gather_grad"),
+            "card": smi,
+        },
+        {
+            "name": "megakernel_arealights",
+            "route": "cuda",
+            "source": SOURCES["megakernel"],
+            "replaces": "pathtracing_tpu/ops/megakernel.py:85",
+            "layout": MAIN_LAYOUT,
+            # the Cornell box's 64 spp CLI frame: one launch a dispatch
+            "launches": cornell["cornell64"]["launches"],
+            "max_abs_err": lights["max_abs_err"]["megakernel"],
+            "ms": light_time["k2_w8"]["ms"],
+            # the scan on the same work (the binary tables)
+            "plain_ms": light_time["plain_ms"],
+            "bound_ms": light_time["k2_w8"]["bound_ms"],
+            "bound_by": light_time["k2_w8"]["bound_by"],
+            "library_ms": None,  # no single PyTorch call renders a path
+            "shape": f"Cornell box 1920x1080 x {MAIN_SPP} spp, 5 bounces, one launch",
+            "device_ms": light_time["k2_w8"]["device_ms"],
+            "registers_spills": {d: built["megakernel"]["registers_spills_by_layout"][
+                f"lit_{d}"][MAIN_LAYOUT] for d in CM.DESIGNS},
+            "cli_frame_64spp": cornell["cornell64"],
+            "light_rows": lights["lights"],
+            "card": smi,
+        },
+        {
+            "name": "wavefront_arealights",
+            "route": "cuda",
+            "source": SOURCES["wavefront"],
+            "replaces": "pathtracing_tpu/ops/wavefront.py:106",
+            "layout": MAIN_LAYOUT,
+            "launches": cornell["cornell64_wavefront"]["launches"],
+            "max_abs_err": lights["max_abs_err"]["wavefront"],
+            "ms": light_time["k5_w8"]["ms"],
+            "plain_ms": light_time["plain_ms"],
+            "bound_ms": light_time["k5_w8"]["bound_ms"],
+            "bound_by": light_time["k5_w8"]["bound_by"],
+            "library_ms": None,  # no single PyTorch call renders a path
+            "shape": f"Cornell box 1920x1080 list x {MAIN_SPP} spp, 5 bounces, one launch",
+            "device_ms": light_time["k5_w8"]["device_ms"],
+            "binary": {k: light_time["k5_binary"][k]
+                       for k in ("ms", "device_ms", "bound_ms", "bound_by")},
+            "registers_spills": {d: {kind: built["wavefront"]["registers_spills_by_layout"][
+                f"lit_{d}"][kind] for kind in ("binary", MAIN_LAYOUT)} for d in CM.DESIGNS},
+            "cli_frame_64spp": cornell["cornell64_wavefront"],
+            "adaptive_cli": adaptive["cli"],
+            "adaptive_pass2_640x360": adaptive["pass2_640x360"],
+            "card": smi,
+        },
+        {
+            "name": "denoise",
+            "route": "cuda",
+            "source": str(CD.SOURCE.relative_to(ROOT)),
+            "replaces": "pathtracing_tpu/denoise.py:36",
+            "launches": dn["launches"],
+            "max_abs_err": dn["max_abs_err"],
+            "ms": dn["timing"][2]["ms"],
+            "plain_ms": dn["timing"][2]["plain_ms"],
+            "bound_ms": dn["timing"][2]["bound_ms"],
+            "bound_by": dn["timing"][2]["bound_by"],
+            "library_ms": None,  # no single PyTorch call is a joint bilateral filter
+            "shape": "1920x1080 x 3, radius 2, the noise map",
+            "device_ms": dn["timing"][2]["device_ms"],
+            "radius_4": {k: dn["timing"][4][k] for k in ("ms", "device_ms", "plain_ms",
+                                                         "bound_ms", "bound_by")},
+            "quality": dn["quality"],
+            "registers_spills": dn["registers"],
             "card": smi,
         },
     ]}), flush=True)

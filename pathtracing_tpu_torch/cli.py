@@ -7,6 +7,9 @@ package's ``cli.py``.
 Renders frames of the full animated scene (or a static preset) to
 output/frame_%04d.bmp with per-stage timing prints mirroring the
 reference's, and frame-granular resume (--resume skips existing frames).
+``--adaptive BASE`` renders each frame by variance-guided adaptive sampling
+(adaptive.py) and ``--aovs`` also writes its primary-hit AOV buffers
+(aov.py) to frame_NNNN.aovs.npz, as the JAX package's CLI does.
 The meshes come from --data-dir (or $PT_DATA_DIR): the reference's data
 folder, or stand-ins written by ``scene/standins.write_standins``.
 
@@ -144,14 +147,18 @@ def main(argv=None):
     )
     args = ap.parse_args(argv)
 
-    later = {"--shard": (args.shard, "S10, parallel/sharding.py"),
-             "--adaptive": (args.adaptive is not None, "S9, adaptive.py"),
-             "--aovs": (args.aovs, "S9, aov.py")}
-    for flag, (on, where) in later.items():
-        if on:
-            raise NotImplementedError(
-                f"{flag} is a later slice of the port ({where})"
-            )
+    if args.adaptive is not None:
+        if args.sample_range or args.shard:
+            ap.error("--adaptive cannot combine with --sample-range/--shard")
+        spp_total = args.spp or (
+            256 if args.preset == "testing" else 1024
+        )
+        if not (1 <= args.adaptive <= spp_total):
+            ap.error(f"--adaptive BASE must be in [1, spp={spp_total}]")
+    if args.shard:
+        raise NotImplementedError(
+            "--shard is a later slice of the port (S10, parallel/sharding.py)"
+        )
 
     if args.merge:
         return merge_partials(args)
@@ -280,6 +287,7 @@ def main(argv=None):
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         image = None
+        passes = {}  # the adaptive passes' and the AOV pass's host seconds
         with profile_ctx:  # the trace's start and export stay outside the time
             t0 = time.perf_counter()
             if args.sample_range:
@@ -298,10 +306,45 @@ def main(argv=None):
                     args.out, f"frame_{frame_index:04d}.part_{a}_{b}.npz"
                 )
                 np.savez_compressed(part, sums=sums, sample_range=(a, b))
+            elif args.adaptive is not None:
+                from pathtracing_tpu_torch.adaptive import render_adaptive
+                from pathtracing_tpu_torch.render import to_bgra
+
+                W, H = config.image_width, config.image_height
+                idx = np.arange(W * H, dtype=np.int32)
+                colors, counts = render_adaptive(
+                    config, dev, idx % W, idx // W,
+                    spp_base=args.adaptive, spp_total=config.samples_per_pixel,
+                    tile_pixels=args.tile_pixels, wavefront=args.wavefront,
+                    device=device, timings=passes,
+                )
+                colors = colors.reshape(H, W, 3)
+                print(
+                    f"FRAME #{frame_index} adaptive samples/pixel: "
+                    f"min={counts.min()} mean={counts.mean():.1f} "
+                    f"max={counts.max()}"
+                )
+                image = to_bgra(colors, device=device)
             else:
                 colors, image = render_frame(
                     config, dev, tile_pixels=args.tile_pixels,
                     wavefront=args.wavefront, device=device,
+                )
+            if args.aovs:
+                from pathtracing_tpu_torch.aov import render_aovs
+
+                t_aov = time.perf_counter()
+                W, H = config.image_width, config.image_height
+                idx = np.arange(W * H, dtype=np.int32)
+                aovs = render_aovs(
+                    config, dev, idx % W, idx // W,
+                    spp=min(config.samples_per_pixel, 8),
+                    tile_pixels=args.tile_pixels, device=device,
+                )
+                passes["aov_s"] = time.perf_counter() - t_aov
+                np.savez_compressed(
+                    os.path.join(args.out, f"frame_{frame_index:04d}.aovs.npz"),
+                    **{k: v.reshape(H, W, -1).squeeze() for k, v in aovs.items()},
                 )
             dt = time.perf_counter() - t0
         n_samples = config.image_width * config.image_height * (
@@ -316,7 +359,8 @@ def main(argv=None):
         # pack_ms: the part of setup_ms in pack_frame, whose uploads wait on
         # the device's default stream behind the previous frame's render
         extra = {"pack_ms": round(pack_s * 1e3, 1), "launches": _launches(kernels),
-                 "table_bytes": _table_bytes(dev)}
+                 "table_bytes": _table_bytes(dev),
+                 **{k[:-2] + "_ms": round(v * 1e3, 1) for k, v in passes.items()}}
         if device.type == "cuda":
             extra["peak_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(device)
         metrics.frame(frame_index, setup_s, dt, n_samples, config.max_bounces, **extra)

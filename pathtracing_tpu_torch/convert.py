@@ -12,23 +12,21 @@ import numpy as np
 from pathtracing_tpu_torch import resolve_device
 from pathtracing_tpu_torch.scene.device import SceneDevice, to_device
 
-# optional wide-BVH tables: carried across when the JAX scene has them
-_WIDE = ("wide_rows", "wide_root", "wide_root_base", "tri_shade")
+# optional tables carried across when the JAX scene has them: the wide-BVH
+# tables and the area-light tables
+_WIDE = ("wide_rows", "wide_root", "wide_root_base", "tri_shade",
+         "lt_tris", "lt_rows", "lt_cdf", "lt_seg", "lt_rank")
 # fields of the JAX SceneDevice that the port does not read yet
-_LATER = (
-    "nl5",
-    "lt_tris", "lt_rows", "lt_cdf", "lt_seg", "lt_rank",
-    "hot_rows", "hot_planes",
-)
+_LATER = ("nl5", "hot_rows", "hot_planes")
 
 
 def scene_from_jax(fields: dict[str, np.ndarray], device=None) -> SceneDevice:
     """The port's SceneDevice from the numpy fields of a JAX SceneDevice.
 
     Tables are uploaded byte for byte (the link bit patterns in ``nl8`` and
-    ``wide_rows`` pass through no float op). The wide-BVH tables come across
-    when present. Optional tables of later slices (bf16 node rows, area
-    lights, hot rows) are refused rather than dropped, so a scene never
+    ``wide_rows`` pass through no float op). The wide-BVH and the area-light
+    tables come across when present. Optional tables of later slices (bf16
+    node rows, hot rows) are refused rather than dropped, so a scene never
     renders through another path than the caller packed it for.
     """
     device = resolve_device(device)

@@ -1,4 +1,5 @@
-// The megakernel (K2): whole sun-NEE paths, one thread per pixel slot.
+// The megakernel (K2): whole paths, one thread per pixel slot: sun NEE, and
+// area-light NEE where the scene carries light tables.
 //
 // Replaces the JAX package's persistent-lane renderer
 // the JAX package's ops/megakernel.py::path_trace_megakernel (with _service
@@ -66,6 +67,18 @@
 // it adds 8 B of stores to K2's work, and 9 B per bounce row its path
 // reaches.
 //
+// Area lights.  A scene with light tables (ops/arealights.py) launches the
+// AreaLights instances of path.cuh's light policy (the JAX megakernel's
+// _PH_SHADOW2 phase: one more draw, a light sample and an any-hit walk
+// toward it per bounce, the terms added in the scan's order); the sun-only
+// instances are the NoAreaLights ones, whose hooks are empty, so they
+// compile as before.  The light instances are built into a library of their
+// own from this source (-DPT_AREA_LIGHTS=1, ops/cuda_megakernel.py's
+// LIT_LIBRARY), so that the two compile side by side; they exist for the
+// timed designs and the counting build.  The record build (K6) refuses light
+// tables, as the JAX package's record mode does, and the phase-cycle build
+// has none.
+//
 // Parity: built with --fmad=false, IEEE division and square root, no
 // fast-math, no flush-to-zero (ops/cuda_build.py); shading.cuh has the rules
 // that keep a sample on the plain version's bits.
@@ -73,15 +86,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "binary_walk.cuh"
 #include "path.cuh"
 #include "ray_common.cuh"
 #include "shading.cuh"
 #include "wide_walk.cuh"
 
+#ifndef PT_AREA_LIGHTS
+#define PT_AREA_LIGHTS 0  // 1: the area-light instances (AreaLights), 0: the sun-only ones
+#endif
+
 namespace {
 
 using namespace ptq;
+
+// The light policy this library instantiates.
+using Lit = std::conditional_t<PT_AREA_LIGHTS != 0, AreaLights, NoAreaLights>;
 
 constexpr int kBlock = 128;      // the first design: four blocks an SM
 constexpr int kWideBlock = 512;  // the wide block: one block an SM
@@ -93,24 +115,25 @@ struct Slots {
     int n_pixels, pixel_base;
 };
 
-template <class Count, class Walk>
+template <class Count, class Walk, class Lights>
 __device__ __forceinline__ void render_slot(const Walk& w, const PackedFetch& fe,
-                                            const PathParams& p, const Slots& sl, const Out& o,
-                                            int slot) {
+                                            const Lights& lt, const PathParams& p,
+                                            const Slots& sl, const Out& o, int slot) {
     const int local = sl.pixel_order ? __ldg(sl.pixel_order + slot) : slot;
     const int pixel = sl.pixel_base + local;
     Count count;
-    o.write(local, trace_samples(w, fe, p, pixel % p.width, pixel / p.width, o.l2 != nullptr,
-                                 count));
+    o.write(local, trace_samples(w, fe, lt, p, pixel % p.width, pixel / p.width,
+                                 o.l2 != nullptr, count));
     count.flush(o.counts);
 }
 
 // One slot per thread, kThreads a block.
-template <int kThreads, int S, int L, bool STUB, class Count>
+template <int kThreads, int S, int L, bool STUB, class Count, class Lights>
 __global__ void __launch_bounds__(kThreads) megakernel(WideWalk<S, L, STUB> w, PackedFetch fe,
-                                                       PathParams p, Slots sl, Out o) {
+                                                       PathParams p, Slots sl, Out o,
+                                                       Lights lt) {
     const int slot = blockIdx.x * kThreads + threadIdx.x;
-    if (slot < sl.n_pixels) render_slot<Count>(w, fe, p, sl, o, slot);
+    if (slot < sl.n_pixels) render_slot<Count>(w, fe, lt, p, sl, o, slot);
 }
 
 // The record build (K6): the same paths and sums as the timed build, bit
@@ -126,7 +149,8 @@ __device__ __forceinline__ void record_slot(const Walk& w, const PackedFetch& fe
     NoPathCount count;
     ItemRecord rec = rec0;
     rec.slot = slot;
-    o.write(slot, trace_samples(w, fe, p, pixel % p.width, pixel / p.width, false, count, rec));
+    o.write(slot, trace_samples(w, fe, NoAreaLights{}, p, pixel % p.width, pixel / p.width,
+                                false, count, rec));
 }
 
 template <int kThreads, int S, int L, bool STUB>
@@ -140,33 +164,51 @@ __global__ void __launch_bounds__(kThreads) megakernel_record(WideWalk<S, L, STU
 // The build a launch asks for.
 enum Build { kTimed, kCounting, kPhases, kRecord };
 
-// One design's kernels: kThreads a block.
-template <int kThreads, int S, int L, bool STUB>
-int launch_design(const WideWalk<S, L, STUB>& w, const PackedFetch& fe, const PathParams& p,
-                  const Slots& sl, const Out& o, const ItemRecord& rec, Build build,
-                  cudaStream_t s) {
+// One design's kernels: kThreads a block.  The light instances: the timed
+// and the counting build only (the caller refuses the others).
+template <int kThreads, int S, int L, bool STUB, class Lights>
+int launch_design(const WideWalk<S, L, STUB>& w, const PackedFetch& fe, const Lights& lt,
+                  const PathParams& p, const Slots& sl, const Out& o, const ItemRecord& rec,
+                  Build build, cudaStream_t s) {
     const dim3 grid((unsigned)((sl.n_pixels + kThreads - 1) / kThreads)), block(kThreads);
-    if (build == kRecord)
-        megakernel_record<kThreads, S, L, STUB><<<grid, block, 0, s>>>(w, fe, p, sl, o, rec);
-    else if (build == kCounting)
-        megakernel<kThreads, S, L, STUB, PathCount><<<grid, block, 0, s>>>(w, fe, p, sl, o);
-    else if (build == kPhases)
-        megakernel<kThreads, S, L, STUB, PhaseClock><<<grid, block, 0, s>>>(w, fe, p, sl, o);
+    if constexpr (!Lights::kLit) {
+        if (build == kRecord) {
+            megakernel_record<kThreads, S, L, STUB><<<grid, block, 0, s>>>(w, fe, p, sl, o, rec);
+            return (int)cudaGetLastError();
+        }
+        if (build == kPhases) {
+            megakernel<kThreads, S, L, STUB, PhaseClock, Lights>
+                <<<grid, block, 0, s>>>(w, fe, p, sl, o, lt);
+            return (int)cudaGetLastError();
+        }
+    }
+    if (build == kCounting)
+        megakernel<kThreads, S, L, STUB, PathCount, Lights>
+            <<<grid, block, 0, s>>>(w, fe, p, sl, o, lt);
     else
-        megakernel<kThreads, S, L, STUB, NoPathCount><<<grid, block, 0, s>>>(w, fe, p, sl, o);
+        megakernel<kThreads, S, L, STUB, NoPathCount, Lights>
+            <<<grid, block, 0, s>>>(w, fe, p, sl, o, lt);
     return (int)cudaGetLastError();
 }
 
 // The counting build runs the first design (an instrument); the others the
 // design asked for.
-template <int S, int L, bool STUB>
-int launch(const WideWalk<S, L, STUB>& w, const PackedFetch& fe, const PathParams& p,
-           const Slots& sl, const Out& o, const ItemRecord& rec, Build build, int design,
-           cudaStream_t s) {
+template <int S, int L, bool STUB, class Lights>
+int launch(const WideWalk<S, L, STUB>& w, const PackedFetch& fe, const Lights& lt,
+           const PathParams& p, const Slots& sl, const Out& o, const ItemRecord& rec,
+           Build build, int design, cudaStream_t s) {
     if (build == kCounting || design == kFirst)
-        return launch_design<kBlock>(w, fe, p, sl, o, rec, build, s);
-    return launch_design<kWideBlock>(w, fe, p, sl, o, rec, build, s);
+        return launch_design<kBlock>(w, fe, lt, p, sl, o, rec, build, s);
+    return launch_design<kWideBlock>(w, fe, lt, p, sl, o, rec, build, s);
 }
+
+// The library's light policy from the launch's light tables.
+template <class Lights>
+Lights lit_policy(const AreaLights& lights);
+template <>
+AreaLights lit_policy<AreaLights>(const AreaLights& lights) { return lights; }
+template <>
+NoAreaLights lit_policy<NoAreaLights>(const AreaLights&) { return {}; }
 
 template <int S, int L, bool STUB>
 WideWalk<S, L, STUB> wide_walk_of(const void* rows, const void* wide_root,
@@ -187,10 +229,14 @@ WideWalk<S, L, STUB> wide_walk_of(const void* rows, const void* wide_root,
 // records into the five planes (zeroed by the caller; n_pixels * spp items,
 // sample-major): primary pk and prim (n_items,), bounce pk, prim and occ
 // (max_bounces * n_items,).  `design`: 0 the first design, 1 the wide block;
-// the counting build runs the first design.  Returns the launch's
-// cudaError_t (0 = accepted), -1 for a width no layout has, -2 for records
-// asked with counts, phases, l2 or a pixel order, counts with phases, or a
-// design that does not exist.
+// the counting build runs the first design.  The area-light library
+// (PT_AREA_LIGHTS) takes a non-null `lt_tris` (the five lt_* tables, L =
+// n_lights rows, and tri_idx / vattr for the emission at a light point), the
+// sun-only one a null one.  Returns the launch's cudaError_t (0 =
+// accepted), -1 for a width no layout has, -2 for records asked with counts,
+// phases, l2, a pixel order or light tables, counts with phases, phases with
+// light tables, no light rows, or a design that does not exist, -3 for light
+// tables this library does not take (or their absence).
 extern "C" int pt_megakernel(
     const void* rows, int width, const void* wide_root, const void* root_base,
     const void* tri_pos, const void* inst_f, const void* inst_u, const void* tri_shade,
@@ -200,9 +246,13 @@ extern "C" int pt_megakernel(
     int max_bounces, int smbs, int student_id, float min_ray_dist, float max_ray_dist,
     float gamma, int max_steps, void* out_r, void* out_g, void* out_b, void* out_l2,
     void* n_truncated, void* counts, void* phases, int design, void* rec_pk_p,
-    void* rec_prim_p, void* rec_pk_b, void* rec_prim_b, void* rec_occ_b, void* stream) {
-    if (rec_pk_p && (counts || phases || out_l2 || pixel_order)) return -2;
+    void* rec_prim_p, void* rec_pk_b, void* rec_prim_b, void* rec_occ_b,
+    const void* lt_tris, const void* lt_rows, const void* lt_cdf, const void* lt_seg,
+    const void* lt_rank, int n_lights, const void* tri_idx, const void* vattr, void* stream) {
+    if (rec_pk_p && (counts || phases || out_l2 || pixel_order || lt_tris)) return -2;
     if ((counts && phases) || design < kFirst || design > kWide) return -2;
+    if (lt_tris && (phases || n_lights <= 0)) return -2;
+    if ((lt_tris != nullptr) != Lit::kLit) return -3;
     if (n_pixels <= 0) return 0;
     const PackedFetch fe = {(const float*)tri_shade, (const float*)inst_f, (const int*)inst_u};
     const PathParams p = {(const float*)sf_cam, (const float*)sf_light, n_cam, n_light,
@@ -215,13 +265,16 @@ extern "C" int pt_megakernel(
                             (int*)rec_prim_b, (uint8_t*)rec_occ_b, n_pixels * spp, n_pixels,
                             0, 0};
     const Build build = rec_pk_p ? kRecord : (counts ? kCounting : (phases ? kPhases : kTimed));
+    const AreaLights lights = {(const float*)lt_tris, (const int*)lt_rows, (const float*)lt_cdf,
+                               (const int*)lt_seg,    (const int*)lt_rank, (const int*)tri_idx,
+                               (const float*)vattr,   (const int*)inst_u,  n_lights};
     cudaStream_t s = (cudaStream_t)stream;
-#define PT_MK_LAUNCH(S, L, STUB)                                                   \
-    if (width == Layout<S, L, STUB>::kWidth)                                       \
-        return launch<S, L, STUB>(wide_walk_of<S, L, STUB>(rows, wide_root, root_base, \
-                                                           tri_pos, inst_u,        \
-                                                           sf_tlas_offset, n_tlas), \
-                                  fe, p, sl, o, rec, build, design, s);
+#define PT_MK_LAUNCH(S, L, STUB)                                                          \
+    if (width == Layout<S, L, STUB>::kWidth) {                                            \
+        const WideWalk<S, L, STUB> w = wide_walk_of<S, L, STUB>(                          \
+            rows, wide_root, root_base, tri_pos, inst_u, sf_tlas_offset, n_tlas);         \
+        return launch(w, fe, lit_policy<Lit>(lights), p, sl, o, rec, build, design, s);  \
+    }
     PT_MK_LAUNCH(8, 4, false)   // w8
     PT_MK_LAUNCH(16, 8, false)  // w16
     PT_MK_LAUNCH(8, 8, true)    // s8
@@ -237,16 +290,17 @@ extern "C" int pt_megakernel_count_slots(void) { return kNCounts; }
 
 extern "C" int pt_megakernel_phase_slots(void) { return kNPhases; }
 
-// Blocks of the layout's timed kernel in `design` one SM holds at once
-// (negative: the CUDA error), or 0 for a width no layout has.
+// Blocks of the layout's timed kernel in `design` (this library's light
+// policy) one SM holds at once (negative: the CUDA error), or 0 for a width
+// no layout has.
 extern "C" int pt_megakernel_occupancy(int width, int design) {
-#define PT_MK_OCC(S, L, STUB)                                                              \
-    if (width == Layout<S, L, STUB>::kWidth)                                               \
-        return design == kFirst                                                            \
-                   ? resident_blocks_per_sm(megakernel<kBlock, S, L, STUB, NoPathCount>,   \
-                                            kBlock)                                        \
-                   : resident_blocks_per_sm(megakernel<kWideBlock, S, L, STUB, NoPathCount>, \
-                                            kWideBlock);
+#define PT_MK_OCC(S, L, STUB)                                                       \
+    if (width == Layout<S, L, STUB>::kWidth)                                        \
+        return design == kFirst                                                     \
+                   ? resident_blocks_per_sm(                                        \
+                         megakernel<kBlock, S, L, STUB, NoPathCount, Lit>, kBlock)  \
+                   : resident_blocks_per_sm(                                        \
+                         megakernel<kWideBlock, S, L, STUB, NoPathCount, Lit>, kWideBlock);
     PT_MK_OCC(8, 4, false)
     PT_MK_OCC(16, 8, false)
     PT_MK_OCC(8, 8, true)

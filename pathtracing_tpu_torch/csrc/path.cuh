@@ -21,6 +21,19 @@
 //          UnpackedFetch (tri_idx, vattr, tri_pos: the scan's fetch).
 // The two fetches give the same bits (tests/test_torch_shade_packed.py).
 //
+// A third compile-time policy adds area-light NEE (ops/arealights.py; the
+// JAX package's megakernel phase _PH_SHADOW2 and its wavefront's light
+// branch):
+//   Lights NoAreaLights (the sun only: every hook is empty, so those
+//          instances compile as they did before the policy existed) or
+//          AreaLights (the scene's lt_* tables): per bounce one more draw
+//          after the NEE draw, a light sample (a binary search of lt_cdf, a
+//          point on the triangle, its interpolated emission, bsdf_eval toward
+//          it), an any-hit walk toward it after the sun's shadow walk, its
+//          term added after the next closest hit and before the sun's term
+//          (the scan's order), and the power-heuristic weight on emission
+//          found by BSDF sampling.
+//
 // trace_samples folds a pixel's samples [sample_base, sample_base + spp):
 // in sample order, in registers, from 0.0f, with the luminance-squared plane
 // beside them when asked; a sample one of whose walks hits the step cap is
@@ -154,7 +167,7 @@ struct UnpackedFetch {
 enum {
     kSamples, kNodeRows, kLeafRows, kInstRows, kSlabTests, kTriTests, kRays,
     kShadeHits, kShadeMisses, kAtmoMarches, kNeeEvals, kNeeMarches,
-    kBsdfSamples, kNCounts
+    kBsdfSamples, kLightSamples, kLightPdfs, kNCounts
 };
 
 // The phase-cycle build's phases, in the order of PHASE_NAMES in
@@ -280,12 +293,175 @@ struct ItemRecord {
     }
 };
 
+// ----------------------------------------------------------- area lights
+
+// The sun only: no light tables, nothing drawn, traced or added.
+struct NoAreaLights {
+    static constexpr bool kLit = false;
+    struct Sample {};
+    template <class Count>
+    __device__ __forceinline__ void sample(Seed&, const HitInfo&, const Material&, V3, Sample&,
+                                           Count&) const {}
+    template <class Walk, class Count>
+    __device__ __forceinline__ bool shadow(const Walk&, const typename Walk::Root&, V3,
+                                           Sample&, const PathParams&, Count&) const {
+        return true;
+    }
+    __device__ __forceinline__ V3 add(V3 contrib, V3, const Sample&) const { return contrib; }
+    template <class Count>
+    __device__ __forceinline__ float emission(const HitInfo& info, int, int, V3, float,
+                                              Count&) const {
+        return info.emission;
+    }
+};
+
+// Area-light NEE over the scene's light tables (ops/arealights.py: the
+// functions named beside each step, in their operand order).
+struct AreaLights {
+    static constexpr bool kLit = true;
+    const float* lt_tris;  // (L, 9) f32 world-space vertices
+    const int* lt_rows;    // (L,) i32 tri-table rows
+    const float* lt_cdf;   // (L,) f32 inclusive area prefix sum
+    const int* lt_seg;     // (I,) i32 per-instance first light row, or -1
+    const int* lt_rank;    // (T,) i32 per-triangle emissive rank, or -1
+    const int* tri_idx;    // (T, 4) i32 vertex ids
+    const float* vattr;    // (V, 12) f32 vertex attributes
+    const int* inst_u;     // (I, 6) i32
+    int n_lights;          // L
+
+    // what a bounce's light sample leaves for the next closest hit
+    struct Sample {
+        V3 c;        // bsdf * radiance * weighted_pdf
+        V3 wi;       // toward the light point
+        float dist;  // to it
+        bool live;   // shadow_active, then & !occluded
+    };
+
+    __device__ __forceinline__ void verts(int j, V3& v0, V3& v1, V3& v2) const {
+        const float* __restrict__ t = lt_tris + 9 * (size_t)j;
+        v0 = {__ldg(t + 0), __ldg(t + 1), __ldg(t + 2)};
+        v1 = {__ldg(t + 3), __ldg(t + 4), __ldg(t + 5)};
+        v2 = {__ldg(t + 6), __ldg(t + 7), __ldg(t + 8)};
+    }
+
+    // _solid_angle_pdf: area measure -> solid angle at `dist` along d
+    __device__ __forceinline__ static float solid_angle_pdf(V3 v0, V3 v1, V3 v2, V3 d,
+                                                            float dist, float total) {
+        const V3 ng = cross(v1 - v0, v2 - v0);
+        const float nglen = length3(ng);
+        const float cos_l = fabsf(dot3(ng, d)) / (nglen == 0.0f ? 1.0f : nglen);
+        const float denom = cos_l * total;
+        return denom > 0.0f ? dist * dist / denom : 0.0f;
+    }
+
+    // the ua draw and sample_area_light for a live path at `info`
+    template <class Count>
+    __device__ __forceinline__ void sample(Seed& seed, const HitInfo& info, const Material& m,
+                                           V3 view, Sample& s, Count& count) const {
+        const F4 u = uniform4(seed);
+        const float total = __ldg(lt_cdf + n_lights - 1);
+        // min(u.x, f32(1) - f32(1e-7)) * total, then searchsorted(side="right")
+        const float r = fminf(u.x, 0x1.fffffcp-1f) * total;
+        int lo = 0, hi = n_lights;
+        while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (__ldg(lt_cdf + mid) <= r)
+                lo = mid + 1;
+            else
+                hi = mid;
+        }
+        const int j = lo < n_lights - 1 ? lo : n_lights - 1;
+        V3 v0, v1, v2;
+        verts(j, v0, v1, v2);
+        const float su = sqrtf(u.y);
+        const float b0 = 1.0f - su, b1 = su * (1.0f - u.z), b2 = su * u.z;
+        const V3 pt = (v0 * b0 + v1 * b1) + v2 * b2;
+        const V3 dvec = pt - info.pos;
+        s.dist = length3(dvec);
+        s.wi = dvec / (s.dist == 0.0f ? 1.0f : s.dist);
+        const float p_area = solid_angle_pdf(v0, v1, v2, s.wi, s.dist, total);
+        // the emission interpolated at the point (columns 3-5 and 10)
+        const int* __restrict__ ti = tri_idx + 4 * (size_t)__ldg(lt_rows + j);
+        const float* __restrict__ a0 = vattr + 12 * (size_t)__ldg(ti + 0);
+        const float* __restrict__ a1 = vattr + 12 * (size_t)__ldg(ti + 1);
+        const float* __restrict__ a2 = vattr + 12 * (size_t)__ldg(ti + 2);
+        float attr[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const int c = k < 3 ? 3 + k : 10;
+            attr[k] = (__ldg(a0 + c) * b0 + __ldg(a1 + c) * b1) + __ldg(a2 + c) * b2;
+        }
+        const V3 radiance = V3{attr[0], attr[1], attr[2]} * attr[3];
+        V3 color;
+        float b_pdf;
+        bsdf_eval(info.tbn.vec_mul(s.wi), view, m, color, b_pdf);
+        // one-sample power heuristic folded with the 1/p_area factor
+        const float denom = p_area * p_area + b_pdf * b_pdf;
+        const float w =
+            (p_area > 0.0f && isfinite(p_area) && denom > 0.0f) ? p_area / denom : 0.0f;
+        s.live = (radiance.x > 0.0f || radiance.y > 0.0f || radiance.z > 0.0f) && w > 0.0f &&
+                 (color.x > 0.0f || color.y > 0.0f || color.z > 0.0f) && s.dist > 0.0f;
+        if (s.live) s.c = color * radiance * w;
+        count.add(kLightSamples);
+    }
+
+    // the any-hit walk toward the light point, tmax just short of it (the
+    // scan's dist * (1 - 1e-3)); false when the walk hit the step cap
+    template <class Walk, class Count>
+    __device__ __forceinline__ bool shadow(const Walk& w, const typename Walk::Root& root,
+                                           V3 pos, Sample& s, const PathParams& p,
+                                           Count& count) const {
+        if (!s.live) return true;
+        float tmax = s.dist * 0x1.ff7ceep-1f;  // f32(1 - 1e-3)
+        int unused_inst, unused_prim;
+        bool occluded = false;
+        count.add(kRays);
+        count.phase(kPhOther);
+        const bool walked = w.walk(root, pos, s.wi, true, p.min_ray_dist, tmax, unused_inst,
+                                   unused_prim, occluded, p.max_steps, count);
+        count.phase(kPhShadow);
+        s.live = !occluded;
+        return walked;
+    }
+
+    // area_nee_color, added as the scan adds it (attenuation times the
+    // colour or a zero)
+    __device__ __forceinline__ V3 add(V3 contrib, V3 attenuation, const Sample& s) const {
+        return contrib + attenuation * (s.live ? s.c : V3{0.0f, 0.0f, 0.0f});
+    }
+
+    // info.emission * w_area: light_pdf_of_hit of the closest hit (c_inst,
+    // c_prim) along d, and the BSDF side of the power heuristic
+    template <class Count>
+    __device__ __forceinline__ float emission(const HitInfo& info, int c_inst, int c_prim, V3 d,
+                                              float bsdf_pdf, Count& count) const {
+        float pl = 0.0f;
+        if (c_inst >= 0) {
+            const int tri_row = __ldg(inst_u + 6 * (size_t)c_inst + 4) + c_prim;
+            const int rank = __ldg(lt_rank + tri_row), seg = __ldg(lt_seg + c_inst);
+            if (rank >= 0 && seg >= 0) {
+                V3 v0, v1, v2;
+                verts(seg + rank, v0, v1, v2);
+                const float pdf = solid_angle_pdf(v0, v1, v2, d, info.thit,
+                                                  __ldg(lt_cdf + n_lights - 1));
+                pl = isfinite(pdf) ? pdf : 0.0f;
+                count.add(kLightPdfs);
+            }
+        }
+        const float pdf_safe = bsdf_pdf == 0.0f ? 1.0f : bsdf_pdf;
+        const float b2 = pdf_safe * pdf_safe;
+        const float denom = b2 + pl * pl;
+        const float w_area = bsdf_pdf < 0.0f ? 1.0f : (denom > 0.0f ? b2 / denom : 1.0f);
+        return info.emission * w_area;
+    }
+};
+
 // ---------------------------------------------------------------- paths
 
 // One sample of one pixel (ops/integrator.path_trace_samples); false when a
 // walk hit the step cap (the sample is then abandoned).
-template <class Walk, class Fetch, class Count, class Rec>
-__device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
+template <class Walk, class Fetch, class Lights, class Count, class Rec>
+__device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe, const Lights& lt,
                                              const PathParams& p, int x, int y,
                                              int sample_index, V3& contrib, Count& count,
                                              Rec& rec) {
@@ -309,6 +485,7 @@ __device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
     float regularization = 1.0f, roughness = 0.0f, bsdf_pdf = 0.0f;
     float tmin = 0.0f;  // the primary ray's (trace_ray passes 0)
     NeeState nee;
+    typename Lights::Sample area;
     bool occluded = false;
     for (int b = 0;; ++b) {
         // ---- the closest ray: primary (b == 0) or bounce b ----
@@ -336,7 +513,9 @@ __device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
             attenuation = atmo_att;
             roughness = info.m.roughness;
         } else {
-            // NEE of the previous hit (its position is this ray's origin)
+            // area-light NEE of the previous hit, then its sun NEE (its
+            // position is this ray's origin)
+            contrib = lt.add(contrib, attenuation, area);
             V3 nee_color;
             count.phase(kPhOther);
             if (nee_finish(nee, light, ray_o, occluded, p.max_ray_dist, nee_color))
@@ -358,8 +537,9 @@ __device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
                 count.add(kAtmoMarches);
             count.phase(kPhAtmo);
             const float inv_mis = isinf(mis_pdf) ? 0.0f : 1.0f / mis_pdf;
+            const float emission = lt.emission(info, c_inst, c_prim, ray_d, bsdf_pdf, count);
             contrib = contrib +
-                      attenuation * (in_scatter + atmo_att * info.m.albedo * info.emission) *
+                      attenuation * (in_scatter + atmo_att * info.m.albedo * emission) *
                           inv_mis;
             const float inv_abs_pdf = bsdf_pdf == 0.0f ? f_inf() : 1.0f / fabsf(pdf_safe);
             attenuation = attenuation * atmo_att * inv_abs_pdf;
@@ -382,6 +562,7 @@ __device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
         count.phase(kPhOther);
         nee = nee_prepare(seed, light, info, m, view);
         count.add(kNeeEvals);
+        lt.sample(seed, info, m, view, area, count);
         count.phase(kPhNee);
         const F4 ub = uniform4(seed);
         count.phase(kPhCamera);
@@ -408,6 +589,7 @@ __device__ __forceinline__ bool trace_sample(const Walk& w, const Fetch& fe,
             if (!walked_s) return false;
         }
         rec.shadow(b, occluded);
+        if (!lt.shadow(w, root, info.pos, area, p, count)) return false;
         count.phase(kPhOther);
     }
 }
@@ -422,8 +604,8 @@ struct Sums {
 // sample order from 0.0f; the luminance-squared sum only `with_l2`.
 // With an ItemRecord `rec`, the record build (K6) also writes each sample's
 // hit topology; the other builds pass NoRecord, whose hooks are empty.
-template <class Walk, class Fetch, class Count, class Rec>
-__device__ __forceinline__ Sums trace_samples(const Walk& w, const Fetch& fe,
+template <class Walk, class Fetch, class Lights, class Count, class Rec>
+__device__ __forceinline__ Sums trace_samples(const Walk& w, const Fetch& fe, const Lights& lt,
                                               const PathParams& p, int x, int y,
                                               bool with_l2, Count& count, Rec& rec) {
     Sums s = {0.0f, 0.0f, 0.0f, 0.0f, 0};
@@ -432,7 +614,7 @@ __device__ __forceinline__ Sums trace_samples(const Walk& w, const Fetch& fe,
         const int sample_index = (int)((uint32_t)p.sample_base + (uint32_t)k);
         V3 c;
         rec.begin(k);
-        if (!trace_sample(w, fe, p, x, y, sample_index, c, count, rec)) {
+        if (!trace_sample(w, fe, lt, p, x, y, sample_index, c, count, rec)) {
             ++s.truncated;
             continue;
         }
@@ -447,12 +629,12 @@ __device__ __forceinline__ Sums trace_samples(const Walk& w, const Fetch& fe,
     return s;
 }
 
-template <class Walk, class Fetch, class Count>
-__device__ __forceinline__ Sums trace_samples(const Walk& w, const Fetch& fe,
+template <class Walk, class Fetch, class Lights, class Count>
+__device__ __forceinline__ Sums trace_samples(const Walk& w, const Fetch& fe, const Lights& lt,
                                               const PathParams& p, int x, int y,
                                               bool with_l2, Count& count) {
     NoRecord none;
-    return trace_samples(w, fe, p, x, y, with_l2, count, none);
+    return trace_samples(w, fe, lt, p, x, y, with_l2, count, none);
 }
 
 // Where a path kernel writes: one entry's sums, once.

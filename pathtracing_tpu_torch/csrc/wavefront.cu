@@ -1,5 +1,6 @@
-// The wavefront renderer (K5): whole sun-NEE paths for any list of pixels,
-// on the binary or the wide tables, one thread per list entry.
+// The wavefront renderer (K5): whole paths for any list of pixels, on the
+// binary or the wide tables, one thread per list entry: sun NEE, and
+// area-light NEE where the scene carries light tables.
 //
 // Replaces the JAX package's path-regeneration renderer
 // the JAX package's ops/wavefront.py::path_trace_wavefront, an XLA while-loop
@@ -45,6 +46,14 @@
 // bound.  The phase-cycle build (PhaseClock) adds each thread's clock64()
 // cycles per phase of the path.  The timed kernels count nothing.
 //
+// Area lights.  A scene with light tables launches the AreaLights instances
+// of path.cuh's light policy (the JAX wavefront's light branch), the timed
+// designs and the counting build of every table kind; the sun-only
+// instances (NoAreaLights) compile as before.  The light instances are built
+// into a library of their own from this source (-DPT_AREA_LIGHTS=1,
+// ops/cuda_wavefront.py's LIT_LIBRARY), so that the two compile side by
+// side.
+//
 // Parity: built with --fmad=false, IEEE division and square root, no
 // fast-math, no flush-to-zero (ops/cuda_build.py); shading.cuh has the rules
 // that keep a sample on the plain version's bits.
@@ -52,15 +61,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "binary_walk.cuh"
 #include "path.cuh"
 #include "ray_common.cuh"
 #include "shading.cuh"
 #include "wide_walk.cuh"
 
+#ifndef PT_AREA_LIGHTS
+#define PT_AREA_LIGHTS 0  // 1: the area-light instances (AreaLights), 0: the sun-only ones
+#endif
+
 namespace {
 
 using namespace ptq;
+
+// The light policy this library instantiates.
+using Lit = std::conditional_t<PT_AREA_LIGHTS != 0, AreaLights, NoAreaLights>;
 
 constexpr int kBlock = 128;      // the first design: four blocks an SM
 constexpr int kWideBlock = 512;  // the wide block: one block an SM
@@ -72,57 +90,80 @@ struct List {
     int n;
 };
 
-template <class Count, class Walk, class Fetch>
-__device__ __forceinline__ void render_entry(const Walk& w, const Fetch& fe,
+template <class Count, class Walk, class Fetch, class Lights>
+__device__ __forceinline__ void render_entry(const Walk& w, const Fetch& fe, const Lights& lt,
                                              const PathParams& p, const List& l, const Out& o,
                                              int i) {
     Count count;
-    o.write(i, trace_samples(w, fe, p, __ldg(l.xs + i), __ldg(l.ys + i), o.l2 != nullptr,
-                             count));
+    o.write(i, trace_samples(w, fe, lt, p, __ldg(l.xs + i), __ldg(l.ys + i),
+                             o.l2 != nullptr, count));
     count.flush(o.counts);
 }
 
 // One entry per thread, kThreads a block.
-template <int kThreads, class Walk, class Fetch, class Count>
+template <int kThreads, class Walk, class Fetch, class Count, class Lights>
 __global__ void __launch_bounds__(kThreads) wavefront(Walk w, Fetch fe, PathParams p, List l,
-                                                      Out o) {
+                                                      Out o, Lights lt) {
     const int i = blockIdx.x * kThreads + threadIdx.x;
-    if (i < l.n) render_entry<Count>(w, fe, p, l, o, i);
+    if (i < l.n) render_entry<Count>(w, fe, lt, p, l, o, i);
 }
 
 // The build a launch asks for.
 enum Build { kTimed, kCounting, kPhases };
 
-// One design's kernels: kThreads a block.
-template <int kThreads, class Walk, class Fetch>
-int launch_design(const Walk& w, const Fetch& fe, const PathParams& p, const List& l,
-                  const Out& o, Build build, cudaStream_t s) {
+// One design's kernels: kThreads a block.  The light instances: the timed
+// and the counting build only (the caller refuses phases with lights).
+template <int kThreads, class Walk, class Fetch, class Lights>
+int launch_design(const Walk& w, const Fetch& fe, const Lights& lt, const PathParams& p,
+                  const List& l, const Out& o, Build build, cudaStream_t s) {
     const dim3 grid((unsigned)((l.n + kThreads - 1) / kThreads)), block(kThreads);
+    if constexpr (!Lights::kLit) {
+        if (build == kPhases) {
+            wavefront<kThreads, Walk, Fetch, PhaseClock, Lights>
+                <<<grid, block, 0, s>>>(w, fe, p, l, o, lt);
+            return (int)cudaGetLastError();
+        }
+    }
     if (build == kCounting)
-        wavefront<kThreads, Walk, Fetch, PathCount><<<grid, block, 0, s>>>(w, fe, p, l, o);
-    else if (build == kPhases)
-        wavefront<kThreads, Walk, Fetch, PhaseClock><<<grid, block, 0, s>>>(w, fe, p, l, o);
+        wavefront<kThreads, Walk, Fetch, PathCount, Lights>
+            <<<grid, block, 0, s>>>(w, fe, p, l, o, lt);
     else
-        wavefront<kThreads, Walk, Fetch, NoPathCount><<<grid, block, 0, s>>>(w, fe, p, l, o);
+        wavefront<kThreads, Walk, Fetch, NoPathCount, Lights>
+            <<<grid, block, 0, s>>>(w, fe, p, l, o, lt);
     return (int)cudaGetLastError();
 }
 
 // The counting build runs the first design (an instrument); the others the
 // design asked for.
-template <class Walk, class Fetch>
-int launch(const Walk& w, const Fetch& fe, const PathParams& p, const List& l, const Out& o,
-           Build build, int design, cudaStream_t s) {
+template <class Walk, class Fetch, class Lights>
+int launch(const Walk& w, const Fetch& fe, const Lights& lt, const PathParams& p,
+           const List& l, const Out& o, Build build, int design, cudaStream_t s) {
     if (build == kCounting || design == kFirst)
-        return launch_design<kBlock>(w, fe, p, l, o, build, s);
-    return launch_design<kWideBlock>(w, fe, p, l, o, build, s);
+        return launch_design<kBlock>(w, fe, lt, p, l, o, build, s);
+    return launch_design<kWideBlock>(w, fe, lt, p, l, o, build, s);
+}
+
+// The library's light policy from the launch's light tables.
+template <class Lights>
+Lights lit_policy(const AreaLights& lights);
+template <>
+AreaLights lit_policy<AreaLights>(const AreaLights& lights) { return lights; }
+template <>
+NoAreaLights lit_policy<NoAreaLights>(const AreaLights&) { return {}; }
+
+template <class Walk, class Fetch>
+int launch_lit(const Walk& w, const Fetch& fe, const AreaLights& lights, const PathParams& p,
+               const List& l, const Out& o, Build build, int design, cudaStream_t s) {
+    return launch(w, fe, lit_policy<Lit>(lights), p, l, o, build, design, s);
 }
 
 template <class Walk, class Fetch>
 int occupancy(int design) {
     return design == kFirst
-               ? resident_blocks_per_sm(wavefront<kBlock, Walk, Fetch, NoPathCount>, kBlock)
-               : resident_blocks_per_sm(wavefront<kWideBlock, Walk, Fetch, NoPathCount>,
-                                        kWideBlock);
+               ? resident_blocks_per_sm(wavefront<kBlock, Walk, Fetch, NoPathCount, Lit>,
+                                        kBlock)
+               : resident_blocks_per_sm(
+                     wavefront<kWideBlock, Walk, Fetch, NoPathCount, Lit>, kWideBlock);
 }
 
 }  // namespace
@@ -135,9 +176,14 @@ int occupancy(int design) {
 // non-null `counts` it runs the counting build, which adds its counters
 // there; with a non-null `phases` the phase-cycle build, which adds
 // kNPhases cycle sums there.  `design`: 0 the first design, 1 the wide
-// block; the counting build runs the first design.  Returns the launch's
-// cudaError_t (0 = accepted), -1 for a width no layout has, -2 for counts
-// with phases or a design that does not exist.
+// block; the counting build runs the first design.  The area-light library
+// (PT_AREA_LIGHTS) takes a non-null `lt_tris` (the five lt_* tables, L =
+// n_lights rows; tri_idx and vattr are then read on either walk, for the
+// emission at a light point), the sun-only one a null one.  Returns the
+// launch's cudaError_t (0 = accepted), -1 for a width no layout has, -2 for
+// counts with phases, phases with light tables, no light rows, or a design
+// that does not exist, -3 for light tables this library does not take (or
+// their absence).
 extern "C" int pt_wavefront(
     const void* rows, int width, const void* wide_root, const void* root_base,
     const void* tri_shade, const void* nl8, const void* tri_idx, const void* vattr,
@@ -147,8 +193,11 @@ extern "C" int pt_wavefront(
     int sample_base, int image_width, int image_height, int max_bounces, int smbs,
     int student_id, float min_ray_dist, float max_ray_dist, float gamma, int max_steps,
     void* out_r, void* out_g, void* out_b, void* out_l2, void* n_truncated, void* counts,
-    void* phases, int design, void* stream) {
+    void* phases, int design, const void* lt_tris, const void* lt_rows, const void* lt_cdf,
+    const void* lt_seg, const void* lt_rank, int n_lights, void* stream) {
     if ((counts && phases) || design < kFirst || design > kWide) return -2;
+    if (lt_tris && (phases || n_lights <= 0)) return -2;
+    if ((lt_tris != nullptr) != Lit::kLit) return -3;
     if (n <= 0) return 0;
     const PathParams p = {(const float*)sf_cam, (const float*)sf_light, n_cam, n_light,
                           spp, sample_base, image_width, image_height, max_bounces, smbs,
@@ -157,6 +206,9 @@ extern "C" int pt_wavefront(
     const Out o = {(float*)out_r, (float*)out_g, (float*)out_b, (float*)out_l2,
                    (int*)n_truncated, (unsigned long long*)(phases ? phases : counts)};
     const Build build = counts ? kCounting : (phases ? kPhases : kTimed);
+    const AreaLights lights = {(const float*)lt_tris, (const int*)lt_rows, (const float*)lt_cdf,
+                               (const int*)lt_seg,    (const int*)lt_rank, (const int*)tri_idx,
+                               (const float*)vattr,   (const int*)inst_u,  n_lights};
     cudaStream_t s = (cudaStream_t)stream;
     if (width == 0) {
         const BinaryWalk w = {(const float4*)nl8, (const float4*)tri_pos, (const float*)inst_f,
@@ -165,16 +217,16 @@ extern "C" int pt_wavefront(
         const UnpackedFetch fe = {(const float4*)tri_pos, (const int*)tri_idx,
                                   (const float*)vattr, (const float*)inst_f,
                                   (const int*)inst_u};
-        return launch(w, fe, p, l, o, build, design, s);
+        return launch_lit(w, fe, lights, p, l, o, build, design, s);
     }
     const PackedFetch fe = {(const float*)tri_shade, (const float*)inst_f, (const int*)inst_u};
 #define PT_WF_LAUNCH(S, L, STUB)                                                          \
     if (width == Layout<S, L, STUB>::kWidth)                                              \
-        return launch(WideWalk<S, L, STUB>{(const float4*)rows, (const uint32_t*)wide_root, \
-                                           (const int*)root_base, (const float4*)tri_pos,   \
-                                           (const int*)inst_u, (const int*)sf_tlas_offset,  \
-                                           n_tlas},                                         \
-                      fe, p, l, o, build, design, s);
+        return launch_lit(                                                                \
+            WideWalk<S, L, STUB>{(const float4*)rows, (const uint32_t*)wide_root,         \
+                                 (const int*)root_base, (const float4*)tri_pos,           \
+                                 (const int*)inst_u, (const int*)sf_tlas_offset, n_tlas}, \
+            fe, lights, p, l, o, build, design, s);
     PT_WF_LAUNCH(8, 4, false)   // w8
     PT_WF_LAUNCH(16, 8, false)  // w16
     PT_WF_LAUNCH(8, 8, true)    // s8
@@ -191,8 +243,8 @@ extern "C" int pt_wavefront_count_slots(void) { return kNCounts; }
 extern "C" int pt_wavefront_phase_slots(void) { return kNPhases; }
 
 // Blocks of the timed kernel for this row width (0: the binary walk) in
-// `design` one SM holds at once (negative: the CUDA error), or 0 for a
-// width no layout has.
+// `design` (this library's light policy) one SM holds at once (negative:
+// the CUDA error), or 0 for a width no layout has.
 extern "C" int pt_wavefront_occupancy(int width, int design) {
     if (width == 0) return occupancy<BinaryWalk, UnpackedFetch>(design);
     if (width == Layout<8, 4, false>::kWidth)

@@ -24,8 +24,8 @@ Presets (the JAX package's registry, same names):
                   family; the same meshes)
   cornell_box     procedural Cornell box with an emissive ceiling panel —
                   exercises the emission path with no sun/sky light; its
-                  default emissive_nee=True raises NotImplementedError until
-                  the area lights are ported, emissive_nee=False renders
+                  default emissive_nee=True samples the panel (area-light
+                  NEE), emissive_nee=False is the BSDF-only estimator
   sphere_ground   dense smooth sphere over a ground plane — the
                   inverse-pose optimization scene (procedural)
 """

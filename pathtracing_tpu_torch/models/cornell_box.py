@@ -118,9 +118,8 @@ def build(
 ):
     """Returns (Scene, SceneDevice) on ``device`` (None: CUDA).
     emissive_nee=True (default) asks for the area-light tables so the
-    integrator importance-samples the ceiling panel; the port raises
-    NotImplementedError for it until ops/arealights.py is ported. False
-    gives the reference-style BSDF-only estimator (identical mean, far
+    integrator importance-samples the ceiling panel
+    (ops/arealights.py). False gives the reference-style BSDF-only estimator (identical mean, far
     higher variance)."""
     asset_dir = asset_dir or tempfile.mkdtemp(prefix="cornell_")
     obj_path = os.path.join(asset_dir, "cornell.obj")

@@ -46,32 +46,39 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build_command(nvcc: str, source, out) -> list[str]:
+def build_command(nvcc: str, source, out, defines=()) -> list[str]:
     """The one compiler call that builds a kernel's shared library. Headers
-    lie beside the source, so no include path is given."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(source)]
+    lie beside the source, so no include path is given; ``defines`` are -D
+    flags that select what a source instantiates."""
+    return [nvcc, *NVCC_FLAGS, *defines, "-o", str(out), str(source)]
 
 
 class KernelLibrary:
     """One CUDA source, the headers it includes, and its C symbols.
 
     ``symbols``: ``{name: (argtypes, restype)}`` — declared on the loaded
-    library, or ctypes would pass a pointer as a 32-bit int.
+    library, or ctypes would pass a pointer as a 32-bit int. ``defines``:
+    -D flags for this library (one source can build two libraries, e.g. the
+    path kernels' sun-only and area-light instances, compiled side by side),
+    with ``name`` telling them apart (default: the source's stem).
     """
 
-    def __init__(self, source, headers=(), symbols=None):
+    def __init__(self, source, headers=(), symbols=None, defines=(), name=None):
         self.source = pathlib.Path(source)
         self.headers = tuple(pathlib.Path(h) for h in headers)
         self.symbols = dict(symbols or {})
+        self.defines = tuple(defines)
+        self._name = name
         self.build_seconds: float | None = None  # set when this process built it
         self._lib = None
 
     @property
     def name(self) -> str:
-        return self.source.stem
+        return self._name or self.source.stem
 
     def path(self) -> pathlib.Path:
-        return hashed_path(BUILD_DIR, self.name, (self.source, *self.headers), NVCC_FLAGS)
+        return hashed_path(BUILD_DIR, self.name, (self.source, *self.headers),
+                           NVCC_FLAGS + self.defines)
 
     @property
     def build_log(self) -> pathlib.Path:
@@ -86,7 +93,8 @@ class KernelLibrary:
             return out
         nvcc = find_nvcc()
         t0 = time.perf_counter()
-        proc = compile_into(out, lambda tmp: build_command(nvcc, self.source, tmp))
+        proc = compile_into(out, lambda tmp: build_command(nvcc, self.source, tmp,
+                                                           self.defines))
         self.build_seconds = time.perf_counter() - t0
         self.build_log.write_text(" ".join(proc.args) + "\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:

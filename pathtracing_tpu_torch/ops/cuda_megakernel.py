@@ -1,7 +1,7 @@
 """The CUDA megakernel (K2): binding and wrapper.
 
-``megakernel_cuda`` renders the per-pixel sums of whole sun-NEE paths with
-the hand-written kernel in ``csrc/megakernel.cu`` (one thread per pixel slot,
+``megakernel_cuda`` renders the per-pixel sums of whole paths (sun NEE, and
+area-light NEE on a scene with light tables) with the hand-written kernel in ``csrc/megakernel.cu`` (one thread per pixel slot,
 its samples in order; see the note at the top of that file for the design,
 the fold and the step cap). It is the counterpart of the JAX package's
 ``path_trace_megakernel`` (the JAX package's ops/megakernel.py, an XLA
@@ -51,23 +51,27 @@ HEADERS = (CSRC / "ray_common.cuh", CSRC / "wide_walk.cuh", CSRC / "binary_walk.
            CSRC / "shading.cuh", PATH_HEADER)
 
 _p, _f, _i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-LIBRARY = KernelLibrary(
-    SOURCE,
-    headers=HEADERS,
-    symbols={
-        "pt_megakernel": (
-            [_p, _i] + [_p] * 6 + [_p, _i] * 3 + [_p] + [_i] * 9 + [_f] * 3 + [_i]
-            + [_p] * 7                  # r, g, b, l2, n_truncated, counts, phases
-            + [_i]                      # design
-            + [_p] * 6,                 # the five record planes, stream
-            _i,
-        ),
-        "pt_megakernel_block_size": ([_i], _i),
-        "pt_megakernel_count_slots": ([], _i),
-        "pt_megakernel_phase_slots": ([], _i),
-        "pt_megakernel_occupancy": ([_i, _i], _i),
-    },
-)
+SYMBOLS = {
+    "pt_megakernel": (
+        [_p, _i] + [_p] * 6 + [_p, _i] * 3 + [_p] + [_i] * 9 + [_f] * 3 + [_i]
+        + [_p] * 7                  # r, g, b, l2, n_truncated, counts, phases
+        + [_i]                      # design
+        + [_p] * 5                  # the five record planes
+        + [_p] * 5 + [_i]           # lt_tris, lt_rows, lt_cdf, lt_seg, lt_rank; L
+        + [_p] * 3,                 # tri_idx, vattr, stream
+        _i,
+    ),
+    "pt_megakernel_block_size": ([_i], _i),
+    "pt_megakernel_count_slots": ([], _i),
+    "pt_megakernel_phase_slots": ([], _i),
+    "pt_megakernel_occupancy": ([_i, _i], _i),
+}
+# Two libraries from the one source, built side by side: the sun-only
+# instances (and the record build K6), and the area-light instances
+# (csrc/path.cuh's AreaLights) that a scene with light tables launches.
+LIBRARY = KernelLibrary(SOURCE, headers=HEADERS, symbols=SYMBOLS)
+LIT_LIBRARY = KernelLibrary(SOURCE, headers=HEADERS, symbols=SYMBOLS,
+                            defines=("-DPT_AREA_LIGHTS=1",), name="megakernel_lit")
 
 # What the counting builds of the path kernels (K2 here, K5 in
 # ops/cuda_wavefront.py) count, in the kernels' order (csrc/path.cuh):
@@ -76,11 +80,13 @@ LIBRARY = KernelLibrary(
 # the node rows needed and the triangle tests the leaves made, rays walked,
 # closest hits shaded as hits / misses, atmosphere marches run (scattering,
 # with a draw) and NEE transmittance marches run, BSDF evaluations (one per
-# NEE) and BSDF samples.
+# NEE) and BSDF samples; with area lights, light samples (CDF search, point,
+# emission, bsdf_eval) and light pdfs of closest hits on an emitter (the
+# area shadow rays are counted among the rays).
 COUNT_NAMES = (
     "samples", "node_rows", "leaf_rows", "inst_rows", "slab_tests", "tri_tests",
     "rays", "shade_hits", "shade_misses", "atmo_marches", "nee_evals",
-    "nee_marches", "bsdf_samples",
+    "nee_marches", "bsdf_samples", "light_samples", "light_pdfs",
 )
 
 # What the phase-cycle builds of the path kernels time, in the kernels' order
@@ -199,6 +205,38 @@ def check_scene(scene, device):
     return lay
 
 
+def check_lights(scene, device) -> int:
+    """The light tables' rows L, after checking them on ``device`` (0 for a
+    scene without them; ValueError for a part of them): lt_tris (L, 9) f32,
+    lt_rows and lt_cdf (L,), lt_seg and lt_rank 1-D int32, and the tri_idx /
+    vattr tables the emission at a light point is read from."""
+    from pathtracing_tpu_torch.ops.arealights import has_lights
+
+    if not has_lights(scene):
+        return 0
+    f32, i32 = torch.float32, torch.int32
+    L = scene.lt_tris.shape[0]
+    if L == 0:
+        raise ValueError("scene.lt_tris: no light rows")
+    _check("scene.lt_tris", scene.lt_tris, f32, (L, 9), device)
+    _check("scene.lt_rows", scene.lt_rows, i32, (L,), device)
+    _check("scene.lt_cdf", scene.lt_cdf, f32, (L,), device)
+    for name in ("lt_seg", "lt_rank"):
+        t = getattr(scene, name)
+        _check(f"scene.{name}", t, i32, (t.shape[0],), device)
+    _check("scene.tri_idx", scene.tri_idx, i32, (scene.tri_idx.shape[0], 4), device)
+    _check("scene.vattr", scene.vattr, f32, (scene.vattr.shape[0], 12), device)
+    return L
+
+
+def light_args(scene, n_lights: int) -> tuple:
+    """The kernels' light arguments: the five lt_* pointers and L (nulls
+    and 0 without light tables)."""
+    ptr = lambda t: t.data_ptr() if n_lights else None
+    return (ptr(scene.lt_tris), ptr(scene.lt_rows), ptr(scene.lt_cdf), ptr(scene.lt_seg),
+            ptr(scene.lt_rank), n_lights)
+
+
 def _int32(name, v) -> int:
     v = int(v)
     if not -(1 << 31) <= v < (1 << 31):
@@ -244,12 +282,15 @@ def megakernel_cuda(
     output stays indexed by pixel). ``max_steps``: row visits per ray before
     a sample is abandoned (None: ``step_cap(scene)``).
 
+    A scene with light tables runs the kernel's area-light instances.
+
     Instruments (chip_smoke.py): ``counts=True`` runs the counting build
     instead and also returns its counters (int64, COUNT_NAMES' order);
-    ``phases=True`` the phase-cycle build, and returns its cycles per phase
-    (int64, PHASE_NAMES' order) in that place. ``_design``: None (the
-    layout's design, DESIGN_BY_WIDTH), or "first" or "wide" to time one
-    design against the other; the counting build always runs the first.
+    ``phases=True`` the phase-cycle build (not with light tables), and
+    returns its cycles per phase (int64, PHASE_NAMES' order) in that place.
+    ``_design``: None (the layout's design, DESIGN_BY_WIDTH), or "first" or
+    "wide" to time one design against the other; the counting build always
+    runs the first.
 
     Returns (r, g, b, l2, n_truncated, counts): (n_pixels,) f32 sums, the
     luminance-squared sums or None, a one-element int32 tensor of abandoned
@@ -294,6 +335,12 @@ def _launch(config, scene, n_pixels, spp, sample_base, pixel_base, with_stats,
     if device.type != "cuda":
         raise ValueError(f"megakernel_cuda needs CUDA tensors, got {device}")
     lay = check_scene(scene, device)
+    n_lights = check_lights(scene, device)
+    if n_lights and record:
+        raise NotImplementedError("the record build (K6) supports the sun-NEE path only, "
+                                  "not area-light NEE (as in the JAX package)")
+    if n_lights and phases:
+        raise ValueError("the phase-cycle build has no area-light instance")
     if n_pixels < 0 or spp < 0:
         raise ValueError(f"n_pixels={n_pixels}, spp={spp}: both must be >= 0")
     if counts and phases:
@@ -310,7 +357,7 @@ def _launch(config, scene, n_pixels, spp, sample_base, pixel_base, with_stats,
     r, g, b = out(), out(), out()
     l2 = out() if with_stats else None
     n_trunc = torch.zeros(1, dtype=torch.int32, device=device)
-    lib = LIBRARY.load()
+    lib = (LIT_LIBRARY if n_lights else LIBRARY).load()
     cnt = ph = None
     if counts:
         cnt = torch.zeros(lib.pt_megakernel_count_slots(), dtype=torch.int64, device=device)
@@ -350,7 +397,8 @@ def _launch(config, scene, n_pixels, spp, sample_base, pixel_base, with_stats,
             c32(config.min_ray_dist), c32(config.max_ray_dist),
             c32(config.path_space_regularization_gamma), _int32("max_steps", steps),
             ptr(r), ptr(g), ptr(b), ptr(l2), ptr(n_trunc), ptr(cnt), ptr(ph), code,
-            *map(ptr, rec),
+            *map(ptr, rec), *light_args(scene, n_lights),
+            ptr(scene.tri_idx) if n_lights else None, ptr(scene.vattr) if n_lights else None,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

@@ -1,6 +1,7 @@
 """The CUDA wavefront kernel (K5): binding and wrapper.
 
-``wavefront_cuda`` renders the per-entry sums of whole sun-NEE paths for any
+``wavefront_cuda`` renders the per-entry sums of whole paths (sun NEE, and
+area-light NEE on a scene with light tables) for any
 (xs, ys) pixel list with the hand-written kernel in ``csrc/wavefront.cu``
 (one thread per list entry, its samples in order; see the note at the top of
 that file for the design, the fold and the step cap), on the binary tables
@@ -56,19 +57,23 @@ ARGTYPES = (
                                 # max_bounces, smbs, student_id
     + [_f] * 3 + [_i]           # min/max ray dist, gamma; max_steps
     + [_p] * 7                  # r, g, b, l2, n_truncated, counts, phases
-    + [_i, _p]                  # design, stream
+    + [_i]                      # design
+    + [_p] * 5 + [_i]           # lt_tris, lt_rows, lt_cdf, lt_seg, lt_rank; L
+    + [_p]                      # stream
 )
-LIBRARY = KernelLibrary(
-    SOURCE,
-    headers=HEADERS,
-    symbols={
-        "pt_wavefront": (ARGTYPES, _i),
-        "pt_wavefront_block_size": ([_i], _i),
-        "pt_wavefront_count_slots": ([], _i),
-        "pt_wavefront_phase_slots": ([], _i),
-        "pt_wavefront_occupancy": ([_i, _i], _i),
-    },
-)
+SYMBOLS = {
+    "pt_wavefront": (ARGTYPES, _i),
+    "pt_wavefront_block_size": ([_i], _i),
+    "pt_wavefront_count_slots": ([], _i),
+    "pt_wavefront_phase_slots": ([], _i),
+    "pt_wavefront_occupancy": ([_i, _i], _i),
+}
+# Two libraries from the one source, built side by side: the sun-only
+# instances, and the area-light instances (csrc/path.cuh's AreaLights) that
+# a scene with light tables launches.
+LIBRARY = KernelLibrary(SOURCE, headers=HEADERS, symbols=SYMBOLS)
+LIT_LIBRARY = KernelLibrary(SOURCE, headers=HEADERS, symbols=SYMBOLS,
+                            defines=("-DPT_AREA_LIGHTS=1",), name="wavefront_lit")
 
 # Launches of the kernel since the last reset: incremented where the kernel
 # is launched and nowhere else, so a run can show that it went through it.
@@ -92,9 +97,9 @@ def check_scene(scene, device) -> int:
     checks it (the wide tables, the packed shading rows, the subframe tables);
     a binary scene needs 16-byte aligned ``nl8`` and ``tri_pos``, ``inst_f``,
     ``inst_u``, ``tri_idx``, ``vattr`` and the four subframe tables, each with
-    a row at least. Returns the row width the kernel selects by (0: binary)."""
-    if scene.lt_tris is not None:
-        raise NotImplementedError("area-light NEE comes with a later slice of the port")
+    a row at least; light tables as ``CM.check_lights`` checks them. Returns
+    the row width the kernel selects by (0: binary)."""
+    CM.check_lights(scene, device)
     if scene.wide_rows is not None:
         return CM.check_scene(scene, device).w_row
     if scene.nl5 is not None:
@@ -122,18 +127,22 @@ def check_scene(scene, device) -> int:
 
 
 def kernel_args(config, scene, width, xs, ys, spp, sample_base, max_steps, r, g, b, l2,
-                n_trunc, counts, stream, phases=None, design=0):
+                n_trunc, counts, stream, phases=None, design=0, n_lights=0):
     """pt_wavefront's arguments, in ARGTYPES' order (tensors as pointers);
-    ``design``: its code (``CM.design_code``)."""
+    ``design``: its code (``CM.design_code``); ``n_lights``: the light
+    tables' rows (``CM.check_lights``), 0 for none."""
     ptr = lambda t: None if t is None else t.data_ptr()
     wide = width != 0
     wide_only = lambda t: ptr(t) if wide else None
     binary_only = lambda t: None if wide else ptr(t)
+    # the light instances read the emission at a light point from tri_idx /
+    # vattr on either walk
+    unpacked = lambda t: ptr(t) if (not wide or n_lights) else None
     i32 = CM._int32
     return (
         wide_only(scene.wide_rows), width, wide_only(scene.wide_root),
         wide_only(scene.wide_root_base), wide_only(scene.tri_shade),
-        binary_only(scene.nl8), binary_only(scene.tri_idx), binary_only(scene.vattr),
+        binary_only(scene.nl8), unpacked(scene.tri_idx), unpacked(scene.vattr),
         binary_only(scene.sf_tlas_count), scene.sf_tlas_count.shape[0],
         ptr(scene.tri_pos), ptr(scene.inst_f), ptr(scene.inst_u),
         ptr(scene.sf_cam), scene.sf_cam.shape[0], ptr(scene.sf_light),
@@ -145,7 +154,7 @@ def kernel_args(config, scene, width, xs, ys, spp, sample_base, max_steps, r, g,
         c32(config.max_ray_dist), c32(config.path_space_regularization_gamma),
         i32("max_steps", max_steps),
         ptr(r), ptr(g), ptr(b), ptr(l2), ptr(n_trunc), ptr(counts), ptr(phases),
-        design, stream,
+        design, *CM.light_args(scene, n_lights), stream,
     )
 
 
@@ -169,8 +178,10 @@ def wavefront_cuda(
 
     Instruments (chip_smoke.py): ``counts=True`` runs the counting build
     instead and also returns its counters (int64, ``CM.COUNT_NAMES``' order);
-    ``phases=True`` the phase-cycle build, and returns its cycles per phase
-    (int64, ``CM.PHASE_NAMES``' order) in that place. ``_design``: None (the
+    ``phases=True`` the phase-cycle build (not with light tables), and
+    returns its cycles per phase (int64, ``CM.PHASE_NAMES``' order) in that
+    place. A scene with light tables runs the kernel's area-light
+    instances. ``_design``: None (the
     tables' design, ``CM.DESIGN_BY_WIDTH``), or "first" or "wide" to time one
     design against the other; the counting build always runs the first.
 
@@ -186,6 +197,9 @@ def wavefront_cuda(
     if device.type != "cuda":
         raise ValueError(f"wavefront_cuda needs CUDA tensors, got {device}")
     width = check_scene(scene, device)
+    n_lights = CM.check_lights(scene, device)
+    if n_lights and phases:
+        raise ValueError("the phase-cycle build has no area-light instance")
     n = xs.shape[0] if isinstance(xs, torch.Tensor) else -1
     _check("xs", xs, torch.int32, (n,), device)
     _check("ys", ys, torch.int32, (n,), device)
@@ -202,7 +216,7 @@ def wavefront_cuda(
     r, g, b = out(), out(), out()
     l2 = out() if with_stats else None
     n_trunc = torch.zeros(1, dtype=torch.int32, device=device)
-    lib = LIBRARY.load()
+    lib = (LIT_LIBRARY if n_lights else LIBRARY).load()
     cnt = ph = None
     if counts:
         cnt = torch.zeros(lib.pt_wavefront_count_slots(), dtype=torch.int64, device=device)
@@ -220,6 +234,7 @@ def wavefront_cuda(
         err = lib.pt_wavefront(*kernel_args(
             config, scene, width, xs, ys, spp, sample_base, steps, r, g, b, l2, n_trunc,
             cnt, torch.cuda.current_stream().cuda_stream, phases=ph, design=code,
+            n_lights=n_lights,
         ))
     if err != 0:
         raise RuntimeError(f"wavefront launch refused: cudaError {err}")

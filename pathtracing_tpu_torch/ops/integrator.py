@@ -9,7 +9,8 @@ like the reference's scalar control flow.
 The bounce loop is a Python loop (``max_bounces`` passes of the same body);
 every bounce makes ONE merged ray query — the any-hit shadow ray and the
 closest-hit bounce ray of each lane trace together in a 2R-lane batch with a
-per-lane anyhit mask — with inactive lanes masked. On a CUDA device that
+per-lane anyhit mask (3R lanes with area lights: the area-light shadow ray
+too) — with inactive lanes masked. On a CUDA device that
 query is the hand-written kernel (ops/traversal.ray_query dispatches), and
 nothing in the loop asks the device for a value: no ``.item()``, no
 ``.cpu()``.
@@ -33,7 +34,7 @@ from typing import Any, NamedTuple
 import torch
 
 from pathtracing_tpu_torch.config import RenderConfig
-from pathtracing_tpu_torch.ops import rng
+from pathtracing_tpu_torch.ops import arealights, rng
 from pathtracing_tpu_torch.ops.bsdf import bsdf_eval, sample_bsdf
 from pathtracing_tpu_torch.ops.camera import camera_from_table, get_camera_ray
 from pathtracing_tpu_torch.ops.samplers import sample_cone, sample_gaussian_weighted_disk
@@ -497,9 +498,15 @@ def path_trace_samples(
     the conditional atmosphere draws are recomputed bit for bit (the
     atmosphere predicate reads the re-derived thit in both passes).
 
-    The JAX package's ``query_shade`` override (geometry sharding) and
-    area-light NEE (scenes packed with light tables) are later slices and
-    raise NotImplementedError, as record/replay with either does in JAX.
+    Area-light NEE (ops/arealights.py) turns on when the scene carries the
+    light tables (``pack_scene(emissive_nee=True)``): per bounce one more
+    masked rand4 draw after the NEE draw, and a third ray in the bounce's
+    query, the any-hit ray toward the sampled light point (tmax just short
+    of it); its term is added right after the query, before the sun's, and
+    emission found by BSDF sampling takes the power-heuristic weight. The
+    JAX package's ``query_shade`` override (geometry sharding) is a later
+    slice and raises NotImplementedError; record/replay with light tables
+    raise it too, as in JAX.
     """
     contribution, prim_rec, recs, _, _ = _path_trace(
         config, scene, xs, ys, sample_index, query_shade, record, replay)
@@ -531,11 +538,12 @@ def _path_trace(config, scene, xs, ys, sample_index, query_shade, record, replay
         raise NotImplementedError(
             "query_shade overrides come with the sharding slice of the port"
         )
-    if scene.lt_tris is not None:
+    if (record or replay is not None) and scene.lt_tris is not None:
         raise NotImplementedError(
-            "area-light NEE comes with a later slice of the port (record/replay "
-            "gradients support the default sun-NEE trace only)"
+            "record/replay gradients support the default sun-NEE trace only, "
+            "not area-light NEE (as in the JAX package)"
         )
+    use_lights = arealights.has_lights(scene)
 
     seed, subframe, light, tlas_count, tlas_offset, ray_o, ray_dir = (
         camera_sample(config, scene, xs, ys, sample_index)
@@ -572,15 +580,20 @@ def _path_trace(config, scene, xs, ys, sample_index, query_shade, record, replay
     active = all_active
     gamma = c32(config.path_space_regularization_gamma)
     cat = lambda a, b: torch.cat([a, b])
-    cat3 = lambda a, b: Vec3(cat(a.x, b.x), cat(a.y, b.y), cat(a.z, b.z))
+    cat3 = lambda *vs: Vec3(*(torch.cat([getattr(v, k) for v in vs]) for k in "xyz"))
     R = xs.shape[0]
-    # loop-invariant halves of the merged query's inputs
-    tlas_count2 = cat(tlas_count, tlas_count)
-    tlas_offset2 = cat(tlas_offset, tlas_offset)
+    # loop-invariant parts of the merged query's inputs: R any-hit lanes per
+    # shadow ray (the sun's, and the area light's), then R closest-hit lanes
+    n_shadow = 2 if use_lights else 1
+    tlas_count2 = torch.cat([tlas_count] * (n_shadow + 1))
+    tlas_offset2 = torch.cat([tlas_offset] * (n_shadow + 1))
     anyhit2 = cat(
-        torch.ones(R, dtype=torch.bool, device=xs.device),
+        torch.ones(n_shadow * R, dtype=torch.bool, device=xs.device),
         torch.zeros(R, dtype=torch.bool, device=xs.device),
     )
+    if use_lights:
+        far = torch.full((R,), c32(config.max_ray_dist), dtype=torch.float32,
+                         device=xs.device)
     recs, actives, shadows = [], [], []
 
     for b in range(config.max_bounces):
@@ -598,6 +611,10 @@ def _path_trace(config, scene, xs, ys, sample_index, query_shade, record, replay
 
         seed, nee = nee_prepare(seed, light, info_now, view, active)
 
+        if use_lights:
+            seed, ua = rng.uniform4_masked(seed, active)
+            area = arealights.sample_area_light(scene, ua, info_now, view, active)
+
         seed, u = rng.uniform4_masked(seed, active)
         sample = sample_bsdf(
             Vec3(u.x, u.y, u.z), view, info_now.albedo, info_now.roughness,
@@ -613,6 +630,23 @@ def _path_trace(config, scene, xs, ys, sample_index, query_shade, record, replay
             rec = {k: v[b] for k, v in replay[1].items()}
             occluded = rec["occ"]
             bounce_hit = _hit_of(rec)
+        elif use_lights:
+            # three rays per lane in one query: sun shadow, area-light shadow
+            # (tmax just short of the sampled point), bounce
+            hit3, occ3 = ray_query(
+                scene,
+                tlas_count2,
+                tlas_offset2,
+                cat3(info_now.pos, info_now.pos, ray_o),
+                cat3(nee.light_dir, area.wi, ray_dir),
+                config.min_ray_dist,
+                torch.cat([far, area.dist * c32(1.0 - 1e-3), far]),
+                torch.cat([nee.shadow_active, area.shadow_active, active]),
+                anyhit=anyhit2,
+            )
+            occluded = occ3[:R]
+            area_occluded = occ3[R:2 * R]
+            bounce_hit = RayHit(*(a[2 * R:] for a in hit3))
         else:
             # One ray query per bounce: the any-hit shadow ray and the
             # closest-hit bounce ray trace together (per-lane anyhit mask).
@@ -636,6 +670,12 @@ def _path_trace(config, scene, xs, ys, sample_index, query_shade, record, replay
             actives.append(active)
             shadows.append(nee.shadow_active)
         info = shade_hit(scene, light, bounce_hit, ray_o, ray_dir)
+        if use_lights:
+            contribution = contribution + where3(
+                active,
+                attenuation * arealights.area_nee_color(area, area_occluded, active),
+                zero3,
+            )
 
         nee_color = nee_finish(nee, light, info_now, occluded, active, config)
         contribution = contribution + where3(
@@ -665,10 +705,28 @@ def _path_trace(config, scene, xs, ys, sample_index, query_shade, record, replay
         )
 
         inv_mis = torch.where(torch.isinf(mis_pdf), 0.0, 1.0 / mis_pdf)
+        emission = info.emission
+        if use_lights:
+            # the light-sampling half of the MIS pair: emission found by BSDF
+            # sampling is weighted down by the pdf with which
+            # sample_area_light would have found the same point (delta lobes
+            # keep full weight: NEE cannot sample them)
+            pl = arealights.light_pdf_of_hit(
+                scene, bounce_hit.inst, bounce_hit.prim, ray_dir, info.thit,
+                bounce_hit.thit >= 0,
+            )
+            b2 = pdf_safe * pdf_safe
+            denom = b2 + pl * pl
+            w_area = torch.where(
+                bsdf_pdf < 0,
+                1.0,
+                torch.where(denom > 0, b2 / torch.where(denom > 0, denom, 1.0), 1.0),
+            )
+            emission = emission * w_area
         contribution = contribution + where3(
             active,
             attenuation
-            * (in_scatter + atmo_att * info.albedo * info.emission)
+            * (in_scatter + atmo_att * info.albedo * emission)
             * inv_mis,
             zero3,
         )

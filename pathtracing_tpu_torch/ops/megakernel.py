@@ -1,4 +1,4 @@
-"""The megakernel renderer: whole sun-NEE paths in one kernel per call.
+"""The megakernel renderer: whole paths in one kernel per call.
 
 Counterpart of the JAX package's ``ops/megakernel.py``, where
 ``path_trace_megakernel`` is a persistent-lane XLA while-loop that keeps R
@@ -16,8 +16,10 @@ not taken: ``lanes``, ``leaf_every``, ``service_div``, ``hot_k`` and
 own tests prove invariant to them; a CUDA thread leaves its own loop, so
 there is nothing for them to schedule (the decision ``ray_query`` and
 ``wide_ray_query`` record for their walks). ``record=True`` (the fast
-gradients' record pass) runs the kernel's record build K6 on CUDA. Scenes
-with area-light tables (the area-light slice) raise NotImplementedError.
+gradients' record pass) runs the kernel's record build K6 on CUDA. A scene
+with area-light tables (ops/arealights.py) renders through the kernel's
+area-light instances; its record mode raises NotImplementedError, as the JAX
+package's does.
 
 The fold: per pixel, the samples are added in sample order, from 0, in both
 versions, so the kernel's sums are deterministic and fold as the plain
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from pathtracing_tpu_torch import resolve_device
+from pathtracing_tpu_torch.ops.arealights import has_lights
 from pathtracing_tpu_torch.ops.integrator import path_trace_samples_masked_records
 from pathtracing_tpu_torch.ops.wavefront import _wrap_int32, path_trace_wavefront_plain
 from pathtracing_tpu_torch.utils.vec import Vec3
@@ -37,11 +40,12 @@ from pathtracing_tpu_torch.utils.vec import Vec3
 
 def _check_supported(scene, record: bool, spp: int, with_stats: bool,
                      pixel_order) -> None:
-    if scene.lt_tris is not None:
+    if record and scene.lt_tris is not None:
         raise NotImplementedError(
-            "area-light NEE comes with a later slice of the port (the record "
-            "mode supports the sun-NEE path only)"
+            "the record mode supports the sun-NEE path only, not area-light "
+            "NEE (as in the JAX package)"
         )
+    has_lights(scene)  # all five light tables or none
     if record and spp < 1:
         raise ValueError(f"record mode needs spp >= 1, got {spp}")
     if record and with_stats:

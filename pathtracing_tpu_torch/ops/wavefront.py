@@ -1,4 +1,4 @@
-"""The wavefront renderer: whole sun-NEE paths for any pixel list.
+"""The wavefront renderer: whole paths for any pixel list.
 
 Counterpart of the JAX package's ``ops/wavefront.py``, where
 ``path_trace_wavefront`` is an XLA while-loop with path regeneration: one
@@ -19,8 +19,9 @@ sampling's statistics pass reads). Duplicate pixels each get their own sums.
 The fold: per entry, the samples are added in sample order, from 0, in both
 versions (the JAX loop's order as well, since a lane's samples die in
 order), so the kernel's sums are deterministic and fold as the plain version
-folds. Scenes with area-light tables raise NotImplementedError, as the scan
-and the megakernel do (a later slice).
+folds. A scene with area-light tables (ops/arealights.py) adds the light
+samples, as the scan does; on the card the kernel's area-light instances
+render it.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from pathtracing_tpu_torch import resolve_device
+from pathtracing_tpu_torch.ops.arealights import has_lights
 from pathtracing_tpu_torch.ops.integrator import path_trace_samples
 from pathtracing_tpu_torch.utils.vec import Vec3, c32
 
@@ -76,8 +78,7 @@ def path_trace_wavefront(
     must lie on the device. On CUDA the kernel renders (or the call raises);
     on the CPU the plain version.
     """
-    if scene.lt_tris is not None:
-        raise NotImplementedError("area-light NEE comes with a later slice of the port")
+    has_lights(scene)  # all five light tables or none
     device = resolve_device(device)
     if scene.nl8.device != device:
         raise ValueError(f"scene is on {scene.nl8.device}, render asked for {device}")

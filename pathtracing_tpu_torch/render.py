@@ -144,8 +144,8 @@ def _row_major(xs, ys, width: int) -> bool:
 
 def megakernel_supported(scene, xs, ys, width: int) -> bool:
     """The megakernel owns pixels [0, N) of a row-major frame and needs the
-    wide tables (the JAX package's rule; area-light scenes pass it there and
-    raise NotImplementedError here, as the scan does)."""
+    wide tables (the JAX package's rule; area-light scenes pass it, as
+    there)."""
     return getattr(scene, "wide_rows", None) is not None and _row_major(xs, ys, width)
 
 

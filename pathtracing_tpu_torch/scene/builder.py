@@ -122,8 +122,8 @@ class SceneBuilder:
         ``device=None`` means CUDA and raises when there is none;
         ``device="cpu"`` packs on the CPU. wide=None attaches the wide-BVH
         mega-table (the megakernel's tables) when the device is CUDA;
-        True/False force it. emissive_nee=True (the area-light NEE tables)
-        raises NotImplementedError: it is a later slice of the port."""
+        True/False force it. emissive_nee=True also packs the area-light
+        NEE tables (ops/arealights.py), as the JAX package's does."""
         device = resolve_device(device)
         s = self.scene
         if not s.instances:

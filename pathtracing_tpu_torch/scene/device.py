@@ -62,9 +62,10 @@ class SceneDevice(NamedTuple):
     sf_cam: Array     # (S, 18) f32
     sf_light: Array   # (S, 7) f32
     # Optional tables, in the JAX package's field order. nl5 (bf16 node
-    # rows), the emissive-light tables and the hot rows belong to later
-    # slices of the port: they stay None, and the code raises
-    # NotImplementedError when one is set.
+    # rows) and the hot rows belong to later slices of the port: they stay
+    # None, and the code raises NotImplementedError when one is set. The
+    # emissive-light tables (lt_*) come from pack_scene(emissive_nee=True)
+    # (ops/arealights.py).
     nl5: Array | None = None
     # Wide-BVH tables (pack_scene(wide=True)); wide_root_base stays None for
     # a one-shot pack (wide_root is indexed by the tlas offset itself).
@@ -254,17 +255,23 @@ def pack_scene(
     subframes: list of scene.types.Subframe. ``device=None`` means CUDA and
     raises when there is none. ``wide=True`` also builds the wide-BVH
     mega-table in ``wide_layout`` ("w8", "w16", "s8" or a WideLayout) and the
-    packed shading rows; ``ray_query`` then walks the mega-table. The
-    area-light tables (``emissive_nee=True``) are a later slice of the port.
+    packed shading rows; ``ray_query`` then walks the mega-table.
+    ``emissive_nee=True`` also builds the area-light NEE tables
+    (ops/arealights.build_light_table; none for a scene without emissive
+    triangles): every path renderer then samples the emitters (opt-in: it
+    changes the RNG stream).
     """
-    if emissive_nee:
-        raise NotImplementedError(
-            "pack_scene(emissive_nee=True): area-light NEE is a later slice "
-            "of the port (ops/arealights.py)"
-        )
     device = resolve_device(device)
     indices, pos, normal, albedo, material = mesh_arrays
     inst_f, inst_u = _instance_rows(instances)
+
+    lt = {}
+    if emissive_nee:
+        from pathtracing_tpu_torch.ops.arealights import build_light_table
+
+        table = build_light_table(mesh_arrays, instances)
+        if table is not None:
+            lt = {k: to_device(v, device) for k, v in table.items()}
 
     segments = [(i.blas.node_offset, i.blas.node_count) for i in instances]
     segments += [(sf.tlas.node_offset, sf.tlas.node_count) for sf in subframes]
@@ -286,6 +293,7 @@ def pack_scene(
         sf_tlas_offset=dev(sf_tlas[:, 1]),
         sf_cam=dev(sf_cam),
         sf_light=dev(sf_light),
+        **lt,
     )
     if wide:
         scene = attach_wide(

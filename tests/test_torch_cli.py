@@ -134,10 +134,14 @@ def test_device_rule_and_later_slices(data_dir, tmp_path):
         # no fallback: without --device cpu and without a card it raises
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["--data-dir", data_dir, "--out", str(tmp_path)])
-    for flag, where in ((["--shard"], "S10"), (["--adaptive", "4"], "S9"),
-                        (["--aovs"], "S9")):
-        with pytest.raises(NotImplementedError, match=where):
-            run(data_dir, tmp_path, *flag)
+    # --shard is a later slice; --adaptive is refused with a sample range
+    # and outside [1, spp] (an argparse error, before anything renders)
+    with pytest.raises(NotImplementedError, match="S10"):
+        run(data_dir, tmp_path, "--shard")
+    for bad in (["--adaptive", "4", "--sample-range", "0", "2"],
+                ["--adaptive", "9", "--spp", "8"], ["--adaptive", "0"]):
+        with pytest.raises(SystemExit):
+            run(data_dir, tmp_path, *bad)
     assert not os.listdir(tmp_path)
 
 
@@ -184,3 +188,40 @@ def test_validator_pass_fail_and_missing(tmp_path, monkeypatch):
     os.remove(tmp_path / "own" / "frame_0000.bmp")
     assert validate_main(args) == 1
     assert "missing image" in (tmp_path / "validation_result.txt").read_text()
+
+
+def test_cornell_box_adaptive_and_aovs(tmp_path):
+    """--model cornell_box renders with its default area lights; --adaptive
+    and --aovs write what the JAX CLI writes (frame_NNNN.bmp, and
+    frame_NNNN.aovs.npz with albedo / normal (H, W, 3), depth / coverage
+    (H, W)), equal to the port's library calls on the same scene."""
+    from pathtracing_tpu_torch.adaptive import render_adaptive
+    from pathtracing_tpu_torch.aov import render_aovs
+    from pathtracing_tpu_torch.render import to_bgra
+
+    w, h = 12, 8
+    base = ["--device", "cpu", "--model", "cornell_box", "--width", str(w),
+            "--height", str(h), "--max-bounces", "2"]
+    cli.main(base + ["--spp", "2", "--out", str(tmp_path / "plain")])
+    plain = read_bmp(str(tmp_path / "plain" / "frame_0000.bmp"))
+    assert plain.shape == (h, w, 3) and plain.max() > 0
+    out = tmp_path / "adaptive"
+    cli.main(base + ["--spp", "4", "--adaptive", "2", "--aovs", "--out", str(out),
+                     "--metrics", str(tmp_path / "m.jsonl")])
+    assert sorted(os.listdir(out)) == ["frame_0000.aovs.npz", "frame_0000.bmp"]
+    cfg = dataclasses.replace(TESTING, image_width=w, image_height=h, max_bounces=2,
+                              samples_per_pixel=4)
+    _, dev = tmodels.build("cornell_box", cfg, device="cpu")
+    idx = np.arange(w * h, dtype=np.int32)
+    colors, counts = render_adaptive(cfg, dev, idx % w, idx // w, 2, 4, device="cpu")
+    assert counts.min() >= 2 and counts.sum() <= 4 * w * h
+    bgra = to_bgra(colors.reshape(h, w, 3), device="cpu")
+    assert (read_bmp(str(out / "frame_0000.bmp")) == bgra[..., 2::-1]).all()
+    aovs = np.load(out / "frame_0000.aovs.npz")
+    ref = render_aovs(cfg, dev, idx % w, idx // w, spp=4, device="cpu")
+    assert sorted(aovs.files) == ["albedo", "coverage", "depth", "normal"]
+    for k, v in ref.items():
+        assert aovs[k].shape == ((h, w, 3) if v.ndim == 2 else (h, w))
+        assert aovs[k].tobytes() == v.reshape(aovs[k].shape).tobytes(), k
+    line = [json.loads(x) for x in open(tmp_path / "m.jsonl")][-1]
+    assert {"pass1_ms", "pass2_ms", "aov_ms"} <= set(line)

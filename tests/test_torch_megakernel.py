@@ -198,10 +198,11 @@ def test_megakernel_error_paths(monkeypatch, wide_scene, small_xy):
     with pytest.raises(ValueError, match="with_stats"):
         tmk.path_trace_megakernel(SMALL, wide_scene, 4, 1, record=True, with_stats=True,
                                   device="cpu")
+    # area lights are in; a part of their tables is refused
     lit = wide_scene._replace(lt_tris=torch.zeros((1, 9)))
-    with pytest.raises(NotImplementedError, match="area-light"):
+    with pytest.raises(ValueError, match="area-light tables incomplete"):
         tmk.path_trace_megakernel(SMALL, lit, 4, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="area-light"):
+    with pytest.raises(ValueError, match="area-light tables incomplete"):
         trender.render_pixels(SMALL, lit, xs, ys, spp=1, megakernel=True, device="cpu")
     with pytest.raises(ValueError, match="permutation"):
         tmk.path_trace_megakernel(SMALL, wide_scene, 4, 1, pixel_order=[0, 1, 1, 3],
@@ -242,7 +243,9 @@ def test_megakernel_wrapper_refuses_cpu_tensors_and_has_no_fallback(wide_scene):
     trees = wide_scene.inst_u.shape[0] + 1
     assert CM.step_cap(wide_scene) == trees * wide_scene.wide_rows.shape[0] * 8 > 0
     assert CM.step_cap(binary) == trees * (binary.nl8.shape[0] // 8) > 0
-    assert len(CM.COUNT_NAMES) == len(set(CM.COUNT_NAMES)) == 13
+    # one name per counter of the counting build (csrc/path.cuh's enum)
+    enum = CM.PATH_HEADER.read_text().split("kSamples,", 1)[1].split("kNCounts", 1)[0]
+    assert len(CM.COUNT_NAMES) == len(set(CM.COUNT_NAMES)) == enum.count(",") + 1 == 15
 
 
 def test_k1_and_k2_share_the_walk():

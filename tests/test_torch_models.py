@@ -71,8 +71,9 @@ def test_scene_builder_refusals():
     with pytest.raises(ValueError, match="no instances"):
         b.build(CFG, device="cpu")
     _describe(b)
-    with pytest.raises(NotImplementedError, match="area-light"):
-        b.build(CFG, emissive_nee=True, device="cpu")
+    # emissive_nee=True on meshes with no emissive vertex: no light tables,
+    # as in the JAX package
+    assert b.build(CFG, emissive_nee=True, device="cpu")[1].lt_tris is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             _describe(tbuilder.SceneBuilder()).build(CFG)
@@ -82,6 +83,7 @@ def test_scene_builder_refusals():
 @pytest.mark.parametrize("name,kwargs", [
     ("sphere_ground", {"sphere_pos": (0.3, 1.2, -0.5)}),
     ("cornell_box", {"emissive_nee": False}),
+    ("cornell_box", {}),  # the default: the area-light tables
 ])
 def test_presets_match_jax(name, kwargs, wide, tmp_path):
     (tmp_path / "t").mkdir()
@@ -102,9 +104,10 @@ def test_preset_registry(monkeypatch):
     monkeypatch.delenv("PT_DATA_DIR", raising=False)
     with pytest.raises(ValueError, match="data_dir"):
         tmodels.build("full_animation", CFG, device="cpu")
-    # the area lights are a later slice: the Cornell box's default raises
-    with pytest.raises(NotImplementedError):
-        tmodels.build("cornell_box", CFG, device="cpu")
+    # the Cornell box's default packs the area-light tables (the ceiling
+    # panel's two triangles)
+    _, dev = tmodels.build("cornell_box", CFG, device="cpu")
+    assert dev.lt_tris.shape == (2, 9) and dev.lt_cdf.shape == (2,)
 
 
 @pytest.fixture(scope="module")

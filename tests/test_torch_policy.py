@@ -16,6 +16,7 @@ import pathtracing_tpu_torch
 from pathtracing_tpu_torch import render as trender
 from pathtracing_tpu_torch.config import TESTING
 from pathtracing_tpu_torch.ops import cuda_build
+from pathtracing_tpu_torch.ops import cuda_denoise as CD
 from pathtracing_tpu_torch.ops import cuda_megakernel as CM
 from pathtracing_tpu_torch.ops import cuda_traversal as CT
 from pathtracing_tpu_torch.ops import cuda_wavefront as CWF
@@ -164,13 +165,16 @@ def test_build_command_flags():
 
 
 @pytest.mark.parametrize(
-    "library", [CT.LIBRARY, CW.LIBRARY, GP.LIBRARY, CM.LIBRARY, CWF.LIBRARY],
+    "library", [CT.LIBRARY, CW.LIBRARY, GP.LIBRARY, CM.LIBRARY, CWF.LIBRARY,
+                CM.LIT_LIBRARY, CWF.LIT_LIBRARY, CD.LIBRARY],
     ids=lambda lib: lib.name
 )
 def test_kernel_library_sources_and_hash(library, tmp_path):
     """Every kernel is a CUDA source of the package with a plain C interface;
     its library's name is keyed by the source, every header it includes and
-    the flags, so an edit to a shared header never loads a stale library."""
+    the flags (a library's -D flags too: the path kernels' area-light
+    instances build from the same sources into libraries of their own), so
+    an edit to a shared header never loads a stale library."""
     src = library.source.read_text()
     assert library.source.parent == ROOT / "pathtracing_tpu_torch" / "csrc"
     assert "torch/extension.h" not in src and "__global__" in src
@@ -188,9 +192,16 @@ def test_kernel_library_sources_and_hash(library, tmp_path):
         copy_hdr = tmp_path / h.name
         copy_src.write_bytes(library.source.read_bytes())
         copy_hdr.write_bytes(h.read_bytes() + b"\n// edited\n")
-        edited = cuda_build.KernelLibrary(copy_src, headers=(copy_hdr,))
-        same = cuda_build.KernelLibrary(library.source, headers=library.headers)
+        kw = dict(defines=library.defines, name=library.name)
+        edited = cuda_build.KernelLibrary(copy_src, headers=(copy_hdr,), **kw)
+        same = cuda_build.KernelLibrary(library.source, headers=library.headers, **kw)
         assert same.path() == library.path() != edited.path()
+    if library.defines:  # the same source without them is another library
+        plain = cuda_build.KernelLibrary(library.source, headers=library.headers,
+                                         name=library.name)
+        assert plain.path() != library.path()
+        assert cuda_build.build_command("nvcc", library.source, "o.so", library.defines)[
+            -4:-3] == list(library.defines[-1:])
 
 
 def test_both_ray_query_kernels_share_the_header():
@@ -302,15 +313,25 @@ def test_gather_wrapper_refusals():
 
 @pytest.mark.parametrize("kw", [{"wavefront": True}, {"megakernel": True}])
 def test_later_renderers_raise(kw):
-    """The wavefront renderer and the megakernel are in, and raise for what
-    later slices bring (here: a scene with area-light tables)."""
-    scene = tgolden.scene_device_from_golden(
-        golden("scene.gold"), CFG, wide="megakernel" in kw, device="cpu"
-    )
-    scene = scene._replace(lt_tris=torch.zeros((1, 9)))
+    """The wavefront renderer and the megakernel are in. A table of a later
+    slice is refused where a walk would read it (bf16 node rows, S2, on the
+    binary walk); area-light tables, once a later slice, render through
+    both, as the scan renders them."""
+    from pathtracing_tpu_torch import models
+
+    wide = "megakernel" in kw
+    scene = tgolden.scene_device_from_golden(golden("scene.gold"), CFG, wide=wide,
+                                             device="cpu")
     idx = np.arange(16 * 9, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        trender.render_pixels(CFG, scene, idx % 16, idx // 16, device="cpu", **kw)
+    if not wide:
+        with pytest.raises(NotImplementedError, match="later slice"):
+            trender.render_pixels(CFG, scene._replace(nl5=torch.zeros((4, 5))), idx % 16,
+                                  idx // 16, device="cpu", **kw)
+    _, lit = models.build("cornell_box", CFG, wide=wide, device="cpu")
+    got = trender.render_pixels(CFG, lit, idx % 16, idx // 16, device="cpu", **kw)
+    ref = trender.render_pixels(CFG, lit, idx % 16, idx // 16, megakernel=False,
+                                device="cpu")
+    assert got.tobytes() == ref.tobytes() and got.mean() > 0
 
 
 def test_scene_on_another_device_is_refused():

@@ -6,6 +6,7 @@ import dataclasses
 import numpy as np
 import pytest
 
+from pathtracing_tpu.scene import device as jdevice
 from pathtracing_tpu_torch.config import PRODUCTION, TESTING
 from pathtracing_tpu_torch.convert import scene_from_jax
 from pathtracing_tpu_torch.scene import golden as tgolden
@@ -13,6 +14,7 @@ from pathtracing_tpu_torch.scene.device import pack_scene
 from pathtracing_tpu_torch.testing import assert_same_tables, golden, n
 
 import golden_scene as jgolden
+
 
 def _jax_fields(jscene) -> dict:
     return {k: np.asarray(v) for k, v in jscene._asdict().items() if v is not None}
@@ -117,9 +119,12 @@ def test_scene_from_jax_refuses_tables_of_later_slices():
     "kw", [{"emissive_nee": True, "wide": True}, {"emissive_nee": True}]
 )
 def test_pack_scene_later_slices_raise(kw):
+    """emissive_nee=True, once a later slice, packs as the JAX package's
+    pack_scene does (no light tables without emissive triangles; the tables
+    themselves are held to JAX's in tests/test_torch_arealights.py)."""
     g = golden("scene.gold")
-    with pytest.raises(NotImplementedError):
-        pack_scene(
-            (g["indices"], g["pos"], g["normal"], g["albedo"], g["material"]),
-            g["nodes"], g["links"], [], [], device="cpu", **kw,
-        )
+    args = ((g["indices"], g["pos"], g["normal"], g["albedo"], g["material"]),
+            g["nodes"], g["links"], [], [])
+    got = pack_scene(*args, device="cpu", **kw)
+    assert got.lt_tris is None
+    assert_same_tables(got, jdevice.pack_scene(*args, **kw))

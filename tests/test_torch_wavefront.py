@@ -156,10 +156,11 @@ def test_render_frame_bytes_equal_the_host_path(scenes, wavefront):
 
 def test_wavefront_error_paths(monkeypatch, scenes):
     xs = np.arange(4, dtype=np.int32)
+    # area lights are in; a part of their tables is refused
     lit = scenes["binary"]._replace(lt_tris=torch.zeros((1, 9)))
-    with pytest.raises(NotImplementedError, match="area-light"):
+    with pytest.raises(ValueError, match="area-light tables incomplete"):
         twf.path_trace_wavefront(TESTING, lit, xs, xs, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="area-light"):
+    with pytest.raises(ValueError, match="area-light tables incomplete"):
         trender.render_pixels(TESTING, lit, xs, xs, spp=1, wavefront=True, device="cpu")
     with pytest.raises(ValueError, match="differ"):
         twf.path_trace_wavefront(TESTING, scenes["binary"], xs, xs[:3], 1, device="cpu")
@@ -201,7 +202,7 @@ def test_wavefront_wrapper_refuses_what_the_kernel_does_not_take(scenes):
         CWF.check_scene(binary._replace(sf_tlas_count=binary.sf_tlas_count[:0]), cpu)
     with pytest.raises(ValueError, match="tri_shade"):
         CWF.check_scene(wide._replace(tri_shade=None), cpu)
-    with pytest.raises(NotImplementedError, match="area-light"):
+    with pytest.raises(ValueError, match="area-light tables incomplete"):
         CWF.check_scene(binary._replace(lt_tris=torch.zeros((1, 9))), cpu)
     # one argument per parameter of pt_wavefront, pointers where it takes them
     r = torch.zeros(4)
