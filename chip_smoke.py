@@ -192,10 +192,18 @@ Phases, one JSON object per line:
   denoise_check     K8 vs its plain version on the Cornell box's 1080p frame
                     (render_with_variance's 8 spp frame and noise map,
                     render_aovs' guides) at radius 2 and 4, with and without
-                    the noise map (rtol 1e-5, atol 1e-6 max|ref|); one
-                    launch through joint_bilateral_denoise counted; the
-                    denoised frame nearer a 64 spp frame than the 8 spp one;
-                    each radius timed with device time and bound
+                    the noise map (rtol 1e-5, atol 1e-6 max|ref|), and on
+                    seeded edge cases (1x1, 7x1000, 1081x1921; radius 0, 1,
+                    9 and one past the tile's shared memory on 5x7; noise
+                    map and +inf), by the wrapper's choice and by each
+                    design (denoise_checks, denoise_designs: bit-equal
+                    shares, quality, registers, shared memory, SASS mix of
+                    the tap loop); one launch through
+                    joint_bilateral_denoise counted; the denoised frame
+                    nearer a 64 spp frame than the 8 spp one; each radius
+                    timed with device time and bound, and the designs in
+                    turns on the Cornell frame and random guides
+                    (denoise_design_times)
   record_check      the megakernel's record build (K6) vs its plain version
                     (path_trace_megakernel_plain(record=True)) on w8, w16, s8
                     and motion.gold's scene, spp 1 and spp 3: every record
@@ -3128,13 +3136,19 @@ CORNELL_ADAPTIVE_BASE = 8  # the adaptive CLI frame's first pass
 ADAPTIVE_LIST_SPP = (2, 4)
 DENOISE_RADII = (2, 4)
 DENOISE_RTOL = 1e-5  # K8 vs its plain version on the card; atol 1e-6 max|ref|
-# K8's float operations a tap and a pixel, counted from csrc/denoise.cu (each
-# exp one): spatial 2, albedo 12, normal 10, depth 7, coverage 4, range 12,
-# sums 7; the centre's luminance, the denominators and the division 14
+# K8's float operations a tap and a pixel, counted from csrc/denoise.cu's
+# first design (each exp one): spatial 2, albedo 12, normal 10, depth 7,
+# coverage 4, range 12, sums 7; the centre's luminance, the denominators and
+# the division 14
 DENOISE_TAP_FLOPS, DENOISE_PIXEL_FLOPS = 54, 14
 # inputs (colours, albedo, normal 3 x 12, depth, coverage, noise 3 x 4) and
 # output (12) bytes a pixel
 DENOISE_PIXEL_BYTES = 60
+# K8's edge cases on seeded random guides (H, W, radius): shapes that are no
+# multiple of the tile, a radius of 0, 1 and past a 5 x 7 image; None is
+# the first radius whose tile and halo do not fit a block's shared memory
+DENOISE_EDGE = ((1, 1, 2), (7, 1000, 2), (1081, 1921, 2), (5, 7, 0), (5, 7, 1), (5, 7, 9),
+                (5, 7, None), (64, 96, None))
 
 
 def write_panel_scene(d, n=PANEL_GRID) -> None:
@@ -3390,16 +3404,121 @@ def denoise_bound(n: int, radius: int) -> dict:
                  n * (DENOISE_TAP_FLOPS * taps + DENOISE_PIXEL_FLOPS))
 
 
+def denoise_random_guides(H: int, W: int, seed: int = 0):
+    """Seeded random guides on the card, as tests/test_torch_denoise.py
+    makes them (random albedo and unit normals: no factor is exactly 1):
+    colors, albedo, normal, depth, coverage and the noise map."""
+    rng = np.random.default_rng(seed)
+    nrm = rng.normal(size=(H, W, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    colors = rng.gamma(1.0, 0.5, (H, W, 3)).astype(np.float32)
+    albedo = rng.random((H, W, 3), np.float32)
+    depth = (rng.random((H, W), np.float32) * 5).astype(np.float32)
+    coverage = (rng.random((H, W)) < 0.8).astype(np.float32)
+    depth[coverage == 0] = 0.0  # sky: no depth
+    noise = (rng.random((H, W), np.float32) * 0.2).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (colors, albedo, nrm, depth, coverage)], \
+        torch.from_numpy(noise).cuda()
+
+
+def denoise_fits(design: str, radius: int) -> bool:
+    return CD.smem_bytes(design, radius) <= int(CD.LIBRARY.load().pt_denoise_smem_limit())
+
+
+def denoise_compare(got, want) -> dict:
+    err = (got - want).abs()
+    tol = DENOISE_RTOL * want.abs() + 1e-6 * float(want.abs().max())
+    return {"max_abs_err": float(err.max()),
+            "bit_equal_share": float((got == want).float().mean()),
+            "within_tol": bool((err <= tol).all()) and bool(torch.isfinite(got).all())}
+
+
+def denoise_entry(design: str) -> str:
+    """The mangled name's part that tells a design's kernel (``t16p2_skip``:
+    ``denoise_tile<16, 2, kSkip>``)."""
+    if design == "first":
+        return "denoise_first"
+    m = re.fullmatch(r"t(\d+)p(\d+)(_skip|_one_exp)?", design)
+    mode = {None: 0, "_skip": 1, "_one_exp": 2}[m.group(3)]
+    return f"denoise_tileILi{m.group(1)}ELi{m.group(2)}ELi{mode}E"
+
+
+def sass_mix(lib_path) -> dict:
+    """What each kernel of a library issues, from ``cuobjdump -sass``: per
+    function, the opcodes of its innermost loop that loads (LDS / LDG) and
+    holds a MUFU.EX2 (the tap loop) and of the whole function, counted by
+    opcode family. An account of what the compiled tap does, not a bound."""
+    tool = pathlib.Path(cuda_build.find_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {"error": f"{tool} not found"}
+    proc = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        return {"error": proc.stderr[-400:]}
+    text = proc.stdout
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name = part.split()[0]
+        insns, labels, pending = [], {}, []
+        for line in part.splitlines():
+            lm = re.match(r"\s*(\.L_x_\d+):", line)
+            if lm:
+                pending.append(lm.group(1))
+                continue
+            im = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if im:
+                addr = int(im.group(1), 16)
+                for lab in pending:
+                    labels[lab] = addr
+                pending = []
+                insns.append((addr, im.group(2)))
+
+        def op(text):
+            t = text.split()
+            t = t[1:] if t and t[0].startswith("@") else t
+            return t[0] if t else ""
+
+        loops = []
+        for addr, ins in insns:
+            bm = re.search(r"BRA\S*\s+(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))", ins)
+            lo = (labels.get(bm.group(1)) if bm.group(1) else int(bm.group(2), 16)) if bm else None
+            if lo is not None and lo < addr:
+                body = [op(i) for a, i in insns if lo <= a <= addr]
+                if any(o.startswith("MUFU.EX2") for o in body) and \
+                        any(o.startswith(("LDS", "LDG")) for o in body):
+                    loops.append(body)
+
+        def mix(ops):
+            fam = {}
+            for o in ops:
+                fam[o.split(".")[0]] = fam.get(o.split(".")[0], 0) + 1
+            return {"insns": len(ops), "mufu_ex2": sum(o.startswith("MUFU.EX2") for o in ops),
+                    "mufu_rcp": sum(o.startswith("MUFU.RCP") for o in ops),
+                    "fp32": sum(fam.get(f, 0) for f in ("FADD", "FMUL", "FFMA", "FMNMX")),
+                    "lds": fam.get("LDS", 0), "lds_128": sum(o == "LDS.128" for o in ops),
+                    "ldg": fam.get("LDG", 0), "calls": fam.get("CALL", 0), "families": fam}
+
+        loop = min(loops, key=len) if loops else []
+        out[name] = {"loop": mix(loop), "function": mix([op(i) for _, i in insns])}
+    return out
+
+
 def phase_denoise_check(smi):
     """K8 on the Cornell box's 1080p frame: the 8 spp frame and its noise
     map from render_with_variance (K2 with lum^2) and its AOVs from
     render_aovs (K1), denoised through joint_bilateral_denoise (one K8
-    launch, counted); K8 against its plain version on the card at radius 2
-    and 4, with and without the noise map (rtol DENOISE_RTOL, atol 1e-6
-    max|ref|); the denoised frame nearer a 64 spp frame of disjoint samples
-    than the 8 spp frame (tests/test_denoise.py's bar, with and without the
-    noise map); each radius timed (L2 flushed, median of 5, beside the plain
-    version), its device time and its bound."""
+    launch, counted, of the design ``design_for`` names); K8 against its
+    plain version on the card at radius 2 and 4, with and without the noise
+    map, and on the edge cases ``DENOISE_EDGE`` with and without it (rtol
+    DENOISE_RTOL, atol 1e-6 max|ref|, finite), by the wrapper's choice and
+    by every design whose tile fits (``designs``: each case's bit-equal
+    share; the one-exp designs are recorded, the others required); the
+    denoised frame nearer a 64 spp frame of disjoint samples than the 8 spp
+    frame (tests/test_denoise.py's bar, with and without the noise map), for
+    every design; each radius timed (L2 flushed, median of 5, beside the
+    plain version), its device time and its bound. Then ``design_times``:
+    every design in turns at radius 0, 2 and 4 on the Cornell frame and on
+    seeded random 1080p guides, with device time, bound and the share of
+    it; registers, shared memory and spills; the SASS mix of each tap loop."""
     cfg, s = cornell_scene(2 * CORNELL_SPP)
     W, H = cfg.image_width, cfg.image_height
     n = W * H
@@ -3416,8 +3535,9 @@ def phase_denoise_check(smi):
     aovs = {k: v.reshape(H, W, -1).squeeze() for k, v in aovs.items()}
     CD.reset_launches()
     den = joint_bilateral_denoise(noisy, aovs, device="cuda")
-    launches = CD.launches
-    require(launches == 1, f"denoise: {launches} K8 launches")
+    launches, by_design = CD.launches, dict(CD.launches_by_design)
+    default = CD.design_for(2)
+    require(launches == 1 and by_design[default] == 1, f"denoise: {by_design} K8 launches")
     ranged = joint_bilateral_denoise(noisy, aovs, noise=stderr.reshape(H, W), device="cuda")
     clip = lambda a: np.clip(a, 0, 10)
     mse = lambda a: float(np.mean((clip(a) - clip(ref)) ** 2))
@@ -3429,33 +3549,101 @@ def phase_denoise_check(smi):
               up(aovs["coverage"])]
     noises = {"noise": up(stderr.reshape(H, W)),
               "no_noise": torch.full((H, W), float("inf"), device="cuda")}
-    checks, timing, max_err = [], {}, 0.0
+    require(CD.LIBRARY.load().pt_denoise_designs() == len(CD.DESIGNS), "denoise: designs")
+    exact = [d for d in CD.DESIGNS if not d.endswith("_one_exp")]  # required within the bar
+    designs = {d: {"cases": [], "quality": {}} for d in CD.DESIGNS}
+    checks, max_err = [], 0.0
+
+    def check(case, args, radius):
+        nonlocal max_err
+        want = denoise_plain(*args, radius)
+        c = {**case, "design": CD.design_for(radius),
+             **denoise_compare(CD.denoise_cuda(*args, radius, DEFAULT_SIGMAS), want)}
+        require(c["within_tol"], f"denoise {c}")
+        max_err = max(max_err, c["max_abs_err"])
+        checks.append(c)
+        for d in CD.DESIGNS:
+            if denoise_fits(d, radius):
+                r = {**case, **denoise_compare(
+                    CD.denoise_cuda(*args, radius, DEFAULT_SIGMAS, _design=d), want)}
+                require(r["within_tol"] or d not in exact, f"denoise {d} {r}")
+                designs[d]["cases"].append(r)
+
     for radius in DENOISE_RADII:
         for tag, nz in noises.items():
-            got = CD.denoise_cuda(*guides, nz, radius, DEFAULT_SIGMAS)
-            want = denoise_plain(*guides, nz, radius)
-            err = (got - want).abs()
-            tol = DENOISE_RTOL * want.abs() + 1e-6 * float(want.abs().max())
-            c = {"radius": radius, "case": tag, "max_abs_err": float(err.max()),
-                 "bit_equal_share": float((got == want).float().mean()),
-                 "within_tol": bool((err <= tol).all())}
-            require(c["within_tol"] and bool(torch.isfinite(got).all()), f"denoise {c}")
-            max_err = max(max_err, c["max_abs_err"])
-            checks.append(c)
+            check({"input": "cornell", "radius": radius, "case": tag}, (*guides, nz), radius)
+    limit = int(CD.LIBRARY.load().pt_denoise_smem_limit())
+    past = next(r for r in range(1, 4096) if CD.smem_bytes(CD.TILE_DESIGN, r) > limit)
+    for eh, ew, radius in DENOISE_EDGE:
+        radius = past if radius is None else radius
+        g, nz = denoise_random_guides(eh, ew, seed=eh * 7919 + ew)
+        for tag, z in (("noise", nz), ("no_noise", torch.full_like(nz, float("inf")))):
+            check({"input": f"{eh}x{ew}", "radius": radius, "case": tag}, (*g, z), radius)
+    require(any(c["design"] == "first" for c in checks), "denoise: no case past the tile")
+    for d in CD.DESIGNS:
+        den_d = CD.denoise_cuda(*guides, noises["no_noise"], 2, DEFAULT_SIGMAS, _design=d)
+        ranged_d = CD.denoise_cuda(*guides, noises["noise"], 2, DEFAULT_SIGMAS, _design=d)
+        q = {"mse_denoised": mse(den_d.cpu().numpy()), "mse_ranged": mse(ranged_d.cpu().numpy())}
+        q["passes"] = q["mse_denoised"] < quality["mse_noisy"] and \
+            q["mse_ranged"] < quality["mse_noisy"]
+        require(q["passes"] or d not in exact, f"denoise {d} quality {q}")
+        designs[d]["quality"] = q
+        designs[d]["all_within_tol"] = all(c["within_tol"] for c in designs[d]["cases"])
+    timing = {}
+    for radius in DENOISE_RADII:
         nz = noises["noise"]
         t = time_launches({"k8": lambda: CD.denoise_cuda(*guides, nz, radius, DEFAULT_SIGMAS),
                            "plain": lambda: denoise_plain(*guides, nz, radius)})
         timing[radius] = {"ms": t["k8"][0], "ms_all": t["k8"][1], "plain_ms": t["plain"][0],
+                          "design": CD.design_for(radius),
                           **launch_device_ms(
                               lambda: CD.denoise_cuda(*guides, nz, radius, DEFAULT_SIGMAS),
-                              "denoise_kernel"),
+                              "denoise"),
                           **denoise_bound(n, radius)}
         timing[radius]["roofline_share"] = timing[radius]["bound_ms"] / timing[radius]["ms"]
-    res = {"launches": launches, "checks": checks, "max_abs_err": max_err, "timing": timing,
-           "quality": quality, "variance_pass_s": t1 - t0, "aov_pass_s": t2 - t1,
+    # the designs in turns, on the Cornell frame and on seeded random guides
+    rnd, rnd_noise = denoise_random_guides(H, W, seed=1)
+    inputs = {"cornell": (*guides, noises["noise"]), "random": (*rnd, rnd_noise)}
+    design_times = []
+    for radius in (0, *DENOISE_RADII):
+        for name, args in inputs.items():
+            if radius == 0 and name == "random":
+                continue
+            fns = {d: (lambda d=d: CD.denoise_cuda(*args, radius, DEFAULT_SIGMAS, _design=d))
+                   for d in CD.DESIGNS if denoise_fits(d, radius)}
+            t = time_launches(fns)
+            b = denoise_bound(n, radius)
+            for d, fn in fns.items():
+                dev = launch_device_ms(fn, "denoise")
+                design_times.append({
+                    "design": d, "input": name, "radius": radius, "ms": t[d][0],
+                    "ms_all": t[d][1], "device_ms": dev["device_ms"],
+                    "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                    "roofline_share": b["bound_ms"] / t[d][0],
+                    "device_roofline_share": b["bound_ms"] / dev["device_ms"]})
+    resources = {r["entry"]: r for r in CD.LIBRARY.resources()}
+    sass = sass_mix(CD.LIBRARY.path())
+    for d in CD.DESIGNS:
+        ent = [k for k in resources if denoise_entry(d) in k]
+        require(len(ent) == 1, f"denoise {d}: entries {list(resources)}")
+        designs[d]["resources"] = {k: resources[ent[0]][k] for k in
+                                   ("registers", "spill_store_bytes", "spill_load_bytes",
+                                    "smem_bytes")}
+        designs[d]["smem_bytes_r2_r4"] = [CD.smem_bytes(d, r) for r in DENOISE_RADII]
+        mix = [v for k, v in sass.items() if denoise_entry(d) in k] if "error" not in sass else []
+        designs[d]["sass"] = mix[0] if mix else sass
+    res = {"launches": launches, "launches_by_design": by_design, "default_design": default,
+           "past_tile_radius": past, "checks": checks, "max_abs_err": max_err,
+           "timing": timing, "quality": quality, "designs": designs,
+           "design_times": design_times, "variance_pass_s": t1 - t0, "aov_pass_s": t2 - t1,
            "registers": [(k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"])
                          for k in CD.LIBRARY.resources()], "card": smi}
-    emit("denoise_check", **res)
+    emit("denoise_check", **{k: v for k, v in res.items()
+                             if k not in ("checks", "designs", "design_times")},
+         checks_within_tol=all(c["within_tol"] for c in checks), n_checks=len(checks))
+    emit("denoise_checks", checks=checks)
+    emit("denoise_designs", designs=designs, card=smi)
+    emit("denoise_design_times", design_times=design_times, card=smi)
     return res
 
 
@@ -3887,9 +4075,12 @@ def main() -> int:
             "bound_by": dn["timing"][2]["bound_by"],
             "library_ms": None,  # no single PyTorch call is a joint bilateral filter
             "shape": "1920x1080 x 3, radius 2, the noise map",
+            "design": dn["timing"][2]["design"],
             "device_ms": dn["timing"][2]["device_ms"],
             "radius_4": {k: dn["timing"][4][k] for k in ("ms", "device_ms", "plain_ms",
-                                                         "bound_ms", "bound_by")},
+                                                         "bound_ms", "bound_by", "design")},
+            "launches_by_design": dn["launches_by_design"],
+            "past_tile_radius": dn["past_tile_radius"],
             "quality": dn["quality"],
             "registers_spills": dn["registers"],
             "card": smi,

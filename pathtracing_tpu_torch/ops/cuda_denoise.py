@@ -1,10 +1,15 @@
 """The joint bilateral denoiser's kernel (K8): binding and wrapper.
 
-``denoise_cuda`` runs the hand-written kernel in ``csrc/denoise.cu`` (one
-thread per pixel, its (2r+1)^2 taps in the plain version's order; see the
-note at the top of that file). It is the counterpart of the JAX package's
-``denoise._denoise``; ``denoise.denoise`` dispatches to it for CUDA tensors,
-and ``denoise.denoise_plain`` is its plain version.
+``denoise_cuda`` runs the hand-written kernels of ``csrc/denoise.cu`` (see
+the note at the top of that file). The design for the card stages each
+block's 32-pixel-wide tile with its halo in shared memory as packed 16-byte
+records and takes the spatial factor from a table; a thread runs the
+interleaved taps of several pixels of a column. A radius whose halo does not
+fit the shared memory a block may use goes to the first design (one thread
+a pixel, its neighbours read from device memory), a counted path of its own.
+Both are the counterpart of the JAX package's ``denoise._denoise``;
+``denoise.denoise`` dispatches to them for CUDA tensors, and
+``denoise.denoise_plain`` is their plain version.
 
 There is no second path to give way to: a build or launch failure, or a
 tensor the kernel does not take (CPU tensors among them), raises.
@@ -21,29 +26,62 @@ from pathtracing_tpu_torch.utils.vec import c32
 
 SOURCE = CSRC / "denoise.cu"
 
-_p, _f, _i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+_p, _f, _i, _ll = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
 LIBRARY = KernelLibrary(
     SOURCE,
     symbols={
-        "pt_denoise": ([_p] * 6 + [_i] * 3 + [_f] * 5 + [_p, _p], _i),
+        "pt_denoise": ([_p] * 6 + [_i] * 3 + [_f] * 5 + [_p, _i, _p], _i),
+        "pt_denoise_designs": ([], _i),
+        "pt_denoise_smem": ([_i, _i], _ll),
+        "pt_denoise_smem_limit": ([], _ll),
     },
 )
 
-# Launches of the kernel since the last reset: incremented where the kernel
-# is launched and nowhere else.
+# The kernel's designs, in the order of csrc/denoise.cu's kDesigns: "first"
+# (one thread a pixel, neighbours from device memory), then the tile kernel
+# as "t<tile rows>p<pixels a thread>", "_skip" (factors whose exponent is
+# exactly +-0 skipped, bit-equal) or "_one_exp" (one expf of the summed
+# exponents: not bit-equal).
+DESIGNS = ("first", "t8p1", "t16p2", "t16p4", "t32p4", "t16p2_skip", "t16p4_skip",
+           "t16p2_one_exp", "t16p4_one_exp")
+TILE_DESIGN = "t16p2"  # the design taken where its tile and halo fit
+
+# Launches of the kernels since the last reset: incremented where a kernel
+# is launched and nowhere else; ``launches_by_design`` splits the count.
 launches = 0
+launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for k in launches_by_design:
+        launches_by_design[k] = 0
 
 
-def denoise_cuda(colors, albedo, normal, depth, coverage, noise, radius: int, sigmas):
+def smem_bytes(design: str, radius: int) -> int:
+    """Dynamic shared memory a block of ``design`` takes at ``radius``."""
+    return int(LIBRARY.load().pt_denoise_smem(DESIGNS.index(design), int(radius)))
+
+
+def design_for(radius: int) -> str:
+    """The design a call at ``radius`` takes: the tile design where its tile
+    and halo fit the shared memory a block may use on the current device,
+    else the first design."""
+    limit = int(LIBRARY.load().pt_denoise_smem_limit())
+    if limit < 0:
+        raise RuntimeError("denoise: could not read the device's shared memory limit")
+    return TILE_DESIGN if smem_bytes(TILE_DESIGN, radius) <= limit else "first"
+
+
+def denoise_cuda(colors, albedo, normal, depth, coverage, noise, radius: int, sigmas,
+                 _design: str | None = None):
     """K8 on contiguous float32 CUDA tensors: colors, albedo, normal (H, W,
     3), depth, coverage, noise (H, W); ``sigmas`` (sigma_spatial,
     sigma_albedo, sigma_normal, sigma_depth, k_noise). Returns (H, W, 3)
-    float32. Launches on PyTorch's current stream and does not synchronise."""
+    float32. Launches on PyTorch's current stream and does not synchronise.
+    ``_design``: None (``design_for(radius)``) or one of ``DESIGNS``, an
+    instrument for chip_smoke.py."""
     global launches
     device = colors.device
     if device.type != "cuda":
@@ -60,17 +98,21 @@ def denoise_cuda(colors, albedo, normal, depth, coverage, noise, radius: int, si
         raise ValueError(f"radius={radius}: must be >= 0")
     if H * W * 3 >= 1 << 31:
         raise ValueError(f"{H}x{W}: too many pixels for the kernel's int32 rows")
+    if _design is not None and _design not in DESIGNS:
+        raise ValueError(f"_design={_design!r}: None or one of {DESIGNS}")
     out = torch.empty((H, W, 3), dtype=f32, device=device)
     lib = LIBRARY.load()
     with torch.cuda.device(device):
+        design = design_for(radius) if _design is None else _design
         err = lib.pt_denoise(
             colors.data_ptr(), albedo.data_ptr(), normal.data_ptr(), depth.data_ptr(),
             coverage.data_ptr(), noise.data_ptr(), H, W, int(radius),
-            *(c32(s) for s in sigmas), out.data_ptr(),
+            *(c32(s) for s in sigmas), out.data_ptr(), DESIGNS.index(design),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"denoise launch refused: {err}")
+        raise RuntimeError(f"denoise launch refused ({design}, radius {radius}): {err}")
     if H * W > 0:
         launches += 1
+        launches_by_design[design] += 1
     return out

@@ -46,6 +46,24 @@ def test_denoise_plain_matches_jax(radius, with_noise):
     np.testing.assert_allclose(got, ref, rtol=2e-6, atol=1e-6 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("H,W,radius,with_noise", [
+    (1, 1, 2, True),  # every tap past the image: the edge clamp alone
+    (5, 7, 0, False),  # the centre tap only
+    (5, 7, 1, True),
+    (5, 7, 1, False),  # the noise map disabled (+inf)
+], ids=["1x1_r2_noise", "5x7_r0_inf", "5x7_r1_noise", "5x7_r1_inf"])
+def test_denoise_plain_edge_cases(H, W, radius, with_noise):
+    """The edge cases K8 is held to on the card, at the sizes the JAX
+    function compiles in about a second each (radius 9 unrolls 361 taps: over
+    a minute of XLA compile on the CPU, so it is checked on the card only)."""
+    colors, aovs, noise = _inputs(H, W, seed=H * 31 + W)
+    kw = dict(noise=noise if with_noise else None, radius=radius)
+    got = joint_bilateral_denoise(colors, aovs, device="cpu", **kw)
+    ref = jax_denoise(colors, aovs, **kw)
+    assert got.shape == (H, W, 3) and got.dtype == np.float32 and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, rtol=2e-6, atol=1e-6 * np.abs(ref).max())
+
+
 def test_denoise_flat_region_and_wrapper():
     H, W = 36, 64
     colors = np.full((H, W, 3), 0.25, np.float32)
