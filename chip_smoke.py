@@ -194,8 +194,9 @@ Phases, one JSON object per line:
                     render_aovs' guides) at radius 2 and 4, with and without
                     the noise map (rtol 1e-5, atol 1e-6 max|ref|), and on
                     seeded edge cases (1x1, 7x1000, 1081x1921; radius 0, 1,
-                    9 and one past the tile's shared memory on 5x7; noise
-                    map and +inf), by the wrapper's choice and by each
+                    9 and one past the tile's shared memory on 5x7;
+                    extreme values; noise map and +inf), by the wrapper's
+                    choice and by each
                     design (denoise_checks, denoise_designs: bit-equal
                     shares, quality, registers, shared memory, SASS mix of
                     the tap loop); one launch through
@@ -3149,6 +3150,10 @@ DENOISE_PIXEL_BYTES = 60
 # the first radius whose tile and halo do not fit a block's shared memory
 DENOISE_EDGE = ((1, 1, 2), (7, 1000, 2), (1081, 1921, 2), (5, 7, 0), (5, 7, 1), (5, 7, 9),
                 (5, 7, None), (64, 96, None))
+# and one of extreme values (zero noise, depths of 1e25 and 1e-30, albedo and
+# colours a few ulps apart): operands a fast division path must refuse
+DENOISE_EXTREME = (67, 131, 2)
+DENOISE_DIV_PAIRS = 1 << 30  # pairs the fast division is held to the compiler's on
 
 
 def write_panel_scene(d, n=PANEL_GRID) -> None:
@@ -3404,10 +3409,12 @@ def denoise_bound(n: int, radius: int) -> dict:
                  n * (DENOISE_TAP_FLOPS * taps + DENOISE_PIXEL_FLOPS))
 
 
-def denoise_random_guides(H: int, W: int, seed: int = 0):
+def denoise_random_guides(H: int, W: int, seed: int = 0, extreme: bool = False):
     """Seeded random guides on the card, as tests/test_torch_denoise.py
     makes them (random albedo and unit normals: no factor is exactly 1):
-    colors, albedo, normal, depth, coverage and the noise map."""
+    colors, albedo, normal, depth, coverage and the noise map. ``extreme``:
+    zero noise on a quarter of the pixels, depths of 1e25 and 1e-30,
+    albedo and colours of an eighth of the pixels moved a few ulps."""
     rng = np.random.default_rng(seed)
     nrm = rng.normal(size=(H, W, 3)).astype(np.float32)
     nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
@@ -3417,6 +3424,15 @@ def denoise_random_guides(H: int, W: int, seed: int = 0):
     coverage = (rng.random((H, W)) < 0.8).astype(np.float32)
     depth[coverage == 0] = 0.0  # sky: no depth
     noise = (rng.random((H, W), np.float32) * 0.2).astype(np.float32)
+    if extreme:
+        part = rng.integers(0, 8, (H, W))
+        noise[part < 2] = 0.0
+        depth[part == 2] = 1e25
+        depth[part == 3] = 1e-30
+        albedo[part == 4] = 0.5
+        albedo[part == 5] = np.nextafter(np.float32(0.5), np.float32(1), dtype=np.float32)
+        colors[part == 6] = 1e-30
+        colors[part == 7] = 1e-30 * 1.5
     return [torch.from_numpy(a).cuda() for a in (colors, albedo, nrm, depth, coverage)], \
         torch.from_numpy(noise).cuda()
 
@@ -3438,8 +3454,8 @@ def denoise_entry(design: str) -> str:
     ``denoise_tile<16, 2, kSkip>``)."""
     if design == "first":
         return "denoise_first"
-    m = re.fullmatch(r"t(\d+)p(\d+)(_skip|_one_exp)?", design)
-    mode = {None: 0, "_skip": 1, "_one_exp": 2}[m.group(3)]
+    m = re.fullmatch(r"t(\d+)p(\d+)(_skip|_one_exp|_fast)?", design)
+    mode = {None: 0, "_skip": 1, "_one_exp": 2, "_fast": 3}[m.group(3)]
     return f"denoise_tileILi{m.group(1)}ELi{m.group(2)}ELi{mode}E"
 
 
@@ -3574,11 +3590,13 @@ def phase_denoise_check(smi):
             check({"input": "cornell", "radius": radius, "case": tag}, (*guides, nz), radius)
     limit = int(CD.LIBRARY.load().pt_denoise_smem_limit())
     past = next(r for r in range(1, 4096) if CD.smem_bytes(CD.TILE_DESIGN, r) > limit)
-    for eh, ew, radius in DENOISE_EDGE:
+    for eh, ew, radius in (*DENOISE_EDGE, DENOISE_EXTREME):
         radius = past if radius is None else radius
-        g, nz = denoise_random_guides(eh, ew, seed=eh * 7919 + ew)
+        extreme = (eh, ew, radius) == DENOISE_EXTREME
+        g, nz = denoise_random_guides(eh, ew, seed=eh * 7919 + ew, extreme=extreme)
         for tag, z in (("noise", nz), ("no_noise", torch.full_like(nz, float("inf")))):
-            check({"input": f"{eh}x{ew}", "radius": radius, "case": tag}, (*g, z), radius)
+            check({"input": f"{eh}x{ew}" + ("_extreme" if extreme else ""), "radius": radius,
+                   "case": tag}, (*g, z), radius)
     require(any(c["design"] == "first" for c in checks), "denoise: no case past the tile")
     for d in CD.DESIGNS:
         den_d = CD.denoise_cuda(*guides, noises["no_noise"], 2, DEFAULT_SIGMAS, _design=d)
@@ -3621,6 +3639,13 @@ def phase_denoise_check(smi):
                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                     "roofline_share": b["bound_ms"] / t[d][0],
                     "device_roofline_share": b["bound_ms"] / dev["device_ms"]})
+    # the fast division path against the compiler's division, bit for bit
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    require(CD.LIBRARY.load().pt_denoise_div_check(
+        DENOISE_DIV_PAIRS, 1, bad.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0,
+        "denoise: div_check launch")
+    div_mismatches = int(bad.item())
+    require(div_mismatches == 0, f"denoise: fast division differs on {div_mismatches} pairs")
     resources = {r["entry"]: r for r in CD.LIBRARY.resources()}
     sass = sass_mix(CD.LIBRARY.path())
     for d in CD.DESIGNS:
@@ -3633,7 +3658,9 @@ def phase_denoise_check(smi):
         mix = [v for k, v in sass.items() if denoise_entry(d) in k] if "error" not in sass else []
         designs[d]["sass"] = mix[0] if mix else sass
     res = {"launches": launches, "launches_by_design": by_design, "default_design": default,
-           "past_tile_radius": past, "checks": checks, "max_abs_err": max_err,
+           "past_tile_radius": past, "div_check": {"pairs": DENOISE_DIV_PAIRS,
+                                                    "mismatches": div_mismatches},
+           "checks": checks, "max_abs_err": max_err,
            "timing": timing, "quality": quality, "designs": designs,
            "design_times": design_times, "variance_pass_s": t1 - t0, "aov_pass_s": t2 - t1,
            "registers": [(k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"])

@@ -34,16 +34,19 @@ LIBRARY = KernelLibrary(
         "pt_denoise_designs": ([], _i),
         "pt_denoise_smem": ([_i, _i], _ll),
         "pt_denoise_smem_limit": ([], _ll),
+        "pt_denoise_div_check": ([_ll, ctypes.c_uint, _p, _p], _i),
     },
 )
 
 # The kernel's designs, in the order of csrc/denoise.cu's kDesigns: "first"
 # (one thread a pixel, neighbours from device memory), then the tile kernel
 # as "t<tile rows>p<pixels a thread>", "_skip" (factors whose exponent is
-# exactly +-0 skipped, bit-equal) or "_one_exp" (one expf of the summed
-# exponents: not bit-equal).
-DESIGNS = ("first", "t8p1", "t16p2", "t16p4", "t32p4", "t16p2_skip", "t16p4_skip",
-           "t16p2_one_exp", "t16p4_one_exp")
+# exactly +-0 skipped, bit-equal), "_fast" (that, and the divisions by the
+# compiler's fast path with the shared divisors' reciprocals taken once,
+# bit-equal) or "_one_exp" (one expf of the summed exponents: not
+# bit-equal).
+DESIGNS = ("first", "t8p1", "t16p2", "t8p1_skip", "t16p2_skip", "t8p1_fast", "t16p2_fast",
+           "t16p2_one_exp")
 TILE_DESIGN = "t16p2"  # the design taken where its tile and halo fit
 
 # Launches of the kernels since the last reset: incremented where a kernel
