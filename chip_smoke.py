@@ -3151,9 +3151,8 @@ DENOISE_PIXEL_BYTES = 60
 DENOISE_EDGE = ((1, 1, 2), (7, 1000, 2), (1081, 1921, 2), (5, 7, 0), (5, 7, 1), (5, 7, 9),
                 (5, 7, None), (64, 96, None))
 # and one of extreme values (zero noise, depths of 1e25 and 1e-30, albedo and
-# colours a few ulps apart): operands a fast division path must refuse
+# colours equal or an ulp apart, colours of 1e-30)
 DENOISE_EXTREME = (67, 131, 2)
-DENOISE_DIV_PAIRS = 1 << 30  # pairs the fast division is held to the compiler's on
 
 
 def write_panel_scene(d, n=PANEL_GRID) -> None:
@@ -3438,7 +3437,7 @@ def denoise_random_guides(H: int, W: int, seed: int = 0, extreme: bool = False):
 
 
 def denoise_fits(design: str, radius: int) -> bool:
-    return CD.smem_bytes(design, radius) <= int(CD.LIBRARY.load().pt_denoise_smem_limit())
+    return CD.smem_bytes(design, radius) <= CD.smem_limit(torch.cuda.current_device())
 
 
 def denoise_compare(got, want) -> dict:
@@ -3447,16 +3446,6 @@ def denoise_compare(got, want) -> dict:
     return {"max_abs_err": float(err.max()),
             "bit_equal_share": float((got == want).float().mean()),
             "within_tol": bool((err <= tol).all()) and bool(torch.isfinite(got).all())}
-
-
-def denoise_entry(design: str) -> str:
-    """The mangled name's part that tells a design's kernel (``t16p2_skip``:
-    ``denoise_tile<16, 2, kSkip>``)."""
-    if design == "first":
-        return "denoise_first"
-    m = re.fullmatch(r"t(\d+)p(\d+)(_skip|_one_exp|_fast)?", design)
-    mode = {None: 0, "_skip": 1, "_one_exp": 2, "_fast": 3}[m.group(3)]
-    return f"denoise_tileILi{m.group(1)}ELi{m.group(2)}ELi{mode}E"
 
 
 def sass_mix(lib_path) -> dict:
@@ -3526,15 +3515,15 @@ def phase_denoise_check(smi):
     plain version on the card at radius 2 and 4, with and without the noise
     map, and on the edge cases ``DENOISE_EDGE`` with and without it (rtol
     DENOISE_RTOL, atol 1e-6 max|ref|, finite), by the wrapper's choice and
-    by every design whose tile fits (``designs``: each case's bit-equal
-    share; the one-exp designs are recorded, the others required); the
-    denoised frame nearer a 64 spp frame of disjoint samples than the 8 spp
-    frame (tests/test_denoise.py's bar, with and without the noise map), for
-    every design; each radius timed (L2 flushed, median of 5, beside the
-    plain version), its device time and its bound. Then ``design_times``:
-    every design in turns at radius 0, 2 and 4 on the Cornell frame and on
-    seeded random 1080p guides, with device time, bound and the share of
-    it; registers, shared memory and spills; the SASS mix of each tap loop."""
+    by each design where its tile fits (``designs``: each case's bit-equal
+    share); the denoised frame nearer a 64 spp frame of disjoint samples
+    than the 8 spp frame (tests/test_denoise.py's bar, with and without the
+    noise map), for each design; each radius timed (L2 flushed, median of 5,
+    beside the plain version), its device time and its bound. Then
+    ``design_times``: the designs in turns at radius 0, 2 and 4 on the
+    Cornell frame and on seeded random 1080p guides, with device time, bound
+    and the share of it; registers, shared memory and spills; the SASS mix
+    of each tap loop."""
     cfg, s = cornell_scene(2 * CORNELL_SPP)
     W, H = cfg.image_width, cfg.image_height
     n = W * H
@@ -3566,7 +3555,6 @@ def phase_denoise_check(smi):
     noises = {"noise": up(stderr.reshape(H, W)),
               "no_noise": torch.full((H, W), float("inf"), device="cuda")}
     require(CD.LIBRARY.load().pt_denoise_designs() == len(CD.DESIGNS), "denoise: designs")
-    exact = [d for d in CD.DESIGNS if not d.endswith("_one_exp")]  # required within the bar
     designs = {d: {"cases": [], "quality": {}} for d in CD.DESIGNS}
     checks, max_err = [], 0.0
 
@@ -3582,14 +3570,13 @@ def phase_denoise_check(smi):
             if denoise_fits(d, radius):
                 r = {**case, **denoise_compare(
                     CD.denoise_cuda(*args, radius, DEFAULT_SIGMAS, _design=d), want)}
-                require(r["within_tol"] or d not in exact, f"denoise {d} {r}")
+                require(r["within_tol"], f"denoise {d} {r}")
                 designs[d]["cases"].append(r)
 
     for radius in DENOISE_RADII:
         for tag, nz in noises.items():
             check({"input": "cornell", "radius": radius, "case": tag}, (*guides, nz), radius)
-    limit = int(CD.LIBRARY.load().pt_denoise_smem_limit())
-    past = next(r for r in range(1, 4096) if CD.smem_bytes(CD.TILE_DESIGN, r) > limit)
+    past = next(r for r in range(1, 4096) if not denoise_fits("tile", r))
     for eh, ew, radius in (*DENOISE_EDGE, DENOISE_EXTREME):
         radius = past if radius is None else radius
         extreme = (eh, ew, radius) == DENOISE_EXTREME
@@ -3604,7 +3591,7 @@ def phase_denoise_check(smi):
         q = {"mse_denoised": mse(den_d.cpu().numpy()), "mse_ranged": mse(ranged_d.cpu().numpy())}
         q["passes"] = q["mse_denoised"] < quality["mse_noisy"] and \
             q["mse_ranged"] < quality["mse_noisy"]
-        require(q["passes"] or d not in exact, f"denoise {d} quality {q}")
+        require(q["passes"], f"denoise {d} quality {q}")
         designs[d]["quality"] = q
         designs[d]["all_within_tol"] = all(c["within_tol"] for c in designs[d]["cases"])
     timing = {}
@@ -3639,28 +3626,19 @@ def phase_denoise_check(smi):
                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                     "roofline_share": b["bound_ms"] / t[d][0],
                     "device_roofline_share": b["bound_ms"] / dev["device_ms"]})
-    # the fast division path against the compiler's division, bit for bit
-    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
-    require(CD.LIBRARY.load().pt_denoise_div_check(
-        DENOISE_DIV_PAIRS, 1, bad.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0,
-        "denoise: div_check launch")
-    div_mismatches = int(bad.item())
-    require(div_mismatches == 0, f"denoise: fast division differs on {div_mismatches} pairs")
     resources = {r["entry"]: r for r in CD.LIBRARY.resources()}
     sass = sass_mix(CD.LIBRARY.path())
     for d in CD.DESIGNS:
-        ent = [k for k in resources if denoise_entry(d) in k]
+        ent = [k for k in resources if f"denoise_{d}" in k]
         require(len(ent) == 1, f"denoise {d}: entries {list(resources)}")
         designs[d]["resources"] = {k: resources[ent[0]][k] for k in
                                    ("registers", "spill_store_bytes", "spill_load_bytes",
                                     "smem_bytes")}
         designs[d]["smem_bytes_r2_r4"] = [CD.smem_bytes(d, r) for r in DENOISE_RADII]
-        mix = [v for k, v in sass.items() if denoise_entry(d) in k] if "error" not in sass else []
+        mix = [v for k, v in sass.items() if f"denoise_{d}" in k] if "error" not in sass else []
         designs[d]["sass"] = mix[0] if mix else sass
     res = {"launches": launches, "launches_by_design": by_design, "default_design": default,
-           "past_tile_radius": past, "div_check": {"pairs": DENOISE_DIV_PAIRS,
-                                                    "mismatches": div_mismatches},
-           "checks": checks, "max_abs_err": max_err,
+           "past_tile_radius": past, "checks": checks, "max_abs_err": max_err,
            "timing": timing, "quality": quality, "designs": designs,
            "design_times": design_times, "variance_pass_s": t1 - t0, "aov_pass_s": t2 - t1,
            "registers": [(k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"])

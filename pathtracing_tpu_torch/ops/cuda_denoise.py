@@ -1,12 +1,16 @@
 """The joint bilateral denoiser's kernel (K8): binding and wrapper.
 
 ``denoise_cuda`` runs the hand-written kernels of ``csrc/denoise.cu`` (see
-the note at the top of that file). The design for the card stages each
-block's 32-pixel-wide tile with its halo in shared memory as packed 16-byte
-records and takes the spatial factor from a table; a thread runs the
-interleaved taps of several pixels of a column. A radius whose halo does not
-fit the shared memory a block may use goes to the first design (one thread
-a pixel, its neighbours read from device memory), a counted path of its own.
+the note at the top of that file). The design for the card, "tile", stages
+each block's 32 x 8 tile with its halo in shared memory as packed 16-byte
+records, takes the spatial factor from a table computed once a block, runs
+one pixel a thread and skips a factor whose exponent is exactly +-0 (the
+same bits). It is bound by its bit-equal arithmetic: accurate ``expf`` and
+IEEE division. A radius whose tile and halo do not fit the shared memory a
+block may use (r >= 24 on an H100) goes to the first design, "first" (one
+thread a pixel, its neighbours read from device memory), a counted path of
+its own. Both keep the plain version's bits (``--fmad=false``, IEEE
+division, accurate ``expf``, the plain version's order of taps and sums).
 Both are the counterpart of the JAX package's ``denoise._denoise``;
 ``denoise.denoise`` dispatches to them for CUDA tensors, and
 ``denoise.denoise_plain`` is their plain version.
@@ -18,6 +22,7 @@ tensor the kernel does not take (CPU tensors among them), raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,20 +39,14 @@ LIBRARY = KernelLibrary(
         "pt_denoise_designs": ([], _i),
         "pt_denoise_smem": ([_i, _i], _ll),
         "pt_denoise_smem_limit": ([], _ll),
-        "pt_denoise_div_check": ([_ll, ctypes.c_uint, _p, _p], _i),
     },
 )
 
-# The kernel's designs, in the order of csrc/denoise.cu's kDesigns: "first"
-# (one thread a pixel, neighbours from device memory), then the tile kernel
-# as "t<tile rows>p<pixels a thread>", "_skip" (factors whose exponent is
-# exactly +-0 skipped, bit-equal), "_fast" (that, and the divisions by the
-# compiler's fast path with the shared divisors' reciprocals taken once,
-# bit-equal) or "_one_exp" (one expf of the summed exponents: not
-# bit-equal).
-DESIGNS = ("first", "t8p1", "t16p2", "t8p1_skip", "t16p2_skip", "t8p1_fast", "t16p2_fast",
-           "t16p2_one_exp")
-TILE_DESIGN = "t16p2"  # the design taken where its tile and halo fit
+# The kernel's designs, in the order of csrc/denoise.cu's C interface:
+# "first" (one thread a pixel, neighbours from device memory) and "tile"
+# (the tile and its halo staged in shared memory; a radius whose tile does
+# not fit a block's shared memory takes the first design).
+DESIGNS = ("first", "tile")
 
 # Launches of the kernels since the last reset: incremented where a kernel
 # is launched and nowhere else; ``launches_by_design`` splits the count.
@@ -67,14 +66,23 @@ def smem_bytes(design: str, radius: int) -> int:
     return int(LIBRARY.load().pt_denoise_smem(DESIGNS.index(design), int(radius)))
 
 
-def design_for(radius: int) -> str:
-    """The design a call at ``radius`` takes: the tile design where its tile
-    and halo fit the shared memory a block may use on the current device,
-    else the first design."""
-    limit = int(LIBRARY.load().pt_denoise_smem_limit())
+@functools.lru_cache(maxsize=None)
+def smem_limit(index: int) -> int:
+    """The most dynamic shared memory a block may take on CUDA device
+    ``index``."""
+    with torch.cuda.device(index):
+        limit = int(LIBRARY.load().pt_denoise_smem_limit())
     if limit < 0:
         raise RuntimeError("denoise: could not read the device's shared memory limit")
-    return TILE_DESIGN if smem_bytes(TILE_DESIGN, radius) <= limit else "first"
+    return limit
+
+
+def design_for(radius: int) -> str:
+    """The design a call at ``radius`` takes on the current device: the tile
+    design where its tile and halo fit the shared memory a block may use,
+    else the first design."""
+    fits = smem_bytes("tile", radius) <= smem_limit(torch.cuda.current_device())
+    return "tile" if fits else "first"
 
 
 def denoise_cuda(colors, albedo, normal, depth, coverage, noise, radius: int, sigmas,
