@@ -36,7 +36,6 @@ LIBRARY = KernelLibrary(
     SOURCE,
     symbols={
         "pt_denoise": ([_p] * 6 + [_i] * 3 + [_f] * 5 + [_p, _i, _p], _i),
-        "pt_denoise_designs": ([], _i),
         "pt_denoise_smem": ([_i, _i], _ll),
         "pt_denoise_smem_limit": ([], _ll),
     },
