@@ -18,7 +18,7 @@ frame loop, the system's own main path, through the port's CLI
 (``python -m pathtracing_tpu_torch.cli``: ``load_scene``, whose placement
 rays the ``ray_query`` kernel traces, ``setup_animation_frame``, the chunked
 ``DevicePacker``, frames by the ``megakernel`` kernel up to the production
-preset's geometry at 256 spp and by the ``wavefront`` kernel); the Cornell
+preset's geometry at 128 spp and by the ``wavefront`` kernel); the Cornell
 box's area lights, adaptive sampling, AOVs and denoiser (K8); and the gradient
 path, ``diff/render.make_fast_grad_frame_fn`` on that frame at 1 spp: the
 megakernel's record build (``megakernel_record`` kernel, K6) records the
@@ -30,8 +30,10 @@ against the C++ oracle's goldens on the way.
 Phases, one JSON object per line:
 
   device            card name + power limit (nvidia-smi), torch / CUDA versions
-  build             the nine libraries of csrc/ (the path kernels' area-light
-                    instances are two of them), built side by side: seconds,
+  build             the twelve libraries of csrc/ (the path kernels' area-light
+                    instances are two of them, the instances that walk bf16
+                    node rows three more: ray_query_nl5, wavefront_nl5,
+                    wavefront_nl5_lit), built side by side: seconds,
                     ptxas' registers and spills per kernel, resident blocks
                     per SM of the ray-query kernels and the path kernels'
                     first design; wide_ray_query's and ray_query's registers
@@ -115,6 +117,25 @@ Phases, one JSON object per line:
                     bound from the counting build's counters of the same
                     work; the wavefront on the binary and the w8 scene, timed
                     in turns with the megakernel
+  bf16_nodes_check  S2 on the golden scene: with_bf16_nodes on the card
+                    byte-equal to pack_nl5 on the CPU; the ray_query kernel's
+                    nl5 instance vs its plain version on rays.gold in every
+                    mode and the edge cases, and on the main path's primary
+                    and bounce batches (the bounce batch as captured, all
+                    closest, all any-hit), vs the nl8 instance (closest-hit
+                    fields bit-equal, occluded equal, the any-hit lanes'
+                    equal share printed), both batches timed nl5 vs nl8 in
+                    turns with the bound by 32 B sectors; the 1080p scan
+                    frame on nl5 rows (P1 nl5 launches only) vs the nl8
+                    frame; the K5 frame on nl5 rows (K5 nl5 only) within the
+                    JAX bar of the nl5 scan frame and vs the nl8 K5 frame;
+                    one K5 launch nl5 vs nl8 in turns with its bound; the
+                    Cornell box's light instance on nl5 rows (frame vs nl8,
+                    launch vs its plain version and nl8)
+  tuning_check      the rows get_tuning("cuda", ...) returns; a 640x360 scan
+                    frame under a PT_TUNED_FILE (in a temporary directory)
+                    whose cuda row halves the tile: twice the P1 launches,
+                    colours bit-equal
   large_scene       the procedural large scene (scene/large_scene.build:
                     the generated terrain at 512 x 512 vertices under
                     build/large_scene/, 1,024 pine and bunny instances, a
@@ -142,6 +163,13 @@ Phases, one JSON object per line:
                     to the scan's; its time, device time and bound; the
                     share of primary rays that hit (must be >= 50 %) and
                     that hit a placed object (must be > 0)
+  bf16_nodes_large  S2 on the large scene: the binary tables' bytes with nl8
+                    and nl5; P1 nl5 vs its plain version and vs P1 nl8 on the
+                    65,536-ray batches, nl5 vs nl8 in turns on them and on a
+                    render tile's batches (time, device time, bound by the
+                    32 B sectors the visited rows span); the scan frame on
+                    nl5 rows vs the nl8 frame; one 8 spp K5 launch nl5 vs
+                    nl8 in turns, within the JAX bar of the nl5 scan frame
   animation_load, animation_frames, animation_chunked_k1,
   animation_subframes, animation_cli
                     the animated frame loop (phase_animation_cli), the
@@ -161,15 +189,19 @@ Phases, one JSON object per line:
                     subframes K2 (chunked), K5 (chunked, bit-equal to K2)
                     and K5 (binary) within the JAX bar of the scan (P1);
                     then the CLI in processes of its own: frames 1000-1002
-                    at 64 spp by K2, frame 1000 at 256 spp (128 K2
+                    at 64 spp by K2, frame 1000 at 128 spp (64 K2
                     launches), frame 1000 at 64 spp by K5 on the binary
                     frame tables, samples [0, 4) + [4, 8) merged (within 1
                     LSB of the in-process K2 frame); each run's launches
                     (P1 in load_scene, the frames' kernel only), seconds,
                     Msamples/s, peak memory and table bytes, every BMP
                     required, and the device's idle share of the first K2
-                    frame of the 64 and the 256 spp run, from the trace
+                    frame of the 64 and the 128 spp run, from the trace
                     that the CLI's --profile-dir takes of that frame
+  animation_nl5     one 8 spp K5 launch on frame 1000's binary frame tables
+                    with bf16 node rows (with_bf16_nodes on the frame
+                    packer's nl8) vs nl8, in turns; within the JAX bar of the
+                    scan frame
   arealight_check   S9's area lights: K2 (w8) and K5 (binary, w8) with light
                     tables (their AreaLights instances) vs their plain
                     versions at 640x360 x 5 bounces on the Cornell box and on
@@ -229,8 +261,10 @@ Phases, one JSON object per line:
                     with the fewest all-zero vattr cotangent rows, which
                     must be fewer than all, on its three tables
   grad_slow_check   render_value_and_grad vs make_fast_grad_fn on 4,096 lanes
-                    of the 640x360 frame, binary and w8, at
-                    tests/test_diff_fast.py's bar; P1 / K1 launch counts
+                    of the 640x360 frame, binary, binary with bf16 node rows
+                    (P1's nl5 instance only; the loss bit-equal to nl8's) and
+                    w8, at tests/test_diff_fast.py's bar; P1 / K1 launch
+                    counts
   main_path_grad    make_fast_grad_frame_fn at 1920x1080, 5 bounces, 1 spp,
                     w8: a step on every field (finite loss; finite, non-zero
                     gradients), then 3 steps of inverse sun whose error must
@@ -282,7 +316,7 @@ import torch
 from torch.profiler import ProfilerActivity
 from torch.profiler import profile as torch_profile
 
-from pathtracing_tpu_torch import models
+from pathtracing_tpu_torch import models, tuning
 from pathtracing_tpu_torch.accel.wide import (
     LAYOUT_S8,
     LAYOUT_W8,
@@ -327,20 +361,25 @@ from pathtracing_tpu_torch.ops.wavefront import (
 from pathtracing_tpu_torch.ops.wide_traversal import wide_ray_query_plain
 from pathtracing_tpu_torch.probes import gather_probe as GP
 from pathtracing_tpu_torch.render import (
-    CUDA_TILE_PIXELS,
     LARGE_SCENE_NODES,
     _average,
     _bgra,
     _mk_spp_chunk,
     _render_fused,
     _row_major,
+    default_tile_pixels,
     render_frame,
     render_pixels,
     to_bgra,
 )
 from pathtracing_tpu_torch.scene import large_scene
 from pathtracing_tpu_torch.scene.builder import SceneBuilder
-from pathtracing_tpu_torch.scene.device import DevicePacker, binary_tables
+from pathtracing_tpu_torch.scene.device import (
+    DevicePacker,
+    binary_tables,
+    pack_nl5,
+    with_bf16_nodes,
+)
 from pathtracing_tpu_torch.scene.loader import load_scene, setup_animation_frame
 from pathtracing_tpu_torch.scene.standins import write_standins
 from pathtracing_tpu_torch.scene.golden import (
@@ -362,9 +401,11 @@ LAYOUTS = {"w8": LAYOUT_W8, "w16": LAYOUT_W16, "s8": LAYOUT_S8}
 # and float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-# Row bytes of the tables, and flops per visit (counted from the source:
-# slab test 27, triangle test 52, BLAS entry 45).
-NODE_ROW_B, TRI_ROW_B, INST_ROW_B = 32, 48, 84 + 24
+# Row bytes of the tables (a node row counts as the 32 B sectors it spans:
+# one for nl8, one or two for nl5), and flops per visit (counted from the
+# source: slab test 27, triangle test 52, BLAS entry 45).
+TRI_ROW_B, INST_ROW_B = 48, 84 + 24
+SECTOR_B = 32  # the unit of a device-memory and L2 transfer
 NODE_FLOPS, TRI_FLOPS, INST_FLOPS = 27, 52, 45
 # The megakernel's float operations per call of each piece of its device code
 # (csrc/shading.cuh, csrc/megakernel.cu), counted from the source: every
@@ -418,7 +459,11 @@ LIBRARIES = {"ray_query": CT.LIBRARY, "wide_ray_query": CW.LIBRARY,
              "wavefront": CWF.LIBRARY, "gather_grad": CG.LIBRARY, "denoise": CD.LIBRARY,
              # the path kernels' area-light instances: the same sources, built
              # side by side as libraries of their own
-             "megakernel_lit": CM.LIT_LIBRARY, "wavefront_lit": CWF.LIT_LIBRARY}
+             "megakernel_lit": CM.LIT_LIBRARY, "wavefront_lit": CWF.LIT_LIBRARY,
+             # the instances that walk the bf16 node rows (nl5): P1's, and
+             # K5's binary walk, sun-only and area-light
+             "ray_query_nl5": CT.NL5_LIBRARY, "wavefront_nl5": CWF.NL5_LIBRARY,
+             "wavefront_nl5_lit": CWF.NL5_LIT_LIBRARY}
 SOURCES = {k: str(lib.source.relative_to(ROOT)) for k, lib in LIBRARIES.items()}
 
 
@@ -590,12 +635,13 @@ def measure_shape(tag, args, kwargs):
     longest, cap = int(c.lane_steps.max()), CM.step_cap(args[0])
     require(cap >= 16 * longest, f"step cap {cap} vs longest walk {longest}")
     # each table row the batch's walk touched, read once (the finalize
-    # step's instance and triangle rows included)
-    table_b = (c.node_rows_touched * NODE_ROW_B + c.inst_rows_touched * INST_ROW_B
+    # step's instance and triangle rows included); node rows as the 32 B
+    # sectors they span (an nl8 row is one, an nl5 row one or two)
+    table_b = (c.node_sectors_touched * SECTOR_B + c.inst_rows_touched * INST_ROW_B
                + c.tri_rows_touched * TRI_ROW_B)
     b = bound(
         table_b, io_b,
-        node * NODE_ROW_B + tri * TRI_ROW_B + inst * INST_ROW_B,
+        c.node_sectors * SECTOR_B + tri * TRI_ROW_B + inst * INST_ROW_B,
         node * NODE_FLOPS + tri * TRI_FLOPS + inst * INST_FLOPS,
     )
     return {
@@ -709,9 +755,16 @@ def measure_wide_shape(tag, args, kwargs):
     }
 
 
-def main_path_tile_lanes(cfg) -> int:
+def tile_pixels(scene) -> int:
+    """The scan's and the wavefront's tile on the card for this scene: the
+    tuning table's row for "cuda" and the scene's size
+    (render.default_tile_pixels), what render_pixels takes."""
+    return default_tile_pixels(scene, "cuda")
+
+
+def main_path_tile_lanes(cfg, scene) -> int:
     """Lanes of the first (largest) tile of the main path's frame."""
-    return min(CUDA_TILE_PIXELS, cfg.image_width * cfg.image_height)
+    return min(tile_pixels(scene), cfg.image_width * cfg.image_height)
 
 
 def capture_queries(cfg, scene, xs, ys):
@@ -804,7 +857,7 @@ def path_builds(kernels, builds, tags) -> dict:
 
 
 def phase_build():
-    """All nine libraries, one nvcc each, started together."""
+    """All twelve libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         list(pool.map(lambda lib: lib.build(), LIBRARIES.values()))
@@ -818,7 +871,8 @@ def phase_build():
     # the ray-query kernels: blocks of block_size() threads one SM holds at
     # once (registers decide)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    occ = {"ray_query": CT.LIBRARY.load().pt_ray_query_occupancy()}
+    occ = {"ray_query": CT.LIBRARY.load().pt_ray_query_occupancy(),
+           "ray_query_nl5": CT.NL5_LIBRARY.load().pt_ray_query_occupancy()}
     for name, lay in LAYOUTS.items():
         occ[name] = CW.LIBRARY.load().pt_wide_ray_query_occupancy(lay.w_row)
     # the path kernels' first design (both designs' are in design_timing)
@@ -832,14 +886,29 @@ def phase_build():
                **{f"wavefront_{name}": CWF.LIT_LIBRARY.load().pt_wavefront_occupancy(
                    w, CM.design_code(w, None))
                   for name, w in (("binary", 0), ("w8", LAYOUT_W8.w_row))}}
+    # the nl5 instances of K5 (binary walk only) in the binary design
+    nl5_occ = {name: lib.load().pt_wavefront_occupancy(0, CM.design_code(0, None))
+               for name, lib in (("wavefront_nl5", CWF.NL5_LIBRARY),
+                                 ("wavefront_nl5_lit", CWF.NL5_LIT_LIBRARY))}
     require(all(v > 0 for v in [*occ.values(), *mk_occ.values(), *wf_occ.values(),
-                                *lit_occ.values()]),
-            f"occupancy query failed: {occ} {mk_occ} {wf_occ} {lit_occ}")
+                                *lit_occ.values(), *nl5_occ.values()]),
+            f"occupancy query failed: {occ} {mk_occ} {wf_occ} {lit_occ} {nl5_occ}")
+    # a library of nl5 rows has no wide instance
+    require(CWF.NL5_LIBRARY.load().pt_wavefront_occupancy(LAYOUT_W8.w_row, 0) == 0,
+            "wavefront_nl5 has a wide instance")
+    words = {name: (LIBRARIES[name].load().pt_ray_query_node_words() if "ray" in name
+                    else LIBRARIES[name].load().pt_wavefront_node_words())
+             for name in ("ray_query", "ray_query_nl5", "wavefront", "wavefront_lit",
+                          "wavefront_nl5", "wavefront_nl5_lit")}
+    require(words == {k: 5 if "nl5" in k else 8 for k in words},
+            f"node-row words per library {words}")
     report["ray_query"]["blocks_per_sm"] = occ["ray_query"]
+    report["ray_query_nl5"]["blocks_per_sm"] = occ["ray_query_nl5"]
     report["wide_ray_query"]["blocks_per_sm"] = {k: occ[k] for k in LAYOUTS}
     report["megakernel"]["blocks_per_sm"] = mk_occ
     report["wavefront"]["blocks_per_sm"] = wf_occ
     report["area_light_blocks_per_sm"] = lit_occ
+    report["nl5_blocks_per_sm"] = nl5_occ
     # the walks moved into wide_walk.cuh and binary_walk.cuh: K1 and P1
     # compile as they did before
     k1 = by_layout(report["wide_ray_query"]["kernels"])
@@ -850,12 +919,21 @@ def phase_build():
     p1_regs = [(k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"]) for k in p1]
     require(p1_regs == [(P1_REGISTERS, 0)],
             f"ray_query registers/spills {p1_regs}, expected {P1_REGISTERS} / 0")
+    p1_nl5 = [(k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"])
+              for k in report["ray_query_nl5"]["kernels"]]
+    require(len(p1_nl5) == 1 and p1_nl5[0][1] == 0,
+            f"ray_query_nl5 registers/spills {p1_nl5}, expected one kernel, 0 spills")
+    report["ray_query_nl5"]["registers_spills"] = p1_nl5[0]
     wf = path_builds(report["wavefront"]["kernels"] + report["wavefront_lit"]["kernels"],
                      WF_BUILDS, WALK_MANGLED)
     mk = path_builds(report["megakernel"]["kernels"] + report["megakernel_lit"]["kernels"],
                      MK_BUILDS, MK_LAYOUT_TAGS)
     report["wavefront"]["registers_spills_by_layout"] = wf
     report["megakernel"]["registers_spills_by_layout"] = mk
+    # K5's nl5 instances: each build the nl8 binary walk has, on nl5 rows
+    report["wavefront_nl5"]["registers_spills_by_layout"] = path_builds(
+        report["wavefront_nl5"]["kernels"] + report["wavefront_nl5_lit"]["kernels"],
+        WF_BUILDS, {"binary_nl5": "7Nl5Rows"})
     # the instruments (counting, phase-cycle and record builds) are kernels
     # of their own: the timed builds compile as recorded
     k2 = {d: mk[d] for d in K2_TIMED}
@@ -978,7 +1056,7 @@ def phase_kernel_check(scene_g, rays_g, scene, prod_cfg, prod_scene):
          max_abs_err=max(edge.values()), ids="equal")
     errs.update(edge)
 
-    lanes = main_path_tile_lanes(prod_cfg)
+    lanes = main_path_tile_lanes(prod_cfg, prod_scene)
     calls = capture_main_path_queries(prod_cfg, prod_scene, lanes)
     require(len(calls) == 1 + prod_cfg.max_bounces, f"{len(calls)} ray queries per sample")
     shapes = [
@@ -1055,7 +1133,7 @@ def phase_wide_kernel_check(scene_g, rays_g, wide_scenes, binary_out, prod_cfg,
              root_base=off, ids="equal to the plain version's")
         max_err = max(max_err, *errs.values())
 
-    lanes = main_path_tile_lanes(prod_cfg)
+    lanes = main_path_tile_lanes(prod_cfg, prod_wide)
     calls = capture_main_path_queries(prod_cfg, prod_wide, lanes)
     require(len(calls) == 1 + prod_cfg.max_bounces, f"{len(calls)} ray queries per sample")
     shapes = [
@@ -1108,7 +1186,7 @@ def phase_breakdown(cfg, scene, tag):
         spans.append((e0, e1))
         return out
 
-    lanes = main_path_tile_lanes(cfg)
+    lanes = main_path_tile_lanes(cfg, scene)
     idx = torch.arange(lanes, dtype=torch.int32, device="cuda")
     xs, ys = idx % cfg.image_width, idx // cfg.image_width
     si = torch.zeros_like(xs)
@@ -1293,7 +1371,7 @@ def phase_main_path(cfg, scene, oracle_mean, wide: bool, binary_colors=None):
     ray query and through the other for none."""
     phase = "main_path_wide" if wide else "main_path"
     W, H = cfg.image_width, cfg.image_height
-    tiles = -(-W * H // CUDA_TILE_PIXELS)
+    tiles = -(-W * H // tile_pixels(scene))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     CT.reset_launches()
@@ -1344,7 +1422,7 @@ def phase_main_path(cfg, scene, oracle_mean, wide: bool, binary_colors=None):
     require(np.array_equal(back[..., ::-1], image[..., :3]), "BMP round trip")
     emit(phase, width=W, height=H, bounces=cfg.max_bounces, spp=MAIN_SPP,
          spp_reduced_from=PRODUCTION.samples_per_pixel, tiles=tiles,
-         tile_pixels=CUDA_TILE_PIXELS, launches=launches,
+         tile_pixels=tile_pixels(scene), launches=launches,
          launches_expected=expected, launches_of_other_kernel=other, seconds=sec,
          msamples_per_s=W * H * MAIN_SPP / sec / 1e6,
          peak_memory_allocated_bytes=int(peak), mean_vs_oracle=mean_ratio,
@@ -1578,7 +1656,8 @@ def phase_main_path_fused(cfg, scene, oracle_mean, scan_colors, scan_sec, wavefr
     phase = "main_path_wavefront" if wavefront else "main_path_megakernel"
     W, H = cfg.image_width, cfg.image_height
     N = W * H
-    tiles = [min(CUDA_TILE_PIXELS, N - a) for a in range(0, N, CUDA_TILE_PIXELS)]
+    tile = tile_pixels(scene)
+    tiles = [min(tile, N - a) for a in range(0, N, tile)]
     if wavefront:
         expected = sum(-(-MAIN_SPP // _mk_spp_chunk(t, MAIN_SPP, scene)) for t in tiles)
     else:
@@ -1634,7 +1713,7 @@ def phase_main_path_fused(cfg, scene, oracle_mean, scan_colors, scan_sec, wavefr
 
     dxs, dys = step("pixel_list", device_list)
     raw = step("launches_and_sums", lambda: _render_fused(
-        cfg, scene, dxs, dys, MAIN_SPP, 0, dev, wavefront, CUDA_TILE_PIXELS))
+        cfg, scene, dxs, dys, MAIN_SPP, 0, dev, wavefront, tile))
     avg = step("average", lambda: _average(raw, MAIN_SPP).view(H, W, 3))
     bgra = step("tonemap", lambda: _bgra(avg))
     host = step("copy_back", lambda: (avg.cpu().numpy(), bgra.cpu().numpy()))
@@ -1667,7 +1746,8 @@ def path_kernel_bound(scene, counts, n: int, io_bytes: int, spp: int = MAIN_SPP)
     counters (CM.COUNT_NAMES): the walk's visits (slab tests, triangle tests,
     BLAS entries) and the shading calls at their counted flops, against every
     table the kernel reads, read once (over millions of samples each row is
-    read), and ``io_bytes`` of list and output."""
+    read; the node table the binary walk reads, nl5 when the scene carries
+    it, in whole 32 B sectors), and ``io_bytes`` of list and output."""
     c = dict(zip(CM.COUNT_NAMES, counts.tolist()))
     flops = (c["slab_tests"] * NODE_FLOPS + c["tri_tests"] * TRI_FLOPS
              + c["inst_rows"] * INST_FLOPS
@@ -1677,7 +1757,7 @@ def path_kernel_bound(scene, counts, n: int, io_bytes: int, spp: int = MAIN_SPP)
         tables = (scene.wide_rows, scene.wide_root, scene.inst_f, scene.inst_u,
                   scene.tri_shade, scene.sf_cam, scene.sf_light, scene.sf_tlas_offset)
     else:
-        tables = (scene.nl8, scene.tri_pos, scene.inst_f, scene.inst_u, scene.tri_idx,
+        tables = (scene.tri_pos, scene.inst_f, scene.inst_u, scene.tri_idx,
                   scene.vattr, scene.sf_cam, scene.sf_light, scene.sf_tlas_count,
                   scene.sf_tlas_offset)
     if scene.lt_tris is not None:  # the light tables, and the emission's rows
@@ -1685,6 +1765,8 @@ def path_kernel_bound(scene, counts, n: int, io_bytes: int, spp: int = MAIN_SPP)
         if scene.wide_rows is not None:
             tables += (scene.tri_idx, scene.vattr)
     table_b = sum(nb(x) for x in tables)
+    if scene.wide_rows is None:
+        table_b += -(-nb(scene.nl8 if scene.nl5 is None else scene.nl5) // 32) * 32
     b = bound(table_b, io_bytes, 0, flops)
     return {"pixels": n, "spp": spp, "flops": flops, "table_bytes": table_b,
             "counts": c,
@@ -1719,7 +1801,7 @@ def phase_wavefront_timing(cfg, binary, wide, smi):
     from its counting build's counters."""
     W, H = cfg.image_width, cfg.image_height
     n = W * H
-    require(n <= CUDA_TILE_PIXELS and _mk_spp_chunk(n, MAIN_SPP, binary) == MAIN_SPP,
+    require(n <= tile_pixels(binary) and _mk_spp_chunk(n, MAIN_SPP, binary) == MAIN_SPP,
             "the main path is one tile and one chunk")
     xs, ys = frame_list(cfg)
     t = time_launches({
@@ -1777,6 +1859,431 @@ def phase_tonemap_check(cfg, scene):
 
 
 # ------------------------------------------------------------ the large scene
+
+# ------------------------------------------------- S2: the bf16 node rows
+
+HIT_FIELDS = ("thit", "bary_u", "bary_v", "bary_w", "inst", "prim", "back")
+
+
+def nl5_scene(scene, check_cpu=True):
+    """The scene with bf16 node rows packed on the card by with_bf16_nodes;
+    with ``check_cpu``, byte-equal to the CPU's pack_nl5 of its nl8
+    (required; the golden scene and the Cornell box are checked, the larger
+    tables' walks are held to nl8's instead)."""
+    s5 = with_bf16_nodes(scene)
+    torch.cuda.synchronize()
+    require(s5.nl5.is_cuda and tuple(s5.nl5.shape) == (scene.nl8.shape[0], 5),
+            f"nl5 {tuple(s5.nl5.shape)} on {s5.nl5.device}")
+    if check_cpu:
+        want = pack_nl5(scene.nl8.cpu().numpy())
+        require(s5.nl5.cpu().numpy().tobytes() == want.tobytes(),
+                "with_bf16_nodes on the card differs from pack_nl5 on the CPU")
+    return s5
+
+
+def nl8_of(scene):
+    """The same scene walked through its f32 rows."""
+    return scene._replace(nl5=None)
+
+
+def records_vs_nl8(tag, h5, o5, h8, o8, closest) -> dict:
+    """A walk on nl5 rows against the same rays on nl8: ``occluded`` equal
+    and every field of the closest-hit lanes bit-equal (required); the
+    share of every lane's record (an any-hit lane writes no ids) and of the
+    any-hit lanes' records that are bit-equal (reported)."""
+    require(bool(torch.equal(o5, o8)), f"{tag}: occluded differs from nl8's")
+    same = torch.ones_like(o5)
+    for k in HIT_FIELDS:
+        a, b = getattr(h5, k), getattr(h8, k)
+        eq = (a.view(torch.int32) == b.view(torch.int32)) if a.is_floating_point() else a == b
+        require(bool(eq[closest].all()), f"{tag}: {k} differs from nl8's on closest-hit lanes")
+        same &= eq
+    anyhit = ~closest
+    return {"record_equal_share": float(same.float().mean()),
+            "anyhit_lanes": int(anyhit.sum()),
+            "anyhit_record_equal_share": (float(same[anyhit].float().mean())
+                                          if bool(anyhit.any()) else None)}
+
+
+def closest_lanes(anyhit, R, device) -> torch.Tensor:
+    """The lanes of a batch that run a closest-hit query."""
+    if isinstance(anyhit, torch.Tensor):
+        return ~anyhit
+    return torch.full((R,), not anyhit, dtype=torch.bool, device=device)
+
+
+def check_nl5_batch(tag, args, kwargs, modes=(None, False, True)) -> dict:
+    """One captured ray-query batch of a scene with nl5 rows, in the anyhit
+    modes asked (None: as captured, False: every lane closest, True: every
+    lane any-hit): P1's nl5 instance against its plain version (ids equal,
+    1e-6) and against P1's nl8 instance (records_vs_nl8). Returns, per mode,
+    the comparisons; for the mode as captured also the plain version's
+    counts (node rows and the 32 B sectors they span)."""
+    scene5 = args[0]
+    a8 = (nl8_of(scene5), *args[1:])
+    R = args[3].x.shape[0]
+    out = {}
+    for mode in modes:
+        kw = dict(kwargs)
+        if mode is not None:
+            kw["anyhit"] = mode
+        CT.reset_launches()
+        h5, o5 = CT.ray_query_cuda(*args, **kw)
+        h8, o8 = CT.ray_query_cuda(*a8, **kw)
+        torch.cuda.synchronize()
+        require(CT.launches_by_rows == {"nl8": 1, "nl5": 1},
+                f"{tag}: launches {CT.launches_by_rows}")
+        t0 = time.perf_counter()
+        hp, op, c = ray_query_plain(*args, **kw, return_counts=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        name = {None: "as_captured", False: "closest", True: "anyhit"}[mode]
+        res = {"max_abs_err": compare_hits(f"{tag} {name}", h5, o5, hp, op),
+               "plain_ms": plain_ms,
+               **records_vs_nl8(f"{tag} {name}", h5, o5, h8, o8,
+                                closest_lanes(kw.get("anyhit", False), R, o5.device))}
+        if mode is None:
+            res["counts"] = scalars(c)
+        out[name] = res
+    return out
+
+
+def nl5_batch_timing(tag, args, kwargs, counts5=None, counts8=None) -> dict:
+    """P1's nl5 and nl8 instances in turns on one batch (L2 flushed, median
+    of 5), each launch's device time, and each bound by bytes: the 32 B
+    sectors of the node rows the plain walk touched (``counts*``: a batch's
+    RayQueryCounts as dicts, None for no bound), the instance and triangle
+    rows, the rays."""
+    a8 = (nl8_of(args[0]), *args[1:])
+    fns = {"nl5": lambda: CT.ray_query_cuda(*args, **kwargs),
+           "nl8": lambda: CT.ray_query_cuda(*a8, **kwargs)}
+    t = time_launches(fns)
+    R, n_active = args[3].x.shape[0], int(args[7].sum())
+    io_b = ray_io_bytes(kwargs.get("anyhit", False), args[6], R, n_active)
+    out = {"rays": R, "active": n_active}
+    for k, fn in fns.items():
+        res = {"ms": t[k][0], "ms_all": t[k][1], **launch_device_ms(fn, "ray_query_kernel")}
+        c = counts5 if k == "nl5" else counts8
+        if c is not None:
+            table_b = (c["node_sectors_touched"] * SECTOR_B
+                       + c["inst_rows_touched"] * INST_ROW_B + c["tri_rows_touched"] * TRI_ROW_B)
+            b = bound(table_b, io_b,
+                      c["node_sectors"] * SECTOR_B + c["tri_rows"] * TRI_ROW_B
+                      + c["inst_rows"] * INST_ROW_B,
+                      c["node_rows"] * NODE_FLOPS + c["tri_rows"] * TRI_FLOPS
+                      + c["inst_rows"] * INST_FLOPS)
+            res.update(table_bytes_needed=table_b, node_sectors=c["node_sectors"],
+                       node_rows=c["node_rows"],
+                       node_sectors_touched=c["node_sectors_touched"],
+                       node_rows_touched=c["node_rows_touched"], **b,
+                       roofline_share=b["bound_ms"] / t[k][0])
+        out[k] = res
+    out["nl5_over_nl8_ms"] = out["nl5"]["ms"] / out["nl8"]["ms"]
+    out["nl5_over_nl8_device_ms"] = out["nl5"]["device_ms"] / out["nl8"]["device_ms"]
+    return out
+
+
+def node_table_bytes(scene) -> dict:
+    """Bytes of the binary tables with nl8 and with nl5 rows in its place."""
+    nb = lambda x: x.numel() * x.element_size()
+    rest = sum(nb(getattr(scene, k)) for k in BINARY_TABLES if k != "nl8")
+    out = {"nl8": nb(scene.nl8), "binary_total_nl8": rest + nb(scene.nl8)}
+    if scene.nl5 is not None:
+        out.update(nl5=nb(scene.nl5), binary_total_nl5=rest + nb(scene.nl5),
+                   nl5_over_nl8=nb(scene.nl5) / nb(scene.nl8))
+    out.update({f"{k}_over_l2": v / L2_BYTES for k, v in list(out.items())
+                if k.startswith("binary_total")})
+    return out
+
+
+def k5_nl5_launches(tag, cfg, scene5, xs, ys, spp, ref_sums, reps=5) -> dict:
+    """One K5 launch on the nl5 rows and one on nl8 (the same scene), in
+    turns (L2 flushed, median of ``reps``), each launch's device time and
+    bound from its counting build; the nl5 launch's sums within the JAX bar
+    of ``ref_sums`` (the plain version's, or the scan frame's) and its
+    bit-equal share against the nl8 launch's."""
+    n = xs.shape[0]
+    scene8 = nl8_of(scene5)
+    fns = {"nl5": lambda: CWF.wavefront_cuda(cfg, scene5, xs, ys, spp),
+           "nl8": lambda: CWF.wavefront_cuda(cfg, scene8, xs, ys, spp)}
+    t = time_launches(fns, reps=reps)
+    out = {}
+    sums = {}
+    for k, fn in fns.items():
+        r = fn()
+        require(int(r[4][0]) == 0, f"{tag} {k}: {int(r[4][0])} samples abandoned")
+        sums[k] = r[:3]
+        cnt = CWF.wavefront_cuda(cfg, scene5 if k == "nl5" else scene8, xs, ys, spp,
+                                 counts=True)[-1]
+        res = path_kernel_bound(scene5 if k == "nl5" else scene8, cnt, n, (2 * 4 + 3 * 4) * n,
+                                spp=spp)
+        require(res["counts"]["samples"] == n * spp, f"{tag} {k}: counted {res['counts']}")
+        res.update(ms=t[k][0], ms_all=t[k][1], **launch_device_ms(fn, "wavefront", reps))
+        res["roofline_share"] = res["bound_ms"] / res["ms"]
+        out[k] = res
+    keys = ("finite_share", "close_share", "bar", "bit_equal_share", "max_abs_err")
+    cmp = mk_compare(f"{tag} nl5 vs reference", sums["nl5"], ref_sums, spp, 0, 0,
+                     cfg.image_width, xy=(xs.cpu().numpy(), ys.cpu().numpy()))
+    vs8 = mk_compare(f"{tag} nl5 vs nl8", sums["nl5"], sums["nl8"], spp, 0, 0,
+                     cfg.image_width, xy=(xs.cpu().numpy(), ys.cpu().numpy()))
+    out["nl5_vs_reference"] = {k: cmp[k] for k in keys}
+    out["nl5_vs_nl8"] = {k: vs8[k] for k in keys}
+    out["nl5_over_nl8_ms"] = out["nl5"]["ms"] / out["nl8"]["ms"]
+    out["nl5_over_nl8_device_ms"] = out["nl5"]["device_ms"] / out["nl8"]["device_ms"]
+    return out
+
+
+def phase_bf16_nodes_check(scene_g, rays_g, scene, prod_cfg, prod_scene, scan_colors,
+                           kernel_shapes, got8, built, smi):
+    """S2 on the golden scene. with_bf16_nodes on the card byte-equal to
+    pack_nl5 on the CPU. P1's nl5 instance against its plain version on the
+    rays of rays.gold in every mode and the launch's edge cases (run_modes,
+    run_edge_modes), and against P1's nl8 instance: closest-hit fields
+    bit-equal, occluded equal, the any-hit lanes' equal share printed; the
+    main path's two batches (one 1080p tile: primary, and the bounce batch
+    of 4,147,200 lanes as captured, all closest and all any-hit) the same
+    way, and both batches timed nl5 against nl8 in turns with their bounds
+    by 32 B sectors. Then the main paths on nl5 rows, counts set to 0 just
+    before and read just after: the 1080p x 5 x 8 spp scan frame (P1's nl5
+    instance only) against the nl8 scan frame, and the K5 frame (K5's nl5
+    instance only) within the JAX bar of the nl5 scan frame (its plain
+    version) and against the nl8 K5 frame; one K5 launch at that shape nl5
+    against nl8 in turns with its bound; and the Cornell box's light
+    instance on nl5 rows (wavefront_nl5_lit): a 1080p x 8 spp frame through
+    render_frame(wavefront=True) against the nl8 frame, and one 8 spp
+    launch over the frame nl5 against nl8 in turns, within the JAX bar of
+    its plain version (the scan on nl5 rows, timed once)."""
+    out = {}
+    scene5 = nl5_scene(scene)
+    inp = rays_gold_inputs(scene_g, rays_g, scene.nl8.device)
+    errs, got5 = run_modes(scene5, inp, ray_query, ray_query_plain, per_lane_tmin=False)
+    edge = run_edge_modes(scene5, scene_g, rays_g, ray_query, ray_query_plain, "ray_query nl5")
+    modes = {"closest": False, "anyhit": True, "mixed_mask": inp["mask"],
+             "inactive_lanes": inp["mask"], "ragged_tmax_lane": inp["mask"]}
+    vs8 = {}
+    for mode, anyhit in modes.items():
+        (h5, o5), (h8, o8) = got5[mode], got8[mode]
+        R = o5.shape[0]
+        cl = closest_lanes(anyhit[:R] if isinstance(anyhit, torch.Tensor) else anyhit, R,
+                           o5.device)
+        vs8[mode] = records_vs_nl8(f"rays.gold {mode}", h5, o5, h8, o8, cl)
+    emit("bf16_nodes_check", part="rays.gold", rays=inp["R"], modes=list(errs),
+         max_abs_err=max(errs.values()), edge_modes=list(edge),
+         edge_max_abs_err=max(edge.values()), vs_nl8=vs8, ids="equal",
+         card_pack_equals_cpu=True)
+    out["max_abs_err"] = max(*errs.values(), *edge.values())
+
+    prod5 = nl5_scene(prod_scene)
+    lanes = main_path_tile_lanes(prod_cfg, prod5)
+    calls = capture_main_path_queries(prod_cfg, prod5, lanes)
+    batches = {"primary": check_nl5_batch("nl5 primary", *calls[0], modes=(None,)),
+               "bounce": check_nl5_batch("nl5 bounce", *calls[1])}
+    require(calls[1][0][3].x.shape[0] == 2 * lanes, "bounce batch is not 2 x tile")
+    timing = {k: nl5_batch_timing(f"nl5 {k}", *calls[i], batches[k]["as_captured"]["counts"],
+                                  kernel_shapes[i])
+              for i, k in enumerate(("primary", "bounce"))}
+    del calls
+    out["max_abs_err"] = max(out["max_abs_err"], *(m["max_abs_err"] for b in batches.values()
+                                                   for m in b.values()))
+    out["batches"], out["timing"] = batches, timing
+    emit("bf16_nodes_check", part="main_path_batches", lanes=lanes, checks=batches,
+         timing=timing, registers_spills={
+             "nl5": built["ray_query_nl5"]["registers_spills"],
+             "nl8": [(k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"])
+                     for k in built["ray_query"]["kernels"]][0]},
+         blocks_per_sm={"nl5": built["ray_query_nl5"]["blocks_per_sm"],
+                        "nl8": built["ray_query"]["blocks_per_sm"]},
+         node_table=node_table_bytes(prod5), card=smi)
+
+    # the main paths on nl5 rows
+    W, H = prod_cfg.image_width, prod_cfg.image_height
+    n = W * H
+    tile = tile_pixels(prod5)
+    tiles = [min(tile, n - a) for a in range(0, n, tile)]
+    scan_n = len(tiles) * MAIN_SPP * (1 + prod_cfg.max_bounces)
+    wf_n = sum(-(-MAIN_SPP // _mk_spp_chunk(t, MAIN_SPP, prod5)) for t in tiles)
+    counters = (CT, CW, CM, CWF)
+    scan5, scan_s, scan_peak, _ = frame_launches(
+        "nl5 scan frame", counters, {CT: scan_n},
+        lambda: render_pixels(prod_cfg, prod5, *frame_pixels(prod_cfg), spp=MAIN_SPP,
+                              megakernel=False).reshape(H, W, 3))
+    p1_rows = dict(CT.launches_by_rows)
+    require(p1_rows == {"nl8": 0, "nl5": scan_n}, f"nl5 scan frame: P1 launches {p1_rows}")
+    sums = lambda c: tuple(torch.from_numpy(np.ascontiguousarray(c[..., k].reshape(-1)
+                                                                 * MAIN_SPP))
+                           for k in range(3))
+    keys = ("finite_share", "close_share", "bar", "bit_equal_share", "max_abs_err")
+    scan_vs8 = mk_compare("nl5 scan frame vs nl8 scan frame", sums(scan5), sums(scan_colors),
+                          MAIN_SPP, 0, 0, W)
+    wf5, wf_s, wf_peak, _ = frame_launches(
+        "nl5 K5 frame", counters, {CWF: wf_n},
+        lambda: render_frame(prod_cfg, prod5, spp=MAIN_SPP, wavefront=True)[0])
+    k5_tables = dict(CWF.launches_by_tables)
+    require(k5_tables == {"nl8": 0, "nl5": wf_n, "wide": 0},
+            f"nl5 K5 frame: launches {k5_tables}")
+    wf8 = render_frame(prod_cfg, prod_scene, spp=MAIN_SPP, wavefront=True)[0]
+    wf_vs_plain = mk_compare("nl5 K5 frame vs nl5 scan frame", sums(wf5), sums(scan5),
+                             MAIN_SPP, 0, 0, W)
+    wf_vs8 = mk_compare("nl5 K5 frame vs nl8 K5 frame", sums(wf5), sums(wf8), MAIN_SPP, 0, 0,
+                        W)
+    frames = {"scan": {"launches": p1_rows, "seconds": scan_s,
+                       "msamples_per_s": n * MAIN_SPP / scan_s / 1e6,
+                       "peak_memory_allocated_bytes": int(scan_peak),
+                       "vs_nl8_scan_frame": {k: scan_vs8[k] for k in keys}},
+              "wavefront": {"launches": k5_tables, "seconds": wf_s,
+                            "msamples_per_s": n * MAIN_SPP / wf_s / 1e6,
+                            "peak_memory_allocated_bytes": int(wf_peak),
+                            "vs_nl5_scan_frame": {k: wf_vs_plain[k] for k in keys},
+                            "vs_nl8_k5_frame": {k: wf_vs8[k] for k in keys}}}
+    del wf5, wf8
+    xs, ys = frame_list(prod_cfg)
+    k5 = k5_nl5_launches("golden K5 1080p", prod_cfg, prod5, xs, ys, MAIN_SPP, sums(scan5))
+    del scan5
+    out.update(frames=frames, k5=k5, scan_launches=scan_n, wf_launches=wf_n,
+               scan_seconds=scan_s,
+               max_abs_err_k5=max(wf_vs_plain["max_abs_err"],
+                                  k5["nl5_vs_reference"]["max_abs_err"]))
+    emit("bf16_nodes_check", part="main_paths", width=W, height=H, spp=MAIN_SPP,
+         bounces=prod_cfg.max_bounces, frames=frames, k5_launch=k5,
+         registers_spills=built["wavefront_nl5"]["registers_spills_by_layout"],
+         blocks_per_sm=built["nl5_blocks_per_sm"], card=smi)
+
+    # the light instance on nl5 rows: the Cornell box
+    cfg, s = cornell_scene(MAIN_SPP)
+    binary = binary_tables(s)
+    b5 = nl5_scene(binary)
+    c5, c5_s, _, _ = frame_launches(
+        "Cornell nl5 K5 frame", counters, {CWF: 1},
+        lambda: render_frame(cfg, b5, spp=MAIN_SPP, wavefront=True)[0])
+    lit_tables = dict(CWF.launches_by_tables)
+    require(lit_tables == {"nl8": 0, "nl5": 1, "wide": 0}, f"Cornell nl5: {lit_tables}")
+    c8 = render_frame(cfg, binary, spp=MAIN_SPP, wavefront=True)[0]
+    lit_vs8 = mk_compare("Cornell nl5 K5 frame vs nl8", sums(c5), sums(c8), MAIN_SPP, 0, 0,
+                         cfg.image_width)
+    del c5, c8
+    # the plain version on the launch's work: the scan on nl5 rows
+    lx, ly = frame_list(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = path_trace_wavefront_plain(cfg, b5, lx, ly, MAIN_SPP)
+    torch.cuda.synchronize()
+    lit_plain_ms = (time.perf_counter() - t0) * 1e3
+    lit = k5_nl5_launches("Cornell K5 1080p", cfg, b5, lx, ly, MAIN_SPP, ref[:3], reps=3)
+    del ref
+    out["lit"] = {"launches": lit_tables, "frame_seconds": c5_s,
+                  "frame_vs_nl8": {k: lit_vs8[k] for k in keys}, "plain_ms": lit_plain_ms,
+                  "launch": lit}
+    out["max_abs_err_lit"] = lit["nl5_vs_reference"]["max_abs_err"]
+    emit("bf16_nodes_check", part="cornell_lights", **out["lit"], node_table=node_table_bytes(b5),
+         card=smi)
+    del s, binary, b5
+    return out
+
+
+def phase_bf16_nodes_large(cfg, binary, qb, p1, scan_sums, smi):
+    """S2 on the large scene (its binary tables ``binary``; ``qb`` the
+    65,536-ray primary and first-bounce batches captured on them;
+    ``p1`` P1's nl8 readings of those batches (measure_shape), ``scan_sums``
+    its nl8 scan frame's sums): the binary tables' bytes with nl8
+    and with nl5; P1's nl5 instance against its plain version and its nl8
+    instance on the 65,536-ray batches, and nl5 against nl8 in turns on
+    them and on a render tile's two batches (time, device time, bound by the
+    32 B sectors the visited rows span); the scan frame on nl5 rows (P1's
+    nl5 instance only) against the nl8 scan frame; one 8 spp K5 launch
+    over the frame nl5 against nl8 in turns, within the JAX bar of the nl8
+    scan frame."""
+    W, H = cfg.image_width, cfg.image_height
+    n = W * H
+    b5 = nl5_scene(binary, check_cpu=False)
+    tables = node_table_bytes(b5)
+    emit("bf16_nodes_large", part="tables", **tables, card=smi)
+    q5 = [((b5, *a[1:]), k) for a, k in qb]
+    checks = {name: check_nl5_batch(f"large nl5 {name}", *q5[i], modes=(None,))
+              for i, name in enumerate(("primary", "bounce"))}
+    timing = {name: nl5_batch_timing(f"large {name}", *q5[i],
+                                     checks[name]["as_captured"]["counts"], p1[i])
+              for i, name in enumerate(("primary", "bounce"))}
+    tile = main_path_tile_lanes(cfg, b5)
+    tb = capture_main_path_queries(cfg, b5, tile)
+    tile_t = {name: nl5_batch_timing(f"large tile {name}", *tb[i])
+              for i, name in enumerate(("primary", "bounce"))}
+    del tb
+    emit("bf16_nodes_large", part="ray_queries", batch=LARGE_BATCH, checks=checks,
+         timing=timing, tile_lanes={"primary": tile, "bounce": 2 * tile}, tile_timing=tile_t,
+         card=smi)
+    tiles = [min(tile_pixels(b5), n - a) for a in range(0, n, tile_pixels(b5))]
+    scan_n = len(tiles) * MAIN_SPP * (1 + cfg.max_bounces)
+    scan5, scan_s, scan_peak, _ = frame_launches(
+        "large nl5 scan frame", (CT, CW, CM, CWF), {CT: scan_n},
+        lambda: render_pixels(cfg, b5, *frame_pixels(cfg), spp=MAIN_SPP,
+                              megakernel=False).reshape(H, W, 3))
+    p1_rows = dict(CT.launches_by_rows)
+    require(p1_rows == {"nl8": 0, "nl5": scan_n}, f"large nl5 scan: P1 launches {p1_rows}")
+    sums = lambda c: tuple(torch.from_numpy(np.ascontiguousarray(c[..., k].reshape(-1)
+                                                                 * MAIN_SPP))
+                           for k in range(3))
+    keys = ("finite_share", "close_share", "bar", "bit_equal_share", "max_abs_err")
+    scan_vs8 = mk_compare("large nl5 scan vs nl8 scan", sums(scan5), scan_sums,
+                          MAIN_SPP, 0, 0, W)
+    k5 = k5_nl5_launches("large K5 1080p", cfg, b5, *frame_list(cfg), MAIN_SPP, sums(scan5),
+                         reps=3)
+    del scan5
+    res = {"tables": tables, "checks": checks, "timing": timing, "tile_timing": tile_t,
+           "scan": {"launches": p1_rows, "seconds": scan_s,
+                    "peak_memory_allocated_bytes": int(scan_peak),
+                    "vs_nl8_scan_frame": {k: scan_vs8[k] for k in keys}},
+           "k5": k5}
+    emit("bf16_nodes_large", part="frames", scan=res["scan"], k5_launch=k5, card=smi)
+    del b5
+    return res
+
+
+def phase_tuning_check(smi):
+    """The tuning table on the card: the rows get_tuning("cuda", ...)
+    returns; then a 640x360 x 2 spp scan frame under a tuned file
+    (PT_TUNED_FILE in a temporary directory) whose cuda row sets the tile to
+    half the frame: twice the P1 launches of the frame without it, and the
+    colours bit-equal."""
+    import os
+    import tempfile
+
+    rows = {size: tuning.get_tuning("cuda", size) for size in ("small", "large")}
+    cfg = TESTING
+    scene = scene_device_from_golden(load_golden(str(GOLDEN / "scene.gold")), cfg)
+    W, H = cfg.image_width, cfg.image_height
+    spp = 2
+    frame = lambda: render_pixels(cfg, scene, *frame_pixels(cfg), spp=spp, megakernel=False)
+    counters = (CT, CW, CM, CWF)
+    before = os.environ.get("PT_TUNED_FILE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["PT_TUNED_FILE"] = str(pathlib.Path(tmp) / "tuned.json")
+        try:
+            require(tuning.get_tuning("cuda", "small") == tuning.BUILTIN["cuda"]["small"],
+                    "an empty tuned file changed the cuda row")
+            tile0 = tile_pixels(scene)
+            whole, whole_s, _, got0 = frame_launches("tuning: builtin tile", counters,
+                                                     {CT: -(-W * H // tile0) * spp * (
+                                                         1 + cfg.max_bounces)}, frame)
+            tuning.record_tuning("cuda", "small", tile_pixels=W * H // 2)
+            tile1 = tile_pixels(scene)
+            require(tile1 == W * H // 2, f"tuned tile {tile1}")
+            halves, halves_s, _, got1 = frame_launches("tuning: tuned tile", counters,
+                                                       {CT: 2 * got0["cuda_traversal"]},
+                                                       frame)
+        finally:
+            if before is None:
+                os.environ.pop("PT_TUNED_FILE", None)
+            else:
+                os.environ["PT_TUNED_FILE"] = before
+    require(halves.tobytes() == whole.tobytes(), "tuned tile: colours differ")
+    require(tile_pixels(scene) == tile0, "the tuned file outlived its run")
+    res = {"rows": rows, "frame": f"{W}x{H} x {spp} spp scan",
+           "builtin_tile": tile0, "tuned_tile": tile1,
+           "launches": {"builtin": got0["cuda_traversal"], "tuned": got1["cuda_traversal"]},
+           "seconds": {"builtin": whole_s, "tuned": halves_s}, "colours_bit_equal": True}
+    emit("tuning_check", **res, card=smi)
+    return res
+
 
 LARGE_DIR = ROOT / "build" / "large_scene"  # the generated OBJ files (git-ignored)
 LARGE_BATCH = 65_536  # rays of a frame's P1 / K1 batch held to the plain versions
@@ -1865,7 +2372,7 @@ def phase_large_scene(cfg, smi):
         sh.update(launch_device_ms(lambda: ray_query(*a, **k), name))
     # the same kernels at a render tile's batch size (the golden scene's
     # timed batches)
-    tile = main_path_tile_lanes(cfg)
+    tile = main_path_tile_lanes(cfg, binary)
     tb = capture_main_path_queries(cfg, binary, tile)
     tw = capture_main_path_queries(cfg, scene, tile)
     tile_t = time_launches({
@@ -1882,7 +2389,7 @@ def phase_large_scene(cfg, smi):
 
     # the frames
     counters = (CT, CW, CM, CWF)
-    tiles = [min(CUDA_TILE_PIXELS, n - a) for a in range(0, n, CUDA_TILE_PIXELS)]
+    tiles = [min(tile_pixels(binary), n - a) for a in range(0, n, tile_pixels(binary))]
     scan_n = len(tiles) * MAIN_SPP * (1 + cfg.max_bounces)
     chunk = _mk_spp_chunk(n, MAIN_SPP, scene)
     fused_n = -(-MAIN_SPP // chunk)
@@ -2000,8 +2507,10 @@ def phase_large_scene(cfg, smi):
     emit("large_scene_record", **k6, card=smi)
     require(hit_share >= 0.5, f"large scene: {hit_share} of primary rays hit")
     require(instance_share > 0, f"large scene: {instance_share} of primary rays hit an object")
+    # S2: the bf16 node rows on the same tables
+    nl5 = phase_bf16_nodes_large(cfg, binary, qb, p1, scan_sums["binary"], smi)
     return {"info": info, "p1": p1, "k1": k1, "tile_ms": tile_ms, "frames": frames,
-            "timing": timing, "k6": k6}
+            "timing": timing, "k6": k6, "nl5": nl5}
 
 
 # ------------------------------------------------- the animated frame loop
@@ -2012,9 +2521,9 @@ ANIM_SPP = 64  # 8 subframes; the production preset's 1024 (128 subframes) for o
 ANIM_CHECK_FRAMES = (1000, 1750)
 ANIM_CHECK_SPP = 8  # one subframe
 ANIM_SUBFRAME_SPP = (ANIM_SPP, PRODUCTION.samples_per_pixel)  # 8 and 128 subframes
-# the deep CLI frame's spp: the production preset asks for 1024; cut to 256
-# (32 subframes) so that the whole run stays under 600 s
-ANIM_DEEP_SPP = 256
+# the deep CLI frame's spp: the production preset asks for 1024; cut to 128
+# (16 subframes) so that the whole run stays under 600 s
+ANIM_DEEP_SPP = 128
 ANIM_DEEP = f"frame{ANIM_DEEP_SPP}"
 CLI_TIMEOUT = 300
 
@@ -2184,7 +2693,6 @@ def phase_animation_cli(smi):
     W, H = cfg.image_width, cfg.image_height
     n = W * H
     counters = (CT, CW, CM, CWF)
-    tiles = -(-n // CUDA_TILE_PIXELS)
 
     # the placement: on the card (P1) and on the CPU
     native_build.reset_builds()
@@ -2236,6 +2744,8 @@ def phase_animation_cli(smi):
             f"animation {frame} K2", counters, {CM: k2_n},
             lambda: render_frame(cfg, dev, spp=ANIM_CHECK_SPP)[0])
         binary = binary_tables(dev)
+        # the scan's tiles, and the CLI's on the frame tables (below)
+        tiles = -(-n // tile_pixels(binary))
         c_scan, scan_s, scan_peak, _ = frame_launches(
             f"animation {frame} scan", counters,
             {CT: tiles * ANIM_CHECK_SPP * (1 + cfg.max_bounces)},
@@ -2271,10 +2781,19 @@ def phase_animation_cli(smi):
             k1 = [measure_wide_shape(f"animation chunked {k}", *q[i])
                   for i, k in enumerate(("primary", "bounce"))]
             del q
+            # S2: one 8 spp K5 launch on the binary frame tables with bf16
+            # node rows (packed on the card from the frame packer's nl8)
+            # against nl8, held to the scan frame
+            b5 = nl5_scene(binary, check_cpu=False)
+            anim_nl5 = {"frame": frame, "tables": node_table_bytes(b5),
+                        **k5_nl5_launches(f"animation {frame} K5", cfg, b5, *frame_list(cfg),
+                                          ANIM_CHECK_SPP, sums(c_scan), reps=3)}
+            del b5
         del c_k2, c_scan, dev, dev_cpu, binary
     emit("animation_frames", width=W, height=H, bounces=cfg.max_bounces, spp=ANIM_CHECK_SPP,
          frames=frames, k2_launch=k2_launch, card=smi)
     emit("animation_chunked_k1", batch=LARGE_BATCH, k1=k1, card=smi)
+    emit("animation_nl5", **anim_nl5, card=smi)
     subframes = {spp: subframe_check(s, s_cpu, packer, packer_cpu, ANIM_CHECK_FRAMES[0], spp)
                  for spp in ANIM_SUBFRAME_SPP}
     emit("animation_subframes", frame=ANIM_CHECK_FRAMES[0], checks=subframes, card=smi)
@@ -2338,7 +2857,7 @@ def phase_animation_cli(smi):
     emit("animation_cli", load_scene_s=load["load_scene_s"], packer_s=load["packer_s"],
          **cli, card=smi)
     return {"load": load, "frames": frames, "k1": k1, "k2_launch": k2_launch, "cli": cli,
-            "subframes": subframes}
+            "subframes": subframes, "nl5": anim_nl5}
 
 
 # ------------------------------------------------- the path kernels' designs
@@ -2683,12 +3202,12 @@ def kernel_split(fn, reps=5) -> dict:
             "device_ms_per_launch": {k: dev[k] * reps / count[k] for k in dev}}
 
 
-def launch_device_ms(fn, kernel) -> dict:
+def launch_device_ms(fn, kernel, reps=5) -> dict:
     """The device time of one launch of the kernel named ``kernel`` that
-    ``fn`` launches once (the mean of the launches a profile recorded), how
-    many launches it recorded, and the device time of fn's other kernels
-    (the wrapper's fills and casts) per call."""
-    ks = kernel_split(fn)
+    ``fn`` launches once (the mean of the launches a profile of ``reps``
+    calls recorded), how many launches it recorded, and the device time of
+    fn's other kernels (the wrapper's fills and casts) per call."""
+    ks = kernel_split(fn, reps)
     names = [k for k in ks["device_ms_per_launch"] if kernel in k]
     require(len(names) == 1, f"{kernel}: profiled {list(ks['device_ms_per_launch'])}")
     return {"device_ms": ks["device_ms_per_launch"][names[0]],
@@ -2842,16 +3361,19 @@ def phase_grad_kernel_check(cfg, scene, smi):
 
 def phase_grad_slow_check(binary, wide):
     """render_value_and_grad on the card against make_fast_grad_fn on 4,096
-    lanes of the golden 640x360 frame (rows 200 on, 4 bounces), binary and
-    w8, at tests/test_diff_fast.py's bar; the fast path's record pass walks
-    with P1 / K1, which shows in their counts."""
+    lanes of the golden 640x360 frame (rows 200 on, 4 bounces), binary, binary
+    with bf16 node rows (S2) and w8, at tests/test_diff_fast.py's bar; the
+    fast path's record pass walks with P1 (its nl5 instance on nl5 rows) /
+    K1, which shows in their counts. On nl5 rows the records are nl8's, so
+    the fast path's loss is bit-equal to the one on nl8."""
     cfg = TESTING
     lanes = 4096
     pix = torch.arange(lanes, dtype=torch.int32, device="cuda") + 200 * cfg.image_width
     xs, ys = pix % cfg.image_width, pix // cfg.image_width
     si = torch.zeros(lanes, dtype=torch.int32, device="cuda")
     out = {}
-    for name, scene in (("binary", binary), ("w8", wide)):
+    for name, scene in (("binary", binary), ("binary_nl5", with_bf16_nodes(binary)),
+                        ("w8", wide)):
         counts = {}
         for path, fn in (("slow", lambda: render_value_and_grad(cfg, scene, xs, ys, si)),
                          ("fast", lambda: make_fast_grad_fn(cfg)(scene, xs, ys, si))):
@@ -2861,7 +3383,8 @@ def phase_grad_slow_check(binary, wide):
             loss, grads = fn()
             torch.cuda.synchronize()
             counts[path] = {"seconds": time.perf_counter() - t0, "loss": float(loss),
-                            "p1": CT.launches, "k1": CW.launches,
+                            "p1": CT.launches, "p1_by_rows": dict(CT.launches_by_rows),
+                            "k1": CW.launches,
                             "k7a": CG.small_table_launches, "k7b": CG.row_launches,
                             "grads": grads}
         slow, fast = counts["slow"]["grads"], counts["fast"]["grads"]
@@ -2876,11 +3399,16 @@ def phase_grad_slow_check(binary, wide):
             sup = abs(int((a.abs() > 1e-12).sum()) - int((b.abs() > 1e-12).sum()))
             require(ok and sup <= 2, f"{name} {k}: fast vs slow beyond the bar (support {sup})")
             worst[k] = float(((b - a).abs() / (2e-2 * a.abs() + 2e-2 * scale + 1e-9)).max())
-        walk = "p1" if name == "binary" else "k1"
+        walk = "k1" if name == "w8" else "p1"
         expect = 1 + cfg.max_bounces
         require(counts["fast"][walk] == expect and counts["slow"][walk] == expect,
                 f"{name}: {walk} launches {counts['fast'][walk]} / {counts['slow'][walk]}, "
                 f"expected {expect}")
+        if name == "binary_nl5":
+            require(counts["fast"]["p1_by_rows"] == {"nl8": 0, "nl5": expect},
+                    f"{name}: P1 launches {counts['fast']['p1_by_rows']}")
+            require(counts["fast"]["loss"] == out["binary"]["fast"]["loss"],
+                    f"{name}: the fast loss differs from nl8's")
         for c in counts.values():
             c.pop("grads")
         out[name] = counts
@@ -3762,6 +4290,11 @@ def main() -> int:
     tonemap_res = phase_tonemap_check(prod_cfg, prod_wide)
     mk_time = phase_megakernel_timing(prod_cfg, prod_wide, smi)
     wf_time = phase_wavefront_timing(prod_cfg, prod_scene, prod_wide, smi)
+    # S2: the bf16 node rows through P1 and K5 (the large and the animated
+    # scene's in their phases), and the tuning table
+    bf = phase_bf16_nodes_check(scene_g, rays_g, scene, prod_cfg, prod_scene, colors, shapes,
+                                binary_out, built, smi)
+    phase_tuning_check(smi)
     # S9: area lights through K2 and K5, the Cornell box and the adaptive /
     # AOV / denoise workflow (K8)
     lights = phase_arealight_check(smi)
@@ -3822,6 +4355,37 @@ def main() -> int:
                 "launches_load_scene": anim["cli"]["frames64"]["load"]["launches"]["ray_query"],
                 "scan_frame_seconds": {f: v["scan_binary"]["seconds"]
                                        for f, v in anim["frames"].items()}},
+            "card": smi,
+        },
+        {
+            "name": "ray_query_nl5",
+            "route": "cuda",
+            "source": SOURCES["ray_query_nl5"],
+            "replaces": "pathtracing_tpu/ops/pallas_traversal.py:64",
+            # the Pallas body reads nl8 rows; the XLA walk it shares reads
+            # nl5 rows here
+            "reads_rows_as": "pathtracing_tpu/ops/traversal.py:172",
+            "build": "ray_query.cu with -DPT_NODE_ROWS=5",
+            # the nl5 scan frame's launches (bf16_nodes_check)
+            "launches": bf["scan_launches"],
+            "max_abs_err": bf["max_abs_err"],
+            "ms": bf["timing"]["bounce"]["nl5"]["ms"],
+            "plain_ms": bf["batches"]["bounce"]["as_captured"]["plain_ms"],
+            "bound_ms": bf["timing"]["bounce"]["nl5"]["bound_ms"],
+            "bound_by": bf["timing"]["bounce"]["nl5"]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a BVH ray query
+            "shape": f"bounce batch, {bf['timing']['bounce']['rays']} rays",
+            "device_ms": bf["timing"]["bounce"]["nl5"]["device_ms"],
+            "nl8_ms_same_call": bf["timing"]["bounce"]["nl8"]["ms"],
+            "nl8_device_ms_same_call": bf["timing"]["bounce"]["nl8"]["device_ms"],
+            "primary": {k: bf["timing"]["primary"]["nl5"][k]
+                        for k in ("ms", "device_ms", "bound_ms", "bound_by")},
+            "primary_nl8_ms_same_call": bf["timing"]["primary"]["nl8"]["ms"],
+            "scan_frame": bf["frames"]["scan"],
+            "registers_spills": built["ray_query_nl5"]["registers_spills"],
+            "blocks_per_sm": built["ray_query_nl5"]["blocks_per_sm"],
+            "large_scene": {k: large["nl5"]["timing"][k] for k in ("primary", "bounce")},
+            "large_scene_tile": large["nl5"]["tile_timing"],
             "card": smi,
         },
         {
@@ -3946,6 +4510,60 @@ def main() -> int:
                               "last_subframes_vs_scan": {
                                   spp: v["k5_binary_vs_scan"]
                                   for spp, v in anim["subframes"].items()}},
+            "card": smi,
+        },
+        {
+            "name": "wavefront_nl5",
+            "route": "cuda",
+            "source": SOURCES["wavefront_nl5"],
+            "replaces": "pathtracing_tpu/ops/wavefront.py:83",
+            "reads_rows_as": "pathtracing_tpu/ops/traversal.py:172",
+            "build": "wavefront.cu with -DPT_NODE_ROWS=5",
+            "layout": "binary, nl5 rows",
+            # the nl5 K5 frame's launches (bf16_nodes_check)
+            "launches": bf["wf_launches"],
+            "max_abs_err": bf["max_abs_err_k5"],
+            "ms": bf["k5"]["nl5"]["ms"],
+            # the scan frame on nl5 rows, the plain version of the same work
+            "plain_ms": bf["scan_seconds"] * 1e3,
+            "bound_ms": bf["k5"]["nl5"]["bound_ms"],
+            "bound_by": bf["k5"]["nl5"]["bound_by"],
+            "library_ms": None,  # no single PyTorch call renders a path
+            "shape": f"{prod_cfg.image_width}x{prod_cfg.image_height} list x {MAIN_SPP} spp, "
+                     f"{prod_cfg.max_bounces} bounces, one launch",
+            "device_ms": bf["k5"]["nl5"]["device_ms"],
+            "nl8_ms_same_call": bf["k5"]["nl8"]["ms"],
+            "nl8_device_ms_same_call": bf["k5"]["nl8"]["device_ms"],
+            "frame": bf["frames"]["wavefront"],
+            "registers_spills": built["wavefront_nl5"]["registers_spills_by_layout"],
+            "blocks_per_sm": built["nl5_blocks_per_sm"]["wavefront_nl5"],
+            "large_scene": {k: large["nl5"]["k5"][k] for k in (
+                "nl5", "nl8", "nl5_vs_reference", "nl5_vs_nl8", "nl5_over_nl8_ms")},
+            "animation_frame": {k: anim["nl5"][k] for k in (
+                "frame", "tables", "nl5", "nl8", "nl5_vs_reference", "nl5_vs_nl8",
+                "nl5_over_nl8_ms")},
+            "card": smi,
+        },
+        {
+            "name": "wavefront_nl5_arealights",
+            "route": "cuda",
+            "source": SOURCES["wavefront_nl5_lit"],
+            "replaces": "pathtracing_tpu/ops/wavefront.py:106",
+            "reads_rows_as": "pathtracing_tpu/ops/traversal.py:172",
+            "build": "wavefront.cu with -DPT_NODE_ROWS=5 -DPT_AREA_LIGHTS=1",
+            "layout": "binary, nl5 rows",
+            # the Cornell box's nl5 K5 frame through render_frame
+            "launches": bf["lit"]["launches"]["nl5"],
+            "max_abs_err": bf["max_abs_err_lit"],
+            "ms": bf["lit"]["launch"]["nl5"]["ms"],
+            "plain_ms": bf["lit"]["plain_ms"],
+            "bound_ms": bf["lit"]["launch"]["nl5"]["bound_ms"],
+            "bound_by": bf["lit"]["launch"]["nl5"]["bound_by"],
+            "library_ms": None,  # no single PyTorch call renders a path
+            "shape": f"Cornell box 1920x1080 list x {MAIN_SPP} spp, 5 bounces, one launch",
+            "device_ms": bf["lit"]["launch"]["nl5"]["device_ms"],
+            "nl8_ms_same_call": bf["lit"]["launch"]["nl8"]["ms"],
+            "frame_vs_nl8": bf["lit"]["frame_vs_nl8"],
             "card": smi,
         },
         {

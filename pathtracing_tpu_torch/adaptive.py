@@ -103,7 +103,7 @@ def _stats_pass(config, scene, xs, ys, spp, tile_pixels, wavefront, device=None)
         r, g, b, lum2 = acc.cpu().numpy()
         return np.stack([r, g, b], -1), lum2
     if tile_pixels is None:
-        tile_pixels = default_tile_pixels(device)
+        tile_pixels = default_tile_pixels(scene, device)
     if wavefront:
         truncated = []
 
@@ -215,7 +215,7 @@ def render_adaptive(
         raise ValueError("spp_total must be >= spp_base")
     device = resolve_device(device)
     if tile_pixels is None:
-        tile_pixels = default_tile_pixels(device)
+        tile_pixels = default_tile_pixels(scene, device)
     n = len(xs)
     xs = np.asarray(xs, np.int32)
     ys = np.asarray(ys, np.int32)

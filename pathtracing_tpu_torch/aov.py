@@ -85,7 +85,7 @@ def render_aovs(
     if scene.nl8.device != device:
         raise ValueError(f"scene is on {scene.nl8.device}, AOVs asked for {device}")
     if tile_pixels is None:
-        tile_pixels = default_tile_pixels(device)
+        tile_pixels = default_tile_pixels(scene, device)
     xs = np.asarray(xs, np.int32)
     ys = np.asarray(ys, np.int32)
     kernel = lambda txs, tys: _aov_tile(config, scene, txs, tys, spp)

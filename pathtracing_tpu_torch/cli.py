@@ -86,7 +86,9 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true", help="skip existing frames")
     ap.add_argument(
         "--tile-pixels", type=int, default=None,
-        help="pixels per scan / wavefront tile (default: per device type)",
+        help="pixels per scan / wavefront tile (default: the tuning table's "
+             "tile_pixels for the device type and the scene's size, "
+             "pathtracing_tpu_torch/tuning.py; $PT_TUNED_FILE over its builtin rows)",
     )
     ap.add_argument(
         "--sample-range",

@@ -12,22 +12,22 @@ import numpy as np
 from pathtracing_tpu_torch import resolve_device
 from pathtracing_tpu_torch.scene.device import SceneDevice, to_device
 
-# optional tables carried across when the JAX scene has them: the wide-BVH
-# tables and the area-light tables
-_WIDE = ("wide_rows", "wide_root", "wide_root_base", "tri_shade",
-         "lt_tris", "lt_rows", "lt_cdf", "lt_seg", "lt_rank")
+# optional tables carried across when the JAX scene has them: the bf16 node
+# rows, the wide-BVH tables and the area-light tables
+_OPTIONAL = ("nl5", "wide_rows", "wide_root", "wide_root_base", "tri_shade",
+             "lt_tris", "lt_rows", "lt_cdf", "lt_seg", "lt_rank")
 # fields of the JAX SceneDevice that the port does not read yet
-_LATER = ("nl5", "hot_rows", "hot_planes")
+_LATER = ("hot_rows", "hot_planes")
 
 
 def scene_from_jax(fields: dict[str, np.ndarray], device=None) -> SceneDevice:
     """The port's SceneDevice from the numpy fields of a JAX SceneDevice.
 
-    Tables are uploaded byte for byte (the link bit patterns in ``nl8`` and
-    ``wide_rows`` pass through no float op). The wide-BVH and the area-light
-    tables come across when present. Optional tables of later slices (bf16
-    node rows, hot rows) are refused rather than dropped, so a scene never
-    renders through another path than the caller packed it for.
+    Tables are uploaded byte for byte (the link bit patterns in ``nl8``,
+    ``nl5`` and ``wide_rows`` pass through no float op). The bf16 node rows,
+    the wide-BVH and the area-light tables come across when present. The
+    hot-row tables of a later slice are refused rather than dropped, so a
+    scene never renders through another path than the caller packed it for.
     """
     device = resolve_device(device)
     unknown = set(fields) - set(SceneDevice._fields)
@@ -40,7 +40,7 @@ def scene_from_jax(fields: dict[str, np.ndarray], device=None) -> SceneDevice:
         )
     missing = [
         k for k in SceneDevice._fields
-        if k not in _LATER and k not in _WIDE and fields.get(k) is None
+        if k not in _LATER and k not in _OPTIONAL and fields.get(k) is None
     ]
     if missing:
         raise KeyError(f"missing SceneDevice fields: {missing}")

@@ -9,11 +9,21 @@
 // -> watertight triangle test, confirm tmin < t < tmax; closest rays shrink
 // tmax and keep the ids, any-hit rays set `occluded` and stop.
 //
-// An nl8 row is 2 x float4 (nmin = n0.xyz, nmax = (n0.w, n1.x, n1.y),
-// accept = n1.z, cancel = n1.w); the int32 link words live in float columns
-// and are only ever bit-cast.  fminf/fmaxf give the C NaN rule of the slab
-// test (reference: ray_query.hh:197-207).  Built with --fmad=false, IEEE
-// division, no fast-math, no flush-to-zero (ops/cuda_build.py).
+// The node rows are a compile-time policy (the JAX walk's _read_node):
+//   Nl8Rows  the f32 rows, 32 B: 2 x float4 (nmin = n0.xyz, nmax = (n0.w,
+//            n1.x, n1.y), accept = n1.z, cancel = n1.w);
+//   Nl5Rows  the bf16 rows of scene/device.pack_nl5, 20 B and only 4 B
+//            aligned: five 4-byte loads; words 0-2 hold the box as bf16
+//            halves rounded outward ([min.x|min.y, min.z|max.x,
+//            max.y|max.z], a half being the high 16 bits of an f32, so the
+//            high one unpacks by a mask and the low one by a shift), words
+//            3-4 the links.  The larger boxes let the walk visit more nodes;
+//            every candidate still meets the exact triangle test and the
+//            strict t bounds, so closest hits are the same bits.
+// The int32 link words live in float columns and are only ever bit-cast.
+// fminf/fmaxf give the C NaN rule of the slab test (reference:
+// ray_query.hh:197-207).  Built with --fmad=false, IEEE division, no
+// fast-math, no flush-to-zero (ops/cuda_build.py).
 //
 // Hooks, both empty at compile time where unused (P1): with kCapped a ray
 // that would read more than `max_steps` node rows stops there and the walk
@@ -21,7 +31,8 @@
 // entry and triangle test (ray_common.cuh, NoWalkCount).
 //
 // This header's bytes are part of the hash of every library that includes it
-// (ops/cuda_build.py): an edit here rebuilds P1 and K5.
+// (ops/cuda_build.py): an edit here rebuilds P1 and K5 (both node-row
+// formats) and K2.
 
 #pragma once
 
@@ -32,13 +43,42 @@
 
 namespace ptq {
 
+// One node row as the walk reads it.
+struct NodeRow {
+    V3 nmin, nmax;
+    int accept, cancel;
+};
+
+struct Nl8Rows {
+    const float4* rows;  // (8N, 8) f32 as 2 x float4 per row
+    __device__ __forceinline__ NodeRow read(size_t lidx) const {
+        const float4 n0 = __ldg(rows + 2 * lidx);
+        const float4 n1 = __ldg(rows + 2 * lidx + 1);
+        return {{n0.x, n0.y, n0.z}, {n0.w, n1.x, n1.y}, __float_as_int(n1.z),
+                __float_as_int(n1.w)};
+    }
+};
+
+struct Nl5Rows {
+    const unsigned* rows;  // (8N, 5) f32 words, read as their bits
+    __device__ __forceinline__ NodeRow read(size_t lidx) const {
+        const unsigned* r = rows + 5 * lidx;
+        const unsigned w0 = __ldg(r), w1 = __ldg(r + 1), w2 = __ldg(r + 2);
+        const int accept = (int)__ldg(r + 3), cancel = (int)__ldg(r + 4);
+        const unsigned hi = 0xFFFF0000u;
+        return {{__uint_as_float(w0 & hi), __uint_as_float(w0 << 16), __uint_as_float(w1 & hi)},
+                {__uint_as_float(w1 << 16), __uint_as_float(w2 & hi), __uint_as_float(w2 << 16)},
+                accept, cancel};
+    }
+};
+
 // One ray's walk of the TLAS (t_count nodes at t_offset) and the BLASes it
 // enters.  In: tmax = tmax0.  Out: the closest hit's tmax, instance and prim
 // (c_inst -1 for none), or `occluded` for an any-hit ray.  Returns false only
 // when kCapped and the ray hit the cap.
-template <bool kCapped, class Count>
+template <bool kCapped, class Rows, class Count>
 __device__ __forceinline__ bool binary_walk(
-    const float4* __restrict__ nl8, const float4* __restrict__ tri_pos,
+    const Rows& nodes, const float4* __restrict__ tri_pos,
     const float* __restrict__ inst_f, const int* __restrict__ inst_u, int t_count,
     int t_offset, V3 org, V3 dir, V3 t_inv, bool any, float tmin, float& tmax,
     int& c_inst, int& c_prim, bool& occluded, int max_steps, Count& count) {
@@ -69,21 +109,20 @@ __device__ __forceinline__ bool binary_walk(
         if (kCapped && ++steps > max_steps) return false;
         count.node_row(1);
         const size_t lidx = (size_t)((in_blas ? b_link_off : t_link_off) + node);
-        const float4 n0 = __ldg(nl8 + 2 * lidx);
-        const float4 n1 = __ldg(nl8 + 2 * lidx + 1);
-        const int accept = __float_as_int(n1.z);
-        const int cancel = __float_as_int(n1.w);
+        const NodeRow n = nodes.read(lidx);
+        const int accept = n.accept;
+        const int cancel = n.cancel;
 
         const V3 o = in_blas ? b_org : org;
         const V3 inv = in_blas ? b_inv : t_inv;
         // slab test with C fmin/fmax NaN semantics (reference:
-        // ray_query.hh:197-207); nmin = n0.xyz, nmax = (n0.w, n1.x, n1.y)
-        const float t0x = (n0.x - o.x) * inv.x;
-        const float t0y = (n0.y - o.y) * inv.y;
-        const float t0z = (n0.z - o.z) * inv.z;
-        const float t1x = (n0.w - o.x) * inv.x;
-        const float t1y = (n1.x - o.y) * inv.y;
-        const float t1z = (n1.y - o.z) * inv.z;
+        // ray_query.hh:197-207)
+        const float t0x = (n.nmin.x - o.x) * inv.x;
+        const float t0y = (n.nmin.y - o.y) * inv.y;
+        const float t0z = (n.nmin.z - o.z) * inv.z;
+        const float t1x = (n.nmax.x - o.x) * inv.x;
+        const float t1y = (n.nmax.y - o.y) * inv.y;
+        const float t1z = (n.nmax.z - o.z) * inv.z;
         const float tnear = fmaxf(fminf(t0x, t1x),
                                   fmaxf(fminf(t0y, t1y), fminf(t0z, t1z)));
         const float tfar = fminf(fmaxf(t0x, t1x),

@@ -14,9 +14,9 @@
 //
 // It is a template on two policies:
 //   Walk   how a ray is walked: WideWalk<S, L, STUB> (wide_walk.cuh, the
-//          subframe's TLAS root from sf_tlas_offset) or BinaryWalk
+//          subframe's TLAS root from sf_tlas_offset) or BinaryWalk<Rows>
 //          (binary_walk.cuh, the subframe's TLAS count and offset from
-//          sf_tlas_count / sf_tlas_offset);
+//          sf_tlas_count / sf_tlas_offset, the node rows nl8 or nl5);
 //   Fetch  how a closest hit is shaded: PackedFetch (one tri_shade row) or
 //          UnpackedFetch (tri_idx, vattr, tri_pos: the scan's fetch).
 // The two fetches give the same bits (tests/test_torch_shade_packed.py).
@@ -111,8 +111,9 @@ struct WideWalk {
     }
 };
 
+template <class Rows>  // Nl8Rows or Nl5Rows (binary_walk.cuh)
 struct BinaryWalk {
-    const float4* nl8;          // (8N, 8) f32
+    Rows nodes;                 // nl8 (8N, 8) or nl5 (8N, 5) f32
     const float4* tri_pos;      // (T, 12) f32
     const float* inst_f;        // (I, 21) f32
     const int* inst_u;          // (I, 6) i32
@@ -129,7 +130,7 @@ struct BinaryWalk {
     __device__ __forceinline__ bool walk(Root r, V3 o, V3 d, bool any, float tmin,
                                         float& tmax, int& c_inst, int& c_prim,
                                         bool& occluded, int max_steps, Count& count) const {
-        return binary_walk<true>(nl8, tri_pos, inst_f, inst_u, r.count, r.offset, o, d,
+        return binary_walk<true>(nodes, tri_pos, inst_f, inst_u, r.count, r.offset, o, d,
                                  safe_inv(d), any, tmin, tmax, c_inst, c_prim, occluded,
                                  max_steps, count);
     }

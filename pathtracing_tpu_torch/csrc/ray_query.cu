@@ -34,6 +34,11 @@
 //     do in a walk, and TMA has no tile to fetch ahead, since each row's
 //     address depends on the slab test of the row before it.
 //
+// The node rows: a library builds one format, PT_NODE_ROWS = 8 (nl8, the
+// default) or 5 (the bf16 rows of scene/device.with_bf16_nodes); the row
+// read is binary_walk.cuh's policy, and the rest of the kernel is the same.
+// The wrapper takes the library of the scene's rows (ops/cuda_traversal.py).
+//
 // Parity: built with --fmad=false (the oracle goldens were made without FMA
 // contraction; contraction in the triangle test flips equal-t ties between
 // coincident triangles), IEEE division, no fast-math, no flush-to-zero.  The
@@ -42,17 +47,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "binary_walk.cuh"
 #include "ray_common.cuh"
+
+#ifndef PT_NODE_ROWS
+#define PT_NODE_ROWS 8  // 8: nl8 rows, 5: nl5 rows
+#endif
+static_assert(PT_NODE_ROWS == 8 || PT_NODE_ROWS == 5, "PT_NODE_ROWS: 8 or 5");
 
 namespace {
 
 using namespace ptq;
 
+// The node rows this library walks, and their pointer type.
+using Rows = std::conditional_t<PT_NODE_ROWS == 5, Nl5Rows, Nl8Rows>;
+using RowPtr = decltype(Rows::rows);
+
 constexpr int kBlock = 128;
 
 __global__ void __launch_bounds__(kBlock) ray_query_kernel(
-    const float4* __restrict__ nl8,      // (8N, 8) f32 as 2 x float4 per row
+    RowPtr __restrict__ rows,            // nl8 (8N, 8) or nl5 (8N, 5) f32
     const float4* __restrict__ tri_pos,  // (T, 12) f32 as 3 x float4 per row
     const float* __restrict__ inst_f,    // (I, 21) f32
     const int* __restrict__ inst_u,      // (I, 6) i32
@@ -82,7 +98,7 @@ __global__ void __launch_bounds__(kBlock) ray_query_kernel(
     int c_inst, c_prim;
     bool occluded;
     NoWalkCount count;
-    binary_walk<false>(nl8, tri_pos, inst_f, inst_u, tlas_count[r], tlas_offset[r], org,
+    binary_walk<false>(Rows{rows}, tri_pos, inst_f, inst_u, tlas_count[r], tlas_offset[r], org,
                        dir, safe_inv(dir), any, tmin, tmax, c_inst, c_prim, occluded, 0,
                        count);
     finalize_hit(tri_pos, inst_f, inst_u, org, dir, c_inst, c_prim, tmax,
@@ -92,9 +108,11 @@ __global__ void __launch_bounds__(kBlock) ray_query_kernel(
 }  // namespace
 
 // Plain C interface for ctypes.  Launches on `stream`, does not synchronise,
-// allocates nothing.  Returns the launch's cudaError_t (0 = accepted).
+// allocates nothing.  `nodes`: the node table in this library's format
+// (pt_ray_query_node_words).  Returns the launch's cudaError_t (0 =
+// accepted).
 extern "C" int pt_ray_query(
-    const void* nl8, const void* tri_pos, const void* inst_f, const void* inst_u,
+    const void* nodes, const void* tri_pos, const void* inst_f, const void* inst_u,
     const void* tlas_count, const void* tlas_offset,
     const void* ox, const void* oy, const void* oz,
     const void* dx, const void* dy, const void* dz,
@@ -106,7 +124,7 @@ extern "C" int pt_ray_query(
     const dim3 grid((unsigned)((R + kBlock - 1) / kBlock)), block(kBlock);
     cudaStream_t s = (cudaStream_t)stream;
     ray_query_kernel<<<grid, block, 0, s>>>(
-        (const float4*)nl8, (const float4*)tri_pos, (const float*)inst_f,
+        static_cast<RowPtr>(nodes), (const float4*)tri_pos, (const float*)inst_f,
         (const int*)inst_u, (const int*)tlas_count, (const int*)tlas_offset,
         (const float*)ox, (const float*)oy, (const float*)oz, (const float*)dx,
         (const float*)dy, (const float*)dz, (const float*)tmax_lane,
@@ -119,6 +137,9 @@ extern "C" int pt_ray_query(
 }
 
 extern "C" int pt_ray_query_block_size(void) { return kBlock; }
+
+// f32 words of a node row in this library's format: 8 (nl8) or 5 (nl5).
+extern "C" int pt_ray_query_node_words(void) { return PT_NODE_ROWS; }
 
 // Blocks of the kernel one SM holds at once (negative: the CUDA error).
 extern "C" int pt_ray_query_occupancy(void) {

@@ -19,7 +19,7 @@
 // loop's order too, since a lane's samples die in order), deterministic,
 // with no float atomics; each entry is written once.  Four instantiations:
 // the binary walk (binary_walk.cuh, the TLAS count and offset of the
-// sample's subframe row) with the unpacked shading fetch (tri_idx, vattr,
+// sample's subframe row; nl8 or nl5 rows, below) with the unpacked shading fetch (tri_idx, vattr,
 // tri_pos: binary scenes carry no tri_shade rows), and the wide walk
 // (wide_walk.cuh) in the w8, w16 and s8 layouts with the packed fetch, which
 // is K2's body (megakernel.cu) over a list.
@@ -45,6 +45,13 @@
 // shading calls into a uint64 array; chip_smoke.py turns them into the
 // bound.  The phase-cycle build (PhaseClock) adds each thread's clock64()
 // cycles per phase of the path.  The timed kernels count nothing.
+//
+// Node rows.  A library walks the binary tables in one row format,
+// PT_NODE_ROWS = 8 (nl8, the default) or 5 (the bf16 rows of
+// scene/device.with_bf16_nodes, binary_walk.cuh's Nl5Rows); a library of
+// nl5 rows has no wide instances (a scene with wide tables walks them and
+// ignores nl5).  The nl5 instances build into libraries of their own
+// (ops/cuda_wavefront.py's NL5_LIBRARY, NL5_LIT_LIBRARY), beside the others.
 //
 // Area lights.  A scene with light tables launches the AreaLights instances
 // of path.cuh's light policy (the JAX wavefront's light branch), the timed
@@ -72,6 +79,10 @@
 #ifndef PT_AREA_LIGHTS
 #define PT_AREA_LIGHTS 0  // 1: the area-light instances (AreaLights), 0: the sun-only ones
 #endif
+#ifndef PT_NODE_ROWS
+#define PT_NODE_ROWS 8  // the binary walk's node rows: 8 nl8 (and the wide walks), 5 nl5
+#endif
+static_assert(PT_NODE_ROWS == 8 || PT_NODE_ROWS == 5, "PT_NODE_ROWS: 8 or 5");
 
 namespace {
 
@@ -79,6 +90,10 @@ using namespace ptq;
 
 // The light policy this library instantiates.
 using Lit = std::conditional_t<PT_AREA_LIGHTS != 0, AreaLights, NoAreaLights>;
+// The binary walk this library instantiates, and its node rows' pointer type.
+using Rows = std::conditional_t<PT_NODE_ROWS == 5, Nl5Rows, Nl8Rows>;
+using Binary = BinaryWalk<Rows>;
+using RowPtr = decltype(Rows::rows);
 
 constexpr int kBlock = 128;      // the first design: four blocks an SM
 constexpr int kWideBlock = 512;  // the wide block: one block an SM
@@ -171,8 +186,10 @@ int occupancy(int design) {
 // Plain C interface for ctypes.  Launches on `stream`, does not synchronise,
 // allocates nothing.  `width` (f32 per mega-table row) selects the wide
 // layout, and 0 the binary walk (then `rows`, `wide_root`, `root_base` and
-// `tri_shade` are not read; otherwise `nl8`, `tri_idx`, `vattr` and
-// `sf_tlas_count` are not).  Adds abandoned samples to *n_truncated.  With a
+// `tri_shade` are not read; otherwise `nodes`, `tri_idx`, `vattr` and
+// `sf_tlas_count` are not).  `nodes`: the binary node table in this
+// library's format (pt_wavefront_node_words); a library of nl5 rows takes
+// width 0 only.  Adds abandoned samples to *n_truncated.  With a
 // non-null `counts` it runs the counting build, which adds its counters
 // there; with a non-null `phases` the phase-cycle build, which adds
 // kNPhases cycle sums there.  `design`: 0 the first design, 1 the wide
@@ -186,7 +203,7 @@ int occupancy(int design) {
 // their absence).
 extern "C" int pt_wavefront(
     const void* rows, int width, const void* wide_root, const void* root_base,
-    const void* tri_shade, const void* nl8, const void* tri_idx, const void* vattr,
+    const void* tri_shade, const void* nodes, const void* tri_idx, const void* vattr,
     const void* sf_tlas_count, int n_tlas_count, const void* tri_pos, const void* inst_f,
     const void* inst_u, const void* sf_cam, int n_cam, const void* sf_light, int n_light,
     const void* sf_tlas_offset, int n_tlas, const void* xs, const void* ys, int n, int spp,
@@ -211,14 +228,15 @@ extern "C" int pt_wavefront(
                                (const float*)vattr,   (const int*)inst_u,  n_lights};
     cudaStream_t s = (cudaStream_t)stream;
     if (width == 0) {
-        const BinaryWalk w = {(const float4*)nl8, (const float4*)tri_pos, (const float*)inst_f,
-                              (const int*)inst_u, (const int*)sf_tlas_count,
-                              (const int*)sf_tlas_offset, n_tlas_count, n_tlas};
+        const Binary w = {{static_cast<RowPtr>(nodes)}, (const float4*)tri_pos,
+                          (const float*)inst_f, (const int*)inst_u, (const int*)sf_tlas_count,
+                          (const int*)sf_tlas_offset, n_tlas_count, n_tlas};
         const UnpackedFetch fe = {(const float4*)tri_pos, (const int*)tri_idx,
                                   (const float*)vattr, (const float*)inst_f,
                                   (const int*)inst_u};
         return launch_lit(w, fe, lights, p, l, o, build, design, s);
     }
+#if PT_NODE_ROWS == 8
     const PackedFetch fe = {(const float*)tri_shade, (const float*)inst_f, (const int*)inst_u};
 #define PT_WF_LAUNCH(S, L, STUB)                                                          \
     if (width == Layout<S, L, STUB>::kWidth)                                              \
@@ -231,6 +249,7 @@ extern "C" int pt_wavefront(
     PT_WF_LAUNCH(16, 8, false)  // w16
     PT_WF_LAUNCH(8, 8, true)    // s8
 #undef PT_WF_LAUNCH
+#endif
     return -1;
 }
 
@@ -240,18 +259,23 @@ extern "C" int pt_wavefront_block_size(int design) {
 
 extern "C" int pt_wavefront_count_slots(void) { return kNCounts; }
 
+// f32 words of a binary node row in this library's format: 8 (nl8) or 5 (nl5).
+extern "C" int pt_wavefront_node_words(void) { return PT_NODE_ROWS; }
+
 extern "C" int pt_wavefront_phase_slots(void) { return kNPhases; }
 
 // Blocks of the timed kernel for this row width (0: the binary walk) in
 // `design` (this library's light policy) one SM holds at once (negative:
 // the CUDA error), or 0 for a width no layout has.
 extern "C" int pt_wavefront_occupancy(int width, int design) {
-    if (width == 0) return occupancy<BinaryWalk, UnpackedFetch>(design);
+    if (width == 0) return occupancy<Binary, UnpackedFetch>(design);
+#if PT_NODE_ROWS == 8
     if (width == Layout<8, 4, false>::kWidth)
         return occupancy<WideWalk<8, 4, false>, PackedFetch>(design);
     if (width == Layout<16, 8, false>::kWidth)
         return occupancy<WideWalk<16, 8, false>, PackedFetch>(design);
     if (width == Layout<8, 8, true>::kWidth)
         return occupancy<WideWalk<8, 8, true>, PackedFetch>(design);
+#endif
     return 0;
 }

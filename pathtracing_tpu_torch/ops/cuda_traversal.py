@@ -15,6 +15,12 @@ Differences from the TPU wrapper's interface, on purpose:
     there is no second path to give way to: a build or launch failure
     propagates. ``table_bytes`` only reports the tables' size.
 
+The node rows: a scene with bf16 node rows (``scene.nl5``,
+scene/device.with_bf16_nodes) is walked through them by the kernel's nl5
+instance, any other through ``nl8``. The source builds two libraries, one
+per row format (``-DPT_NODE_ROWS=5`` for nl5), and the wrapper launches the
+one of the scene's rows or raises; it never walks the other table.
+
 Build and binding: ops/cuda_build.py (``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes``, built at first use under a
 hash-keyed name in ``build/torch_kernels/``). The hash covers the two headers
@@ -41,33 +47,75 @@ HEADER = CSRC / "ray_common.cuh"
 WALK_HEADER = CSRC / "binary_walk.cuh"
 
 _p, _f, _i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-LIBRARY = KernelLibrary(
-    SOURCE,
-    headers=(HEADER, WALK_HEADER),
-    symbols={
-        "pt_ray_query": ([_p] * 15 + [_f, _f, _i] + [_p] * 7 + [_i, _p], _i),
-        "pt_ray_query_block_size": ([], _i),
-        "pt_ray_query_occupancy": ([], _i),
-    },
-)
+SYMBOLS = {
+    "pt_ray_query": ([_p] * 15 + [_f, _f, _i] + [_p] * 7 + [_i, _p], _i),
+    "pt_ray_query_block_size": ([], _i),
+    "pt_ray_query_node_words": ([], _i),
+    "pt_ray_query_occupancy": ([], _i),
+}
+# One library per node-row format, built side by side from the one source.
+LIBRARY = KernelLibrary(SOURCE, headers=(HEADER, WALK_HEADER), symbols=SYMBOLS)
+NL5_LIBRARY = KernelLibrary(SOURCE, headers=(HEADER, WALK_HEADER), symbols=SYMBOLS,
+                            defines=("-DPT_NODE_ROWS=5",), name="ray_query_nl5")
+LIBRARY_BY_ROWS = {"nl8": LIBRARY, "nl5": NL5_LIBRARY}
+# f32 words of a node row per format
+NODE_WORDS = {"nl8": 8, "nl5": 5}
 
-# Launches of the kernel since the last reset: incremented where the kernel
-# is launched and nowhere else, so a run can show that it went through it.
+# Launches of the kernel since the last reset, in all and per node-row
+# format: incremented where the kernel is launched and nowhere else, so a
+# run can show that it went through it.
 launches = 0
+launches_by_rows = {"nl8": 0, "nl5": 0}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for k in launches_by_rows:
+        launches_by_rows[k] = 0
+
+
+def node_table(scene, device):
+    """The binary node rows a kernel walks, checked: ("nl5", scene.nl5) when
+    the scene carries bf16 rows, else ("nl8", scene.nl8). ``nl8`` is a
+    contiguous (8N, 8) f32 table on ``device`` either way; walked, it must be
+    16-byte aligned (its rows are read as float4 pairs). ``nl5`` must be a
+    contiguous (8N, 5) f32 table on ``device``, 4-byte aligned (its rows are
+    read as five words)."""
+    f32 = torch.float32
+    rows = scene.nl8.shape[0]
+    _check("scene.nl8", scene.nl8, f32, (rows, 8), device)
+    if scene.nl5 is None:
+        if scene.nl8.data_ptr() % 16:
+            raise ValueError("scene.nl8: rows are read as 16-byte vectors; "
+                             "the table must be 16-byte aligned")
+        return "nl8", scene.nl8
+    _check("scene.nl5", scene.nl5, f32, (rows, 5), device)
+    if scene.nl5.data_ptr() % 4:
+        raise ValueError("scene.nl5: rows are read as 4-byte words; "
+                         "the table must be 4-byte aligned")
+    return "nl5", scene.nl5
 
 
 def table_bytes(scene) -> int:
-    """Bytes of the four tables the kernel reads (reporting only: nothing is
-    gated on it)."""
+    """Bytes of the four tables the kernel reads: the node rows it walks
+    (``nl5`` when the scene carries it, else ``nl8``), ``tri_pos``,
+    ``inst_f``, ``inst_u`` (reporting only: nothing is gated on it)."""
+    nodes = scene.nl8 if scene.nl5 is None else scene.nl5
     return sum(
         t.numel() * t.element_size()
-        for t in (scene.nl8, scene.tri_pos, scene.inst_f, scene.inst_u)
+        for t in (nodes, scene.tri_pos, scene.inst_f, scene.inst_u)
     )
+
+
+def load_library(rows: str):
+    """The built library of a node-row format ("nl8" or "nl5"), checked to
+    walk rows of that many words."""
+    lib = LIBRARY_BY_ROWS[rows].load()
+    words = int(lib.pt_ray_query_node_words())
+    if words != NODE_WORDS[rows]:
+        raise RuntimeError(f"ray_query library for {rows} walks {words}-word rows")
+    return lib
 
 
 def block_size() -> int:
@@ -92,28 +140,25 @@ def ray_query_cuda(
     ``anyhit``: a Python bool, or a per-lane bool tensor (one batch may mix
     shadow and bounce rays). ``tmax0``: a scalar or a per-lane f32 tensor.
 
-    Launches on PyTorch's current stream and does not synchronise. Raises on
-    a tensor of the wrong device, dtype, shape or layout, and on a refused
-    launch; it never gives way to the plain version.
+    A scene with ``nl5`` is walked through its bf16 rows by the nl5
+    instance, any other through ``nl8``. Launches on PyTorch's current
+    stream and does not synchronise. Raises on a tensor of the wrong device,
+    dtype, shape or layout, and on a refused launch; it never gives way to
+    the plain version or to the other node table.
     """
     global launches
     device = org.x.device
     if device.type != "cuda":
         raise ValueError(f"ray_query_cuda needs CUDA tensors, got {device}")
-    if scene.nl5 is not None:
-        raise NotImplementedError(
-            "bf16 node tables are a later slice of the port"
-        )
     R = org.x.shape[0]
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    _check("scene.nl8", scene.nl8, f32, (scene.nl8.shape[0], 8), device)
+    rows, nodes = node_table(scene, device)
     _check("scene.tri_pos", scene.tri_pos, f32, (scene.tri_pos.shape[0], 12), device)
     _check("scene.inst_f", scene.inst_f, f32, (scene.inst_f.shape[0], 21), device)
     _check("scene.inst_u", scene.inst_u, i32, (scene.inst_u.shape[0], 6), device)
-    for name, t in (("scene.nl8", scene.nl8), ("scene.tri_pos", scene.tri_pos)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: rows are read as 16-byte vectors; "
-                             "the table must be 16-byte aligned")
+    if scene.tri_pos.data_ptr() % 16:
+        raise ValueError("scene.tri_pos: rows are read as 16-byte vectors; "
+                         "the table must be 16-byte aligned")
     _check("tlas_count", tlas_count, i32, (R,), device)
     _check("tlas_offset", tlas_offset, i32, (R,), device)
     for name, t in zip(("org.x", "org.y", "org.z", "d.x", "d.y", "d.z"), (*org, *d)):
@@ -136,7 +181,7 @@ def ray_query_cuda(
     else:
         tmax_all = float(tmax0)
 
-    lib = LIBRARY.load()
+    lib = load_library(rows)
     thit = torch.empty(R, dtype=f32, device=device)
     bu = torch.empty(R, dtype=f32, device=device)
     bv = torch.empty(R, dtype=f32, device=device)
@@ -152,7 +197,7 @@ def ray_query_cuda(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pt_ray_query(
-            ptr(scene.nl8), ptr(scene.tri_pos), ptr(scene.inst_f), ptr(scene.inst_u),
+            ptr(nodes), ptr(scene.tri_pos), ptr(scene.inst_f), ptr(scene.inst_u),
             ptr(tlas_count), ptr(tlas_offset),
             ptr(org.x), ptr(org.y), ptr(org.z), ptr(d.x), ptr(d.y), ptr(d.z),
             ptr(tmax_lane), ptr(active), ptr(anyhit_lane),
@@ -164,6 +209,7 @@ def ray_query_cuda(
         raise RuntimeError(f"ray_query kernel launch refused: cudaError {err}")
     if R > 0:
         launches += 1
+        launches_by_rows[rows] += 1
     hit = RayHit(
         thit=thit, bary_u=bu, bary_v=bv, bary_w=1.0 - bu - bv,
         inst=inst, prim=prim, back=back,

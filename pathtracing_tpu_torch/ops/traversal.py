@@ -18,7 +18,12 @@ device "all done?" once per step, which is fine for a plain version.
 Semantics (confirm-all closest-hit, first-candidate any-hit, octant link
 selection, tmax shrinking) are those of the JAX package's one-speed
 ``_full_step`` loop; that package's schedule knobs (two-speed loop,
-compaction, bf16 node rows) change no result and are not carried here.
+compaction) change no result and are not carried here. A scene with bf16
+node rows (``scene.nl5``, scene/device.with_bf16_nodes) is walked through
+them, as the JAX walk reads them: the boxes are rounded outward, so a walk
+visits a superset of the nodes, every closest hit stays bit-equal, and an
+any-hit ray's ``occluded`` stays equal (its first passing triangle may be
+another one).
 """
 
 from __future__ import annotations
@@ -171,13 +176,34 @@ def _slab_hit(nmin: Vec3, nmax: Vec3, org: Vec3, inv: Vec3, tmin, tmax):
 def _read_node(scene, lidx):
     """One fused row gather for a node visit: AABB + accept/cancel links.
 
-    The links are int32 bit patterns stored in float columns; they are
-    bit-viewed from a contiguous copy, never converted."""
+    Reads the bf16 rows (``scene.nl5``, 20 B; scene/device.pack_nl5) when
+    the scene carries them, else the f32 ``nl8`` (32 B). A bf16 half is the
+    high 16 bits of an f32, so it unpacks by a mask (the high half) or a
+    shift (the low one) of the word's bits. The links are int32 bit patterns
+    stored in float columns; they are bit-viewed from a contiguous copy,
+    never converted."""
+    if scene.nl5 is not None:
+        words = scene.nl5[lidx].contiguous().view(torch.int32)  # (R, 5)
+        hi = (words[:, 0:3] & -65536).view(torch.float32)
+        lo = (words[:, 0:3] << 16).view(torch.float32)
+        nmin = Vec3(hi[:, 0], lo[:, 0], hi[:, 1])
+        nmax = Vec3(lo[:, 1], hi[:, 2], lo[:, 2])
+        return nmin, nmax, words[:, 3], words[:, 4]
     row = scene.nl8[lidx]  # (R, 8)
     nmin = Vec3(row[:, 0], row[:, 1], row[:, 2])
     nmax = Vec3(row[:, 3], row[:, 4], row[:, 5])
     links = row[:, 6:8].contiguous().view(torch.int32)
     return nmin, nmax, links[:, 0], links[:, 1]
+
+
+def _node_sectors(scene, lidx):
+    """The first and last 32 B sector of the node table that row ``lidx``
+    spans, by its offset in the table: an nl8 row is one sector, an nl5 row
+    of 20 B straddles two when it crosses a 32 B boundary (4 rows in 8)."""
+    if scene.nl5 is None:
+        return lidx, lidx
+    b = lidx.to(torch.int64) * 20
+    return b // 32, (b + 19) // 32
 
 
 class _TravConsts(NamedTuple):
@@ -192,12 +218,15 @@ class _TravConsts(NamedTuple):
 
 
 class RayQueryCounts(NamedTuple):
-    """Table rows one query read, summed over its rays (one nl8 row per node
-    visit, one inst_f + inst_u row per BLAS entry and per finalized hit, one
-    tri_pos row per triangle test and per finalized hit); the distinct rows
-    of each table the batch read (what the card has to move at the least);
-    and the node visits of each lane (``lane_steps``, int32 (R,), 0 for an
-    inactive lane: what ``simd_efficiency`` reads)."""
+    """Table rows one query read, summed over its rays (one node row, nl8
+    or nl5, per node visit, one inst_f + inst_u row per BLAS entry and per
+    finalized hit, one tri_pos row per triangle test and per finalized hit);
+    the distinct rows of each table the batch read (what the card has to
+    move at the least); the 32 B sectors of the node table the visits span
+    (``node_sectors``: one a visit on nl8, one or two on nl5) and the
+    distinct sectors the batch touched; and the node visits of each lane
+    (``lane_steps``, int32 (R,), 0 for an inactive lane: what
+    ``simd_efficiency`` reads)."""
 
     node_rows: int
     inst_rows: int
@@ -205,11 +234,14 @@ class RayQueryCounts(NamedTuple):
     node_rows_touched: int
     inst_rows_touched: int
     tri_rows_touched: int
+    node_sectors: int
+    node_sectors_touched: int
     lane_steps: Array
 
 
 class _Counters(NamedTuple):
-    totals: Array        # int64 (3,): node visits, BLAS entries, triangle tests
+    totals: Array        # int64 (4,): node visits, BLAS entries, triangle
+                         # tests, node sectors visited
     lane_steps: Array    # int32 (R,): node visits per lane
     node_touched: Array  # bool per nl8 row
     inst_touched: Array  # bool per instance
@@ -323,10 +355,6 @@ def ray_query_plain(
     """The plain PyTorch version of the ray-query kernel; same contract as
     ``ray_query``, on whatever device the tensors lie. ``return_counts``
     additionally returns the RayQueryCounts of this batch."""
-    if scene.nl5 is not None:
-        raise NotImplementedError(
-            "bf16 node tables are a later slice of the port"
-        )
     R = org.x.shape
     dev = org.x.device
     tmin = float(tmin)
@@ -342,7 +370,7 @@ def ray_query_plain(
     if return_counts:
         flags = lambda t: torch.zeros(t.shape[0], dtype=torch.bool, device=dev)
         counts = _Counters(
-            torch.zeros(3, dtype=torch.int64, device=dev),
+            torch.zeros(4, dtype=torch.int64, device=dev),
             torch.zeros(R, dtype=torch.int32, device=dev),
             flags(scene.nl8), flags(scene.inst_f), flags(scene.tri_pos),
         )
@@ -357,10 +385,12 @@ def ray_query_plain(
         counts.tri_touched[scene.inst_u[inst, 4].long() + state.c_prim[h].long()] = True
         n_hit = int(h.sum())
         c = counts.totals.tolist()
+        first, last = _node_sectors(scene, counts.node_touched.nonzero()[:, 0])
         return hit, state.occluded, RayQueryCounts(
             c[0], c[1] + n_hit, c[2] + n_hit,
             int(counts.node_touched.sum()), int(counts.inst_touched.sum()),
-            int(counts.tri_touched.sum()), counts.lane_steps,
+            int(counts.tri_touched.sum()), c[3],
+            int(torch.cat([first, last]).unique().numel()), counts.lane_steps,
         )
     return hit, state.occluded
 
@@ -525,7 +555,10 @@ def _full_step(scene, s, consts, tmin, anyhit, counts=None):
 
     if counts is not None:
         # in place: small running totals, no new tensor per step
-        counts.totals.add_(torch.stack([valid.sum(), enter.sum(), test.sum()]))
+        first, last = _node_sectors(scene, lidx)
+        counts.totals.add_(torch.stack([
+            valid.sum(), enter.sum(), test.sum(),
+            valid.sum() + (valid & (first != last)).sum()]))
         counts.lane_steps.add_(valid)
         counts.node_touched[lidx[valid].long()] = True
         counts.inst_touched[payload[enter].long()] = True

@@ -39,20 +39,6 @@ from pathtracing_tpu_torch.ops.tonemap import tonemap
 from pathtracing_tpu_torch.ops.wavefront import path_trace_wavefront
 from pathtracing_tpu_torch.utils.vec import Vec3
 
-# Lanes per tile on a CUDA device. A sample is ~20,000 small eager kernels
-# whatever the tile size, and the host enqueues them at ~10 us each: at 2^20
-# lanes the card idles roughly half the time, at a whole 1920x1080 frame per
-# tile a fifth or less (PERF.md, Findings). So a tile is as large as memory allows:
-# 2^21 lanes takes a 1080p frame whole. Eager PyTorch keeps a bounce's
-# temporaries alive as full-width tensors and the merged ray query runs
-# 2 x tile lanes, so the tile size also sets peak device memory (PERF.md has
-# the figure taken on the card). One constant stands where the JAX package
-# looks a tile size up per platform and scene size.
-CUDA_TILE_PIXELS = 1 << 21
-# On the CPU the optimum is cache-bound.
-CPU_TILE_PIXELS = 1 << 15
-
-
 def _render_tile(config: RenderConfig, scene, xs, ys, spp: int, sample_base=0):
     """Sum `spp` samples per lane starting at sample_base; returns (r,g,b).
 
@@ -72,9 +58,22 @@ def _render_tile(config: RenderConfig, scene, xs, ys, spp: int, sample_base=0):
     return r, g, b
 
 
-def default_tile_pixels(device) -> int:
-    """Tile size for a device type."""
-    return CUDA_TILE_PIXELS if torch.device(device).type == "cuda" else CPU_TILE_PIXELS
+def default_tile_pixels(scene, device=None) -> int:
+    """Tile size from the tuning table (pathtracing_tpu_torch/tuning.py, its
+    tuned file over its builtin rows), by device type (``device``, else the
+    scene's) and by the scene's size class ("large" above
+    ``LARGE_SCENE_NODES`` nl8 nodes), as the JAX package resolves it per
+    platform. On a CUDA device a scan sample is ~20,000 small eager kernels
+    whatever the tile size, so a tile is as large as memory allows (eager
+    PyTorch keeps a bounce's temporaries alive as full-width tensors, and the
+    merged ray query runs 2 x tile lanes, so the tile also sets peak device
+    memory: PERF.md has the figure taken on the card); on the CPU the optimum
+    is cache-bound."""
+    from pathtracing_tpu_torch.tuning import get_tuning
+
+    kind = torch.device(device).type if device is not None else scene.nl8.device.type
+    large = (scene.nl8.shape[0] // 8) > LARGE_SCENE_NODES
+    return int(get_tuning(kind, "large" if large else "small")["tile_pixels"])
 
 
 def _tile(v, start: int, end: int, device) -> torch.Tensor:
@@ -264,7 +263,7 @@ def _render(
         )
     spp = spp or config.samples_per_pixel
     if tile_pixels is None:
-        tile_pixels = default_tile_pixels(device)
+        tile_pixels = default_tile_pixels(scene, device)
 
     def supported():
         if row_major:  # the caller built the list: only the tables decide
@@ -317,7 +316,8 @@ def render_pixels(
     wavefront=True renders through the wavefront renderer (ops/wavefront.py:
     kernel K5 on a CUDA device, its plain version on the CPU; any pixel list,
     binary or wide tables), in ``tile_pixels`` tiles; it is never picked on
-    its own. tile_pixels=None resolves per device type. ``device=None``
+    its own. tile_pixels=None takes ``default_tile_pixels`` (the tuning
+    table's row for the device type and the scene's size). ``device=None``
     means CUDA.
     """
     device = resolve_device(device)

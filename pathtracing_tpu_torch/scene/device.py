@@ -7,6 +7,8 @@ packed into one row, so a ray-query step or a shading fetch reads whole rows
 
   nl8     (8N, 8)  node AABB + {accept, cancel} fused per (octant, node),
                    indexed by the link index (reference layout bvh.cc:217-226)
+  nl5     (8N, 5)  optional (``with_bf16_nodes``): the same rows in 20 B,
+                   the AABB as bf16 halves rounded outward + the two links
   tri_pos (T, 12)  triangle vertex positions by global triangle id
   inst_f  (I, 21)  inv_transform columns (12) + rotation rows (9)
   inst_u  (I, 6)   blas count/offset, index_offset, base_vertex, tri_offset
@@ -61,12 +63,13 @@ class SceneDevice(NamedTuple):
     sf_tlas_offset: Array
     sf_cam: Array     # (S, 18) f32
     sf_light: Array   # (S, 7) f32
-    # Optional tables, in the JAX package's field order. nl5 (bf16 node
-    # rows) and the hot rows belong to later slices of the port: they stay
-    # None, and the code raises NotImplementedError when one is set. The
-    # emissive-light tables (lt_*) come from pack_scene(emissive_nee=True)
-    # (ops/arealights.py).
-    nl5: Array | None = None
+    # Optional tables, in the JAX package's field order. nl5: the bf16 node
+    # rows of with_bf16_nodes (every binary walk then reads them in place of
+    # nl8; a scene with wide tables walks those and ignores nl5). The hot
+    # rows belong to a later slice of the port: they stay None, and the code
+    # raises NotImplementedError when one is set. The emissive-light tables
+    # (lt_*) come from pack_scene(emissive_nee=True) (ops/arealights.py).
+    nl5: Array | None = None      # (8N, 5) f32; cols 0-2 bf16 pairs, 3-4 bits
     # Wide-BVH tables (pack_scene(wide=True)); wide_root_base stays None for
     # a one-shot pack (wide_root is indexed by the tlas offset itself).
     wide_rows: Array | None = None   # (M, w_row) f32; link columns are bits
@@ -98,6 +101,73 @@ def _concat_rows_bitsafe(static_dev: torch.Tensor, tail_host: np.ndarray) -> tor
     tail = to_device(np.ascontiguousarray(tail_host, f32).view(np.int32),
                      static_dev.device)
     return torch.cat([static_dev.view(torch.int32), tail]).view(torch.float32)
+
+
+def _round_bf16_down(x: np.ndarray) -> np.ndarray:
+    """Largest bf16 <= x, as f32 bit patterns >> 16 (uint32)."""
+    bits = np.ascontiguousarray(x, f32).view(np.uint32)
+    inexact = (bits & np.uint32(0xFFFF)) != 0
+    trunc = bits >> 16
+    neg = (bits >> 31).astype(bool)
+    # toward zero == down for x>0; for x<0 grow the magnitude when inexact
+    return trunc + (inexact & neg).astype(np.uint32)
+
+
+def _round_bf16_up(x: np.ndarray) -> np.ndarray:
+    """Smallest bf16 >= x, as f32 bit patterns >> 16 (uint32)."""
+    bits = np.ascontiguousarray(x, f32).view(np.uint32)
+    inexact = (bits & np.uint32(0xFFFF)) != 0
+    trunc = bits >> 16
+    neg = (bits >> 31).astype(bool)
+    return trunc + (inexact & ~neg).astype(np.uint32)
+
+
+def pack_nl5(nl8: np.ndarray) -> np.ndarray:
+    """Compress an nl8 table to (8N, 5): bf16 AABB pairs + the two links.
+
+    Columns 0-2 each hold two bf16 halves (value-preserving in the high 16
+    bits of an f32): [min.x|min.y, min.z|max.x, max.y|max.z]. min is rounded
+    toward -inf, max toward +inf, so every bf16 box contains its f32 box.
+    Columns 3-4 are the accept/cancel bit patterns unchanged.
+    """
+    nl8 = np.asarray(nl8, f32)
+    lo = _round_bf16_down(nl8[:, 0:3])   # min.xyz
+    hi = _round_bf16_up(nl8[:, 3:6])     # max.xyz
+    six = np.concatenate([lo, hi], axis=1)  # minx miny minz maxx maxy maxz
+    out = np.zeros((len(nl8), 5), f32)
+    packed = (six[:, 0::2] << 16) | six[:, 1::2]
+    out[:, 0:3] = packed.view(f32)
+    out[:, 3:5] = nl8[:, 6:8]
+    return out
+
+
+def _pack_nl5_tensor(nl8: torch.Tensor) -> torch.Tensor:
+    """``pack_nl5`` on the table's own device, in exact integer arithmetic:
+    each f32 is taken as its uint32 bit pattern in an int64, rounded to a
+    bf16 half as ``_round_bf16_down`` / ``_round_bf16_up`` round it (the
+    rounding may carry into bit 16, as the numpy version's does), the pairs
+    joined modulo 2^32 and stored back as int32 bits. No value passes through
+    a float op, so NaN-pattern links and NaN bounds keep every bit."""
+    words = nl8.contiguous().view(torch.int32)
+    bits = words[:, 0:6].to(torch.int64) & 0xFFFFFFFF  # minxyz maxxyz
+    inexact = (bits & 0xFFFF) != 0
+    neg = (bits >> 31) != 0
+    up = torch.arange(6, device=nl8.device) >= 3  # max.xyz round up, min.xyz down
+    half = (bits >> 16) + (inexact & (neg != up)).to(torch.int64)
+    packed = ((half[:, 0::2] << 16) | half[:, 1::2]) & 0xFFFFFFFF
+    packed = (packed - ((packed >> 31) << 32)).to(torch.int32)
+    return torch.cat([packed, words[:, 6:8]], dim=1).view(torch.float32)
+
+
+def with_bf16_nodes(scene: SceneDevice) -> SceneDevice:
+    """A copy of the scene with the compressed node table attached (``nl5``).
+
+    The JAX package packs on the host (``pack_nl5`` of the fetched ``nl8``)
+    and uploads; here the rows are packed where ``nl8`` lies, in exact
+    integer ops, byte for byte ``pack_nl5``'s. It takes a one-shot pack and
+    a ``DevicePacker`` frame scene alike (its ``nl8`` is the static rows and
+    the frame's tail, concatenated)."""
+    return scene._replace(nl5=_pack_nl5_tensor(scene.nl8))
 
 
 def _instance_rows(instances, pad_to: int = 1):

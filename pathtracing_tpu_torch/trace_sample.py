@@ -53,7 +53,7 @@ from pathtracing_tpu_torch.diff.render import (
 )
 from pathtracing_tpu_torch.ops.integrator import path_trace_samples
 from pathtracing_tpu_torch.ops.megakernel import path_trace_megakernel
-from pathtracing_tpu_torch.render import CUDA_TILE_PIXELS
+from pathtracing_tpu_torch.render import default_tile_pixels
 from pathtracing_tpu_torch.scene.golden import scene_device_from_golden
 from pathtracing_tpu_torch.utils.goldenio import load_golden
 
@@ -71,12 +71,13 @@ def main() -> None:
                     help="profile one replay chunk of the frame gradient")
     args = ap.parse_args()
     wide = args.wide or args.grad
-    lanes = args.lanes or (REPLAY_CHUNK if args.grad else min(CUDA_TILE_PIXELS, n_frame))
 
     cfg = dataclasses.replace(PRODUCTION, samples_per_pixel=8)
     scene = scene_device_from_golden(
         load_golden(str(GOLDEN / "scene.gold")), cfg, wide=wide
     )
+    lanes = args.lanes or (REPLAY_CHUNK if args.grad
+                           else min(default_tile_pixels(scene), n_frame))
     if args.grad:
         xs, ys, si = frame_items(cfg, n_frame, 1, 0, torch.device("cuda"))
         _, (prim, bounce) = path_trace_megakernel(cfg, scene, n_frame, 1, record=True)

@@ -313,20 +313,22 @@ def test_gather_wrapper_refusals():
 
 @pytest.mark.parametrize("kw", [{"wavefront": True}, {"megakernel": True}])
 def test_later_renderers_raise(kw):
-    """The wavefront renderer and the megakernel are in. A table of a later
-    slice is refused where a walk would read it (bf16 node rows, S2, on the
-    binary walk); area-light tables, once a later slice, render through
-    both, as the scan renders them."""
+    """The wavefront renderer and the megakernel are in. The tables of
+    once later slices render through them: bf16 node rows (S2) on the binary
+    walk as the nl8 rows render, area-light tables through both as the
+    scan renders them."""
     from pathtracing_tpu_torch import models
+    from pathtracing_tpu_torch.scene.device import with_bf16_nodes
 
     wide = "megakernel" in kw
     scene = tgolden.scene_device_from_golden(golden("scene.gold"), CFG, wide=wide,
                                              device="cpu")
     idx = np.arange(16 * 9, dtype=np.int32)
     if not wide:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            trender.render_pixels(CFG, scene._replace(nl5=torch.zeros((4, 5))), idx % 16,
-                                  idx // 16, device="cpu", **kw)
+        got = trender.render_pixels(CFG, with_bf16_nodes(scene), idx % 16, idx // 16,
+                                    device="cpu", **kw)
+        ref = trender.render_pixels(CFG, scene, idx % 16, idx // 16, device="cpu", **kw)
+        assert got.tobytes() == ref.tobytes() and got.mean() > 0
     _, lit = models.build("cornell_box", CFG, wide=wide, device="cpu")
     got = trender.render_pixels(CFG, lit, idx % 16, idx // 16, device="cpu", **kw)
     ref = trender.render_pixels(CFG, lit, idx % 16, idx // 16, megakernel=False,
