@@ -157,10 +157,6 @@ def main(argv=None):
         )
         if not (1 <= args.adaptive <= spp_total):
             ap.error(f"--adaptive BASE must be in [1, spp={spp_total}]")
-    if args.shard:
-        raise NotImplementedError(
-            "--shard is a later slice of the port (S10, parallel/sharding.py)"
-        )
 
     if args.merge:
         return merge_partials(args)
@@ -308,6 +304,16 @@ def main(argv=None):
                     args.out, f"frame_{frame_index:04d}.part_{a}_{b}.npz"
                 )
                 np.savez_compressed(part, sums=sums, sample_range=(a, b))
+            elif args.shard:
+                from pathtracing_tpu_torch.parallel.multihost import local_device_mesh
+                from pathtracing_tpu_torch.parallel.sharding import render_frame_sharded
+                from pathtracing_tpu_torch.render import to_bgra
+
+                colors = render_frame_sharded(
+                    config, dev, local_device_mesh(device_type=device.type),
+                    wavefront=args.wavefront,
+                )
+                image = to_bgra(colors, device=device)
             elif args.adaptive is not None:
                 from pathtracing_tpu_torch.adaptive import render_adaptive
                 from pathtracing_tpu_torch.render import to_bgra

@@ -13,11 +13,13 @@ from pathtracing_tpu_torch import resolve_device
 from pathtracing_tpu_torch.scene.device import SceneDevice, to_device
 
 # optional tables carried across when the JAX scene has them: the bf16 node
-# rows, the wide-BVH tables and the area-light tables
+# rows, the wide-BVH tables, the area-light tables and the hot-row tables
 _OPTIONAL = ("nl5", "wide_rows", "wide_root", "wide_root_base", "tri_shade",
-             "lt_tris", "lt_rows", "lt_cdf", "lt_seg", "lt_rank")
-# fields of the JAX SceneDevice that the port does not read yet
-_LATER = ("hot_rows", "hot_planes")
+             "lt_tris", "lt_rows", "lt_cdf", "lt_seg", "lt_rank", "hot_rows",
+             "hot_planes")
+# fields of the JAX SceneDevice that the port does not read yet (none: every
+# table comes across)
+_LATER: tuple = ()
 
 
 def scene_from_jax(fields: dict[str, np.ndarray], device=None) -> SceneDevice:
@@ -25,9 +27,10 @@ def scene_from_jax(fields: dict[str, np.ndarray], device=None) -> SceneDevice:
 
     Tables are uploaded byte for byte (the link bit patterns in ``nl8``,
     ``nl5`` and ``wide_rows`` pass through no float op). The bf16 node rows,
-    the wide-BVH and the area-light tables come across when present. The
-    hot-row tables of a later slice are refused rather than dropped, so a
-    scene never renders through another path than the caller packed it for.
+    the wide-BVH, the area-light and the hot-row tables come across when
+    present. A table of ``_LATER`` would be refused rather than dropped, so
+    a scene never renders through another path than the caller packed it
+    for.
     """
     device = resolve_device(device)
     unknown = set(fields) - set(SceneDevice._fields)

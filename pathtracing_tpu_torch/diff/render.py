@@ -191,12 +191,14 @@ def make_fast_grad_frame_fn(
     return fn
 
 
-def frame_items(config: RenderConfig, n_pixels: int, spp: int, sample_base: int, device):
+def frame_items(config: RenderConfig, n_pixels: int, spp: int, sample_base: int, device,
+                pixel_base: int = 0):
     """(xs, ys, sample_indices) of the frame's work items, int32 on
-    ``device``: item k * n_pixels + p is sample sample_base + k of pixel p
-    of the row-major frame (the megakernel's record order)."""
+    ``device``: item k * n_pixels + p is sample sample_base + k of pixel
+    pixel_base + p of the row-major frame (the megakernel's record
+    order)."""
     item = torch.arange(n_pixels * spp, dtype=torch.int64, device=device)
-    pix = item % n_pixels
+    pix = item % n_pixels + pixel_base
     xs = (pix % config.image_width).to(torch.int32)
     ys = torch.div(pix, config.image_width, rounding_mode="floor").to(torch.int32)
     # sample_base + k wraps as int32, as the megakernel's does

@@ -503,10 +503,20 @@ def path_trace_samples(
     masked rand4 draw after the NEE draw, and a third ray in the bounce's
     query, the any-hit ray toward the sampled light point (tmax just short
     of it); its term is added right after the query, before the sun's, and
-    emission found by BSDF sampling takes the power-heuristic weight. The
-    JAX package's ``query_shade`` override (geometry sharding) is a later
-    slice and raises NotImplementedError; record/replay with light tables
-    raise it too, as in JAX.
+    emission found by BSDF sampling takes the power-heuristic weight.
+
+    query_shade: optional trace-and-shade override, called once for the
+    primary rays and once per bounce for the merged query: ``(scene, light,
+    subframe, org, d, tmin, tmax, active, anyhit, n_shade) -> (occluded over
+    lanes [:N - n_shade], HitInfo over the last n_shade lanes)``, with
+    ``subframe`` the (N,) subframe index of each lane as ``camera_sample``
+    computes it (rows past a table read its last row). The JAX hook takes
+    each lane's ``tlas_count`` / ``tlas_offset`` from the scene it runs on;
+    here one controller drives every shard, so the hook takes the subframe
+    and reads each shard's TLAS handles from that shard's own tables
+    (parallel/geomshard.make_geom_query_shade). As in JAX, it refuses
+    area-light NEE, and record/replay refuse it (NotImplementedError);
+    record/replay with light tables raise it too.
     """
     contribution, prim_rec, recs, _, _ = _path_trace(
         config, scene, xs, ys, sample_index, query_shade, record, replay)
@@ -534,14 +544,20 @@ def _path_trace(config, scene, xs, ys, sample_index, query_shade, record, replay
     active, shadow_active): the last four only with ``record`` (else None),
     ``active`` / ``shadow_active`` the (B, R) masks of the lanes that traced
     the bounce / shadow ray of each row."""
-    if query_shade is not None:
+    if query_shade is not None and scene.lt_tris is not None:
         raise NotImplementedError(
-            "query_shade overrides come with the sharding slice of the port"
+            "area-light NEE is not supported under a query_shade override "
+            "(geometry sharding packs shard scenes without light tables)"
         )
     if (record or replay is not None) and scene.lt_tris is not None:
         raise NotImplementedError(
             "record/replay gradients support the default sun-NEE trace only, "
             "not area-light NEE (as in the JAX package)"
+        )
+    if (record or replay is not None) and query_shade is not None:
+        raise NotImplementedError(
+            "record/replay gradients support the default trace only, not a "
+            "query_shade override (as in the JAX package)"
         )
     use_lights = arealights.has_lights(scene)
 
@@ -559,6 +575,11 @@ def _path_trace(config, scene, xs, ys, sample_index, query_shade, record, replay
         )
         prim_rec = _rec_of(phit, torch.zeros_like(all_active))
         info = shade_hit(scene, light, phit, ray_o, ray_dir)
+    elif query_shade is not None:
+        _, info = query_shade(
+            scene, light, subframe, ray_o, ray_dir, 0.0, 1e9, all_active, False,
+            xs.shape[0],
+        )
     else:
         info = trace_ray(
             scene, light, tlas_count, tlas_offset, ray_o, ray_dir, 0.0, all_active
@@ -587,6 +608,7 @@ def _path_trace(config, scene, xs, ys, sample_index, query_shade, record, replay
     n_shadow = 2 if use_lights else 1
     tlas_count2 = torch.cat([tlas_count] * (n_shadow + 1))
     tlas_offset2 = torch.cat([tlas_offset] * (n_shadow + 1))
+    subframe2 = torch.cat([subframe] * (n_shadow + 1)) if query_shade is not None else None
     anyhit2 = cat(
         torch.ones(n_shadow * R, dtype=torch.bool, device=xs.device),
         torch.zeros(R, dtype=torch.bool, device=xs.device),
@@ -647,6 +669,13 @@ def _path_trace(config, scene, xs, ys, sample_index, query_shade, record, replay
             occluded = occ3[:R]
             area_occluded = occ3[R:2 * R]
             bounce_hit = RayHit(*(a[2 * R:] for a in hit3))
+        elif query_shade is not None:
+            # the same merged query, traced and shaded by the override
+            occluded, info = query_shade(
+                scene, light, subframe2, cat3(info_now.pos, ray_o),
+                cat3(nee.light_dir, ray_dir), config.min_ray_dist,
+                config.max_ray_dist, cat(nee.shadow_active, active), anyhit2, R,
+            )
         else:
             # One ray query per bounce: the any-hit shadow ray and the
             # closest-hit bounce ray trace together (per-lane anyhit mask).
@@ -669,7 +698,8 @@ def _path_trace(config, scene, xs, ys, sample_index, query_shade, record, replay
             recs.append(_rec_of(bounce_hit, occluded))
             actives.append(active)
             shadows.append(nee.shadow_active)
-        info = shade_hit(scene, light, bounce_hit, ray_o, ray_dir)
+        if query_shade is None:
+            info = shade_hit(scene, light, bounce_hit, ray_o, ray_dir)
         if use_lights:
             contribution = contribution + where3(
                 active,

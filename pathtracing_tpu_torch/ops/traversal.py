@@ -366,6 +366,11 @@ def ray_query_plain(
 
     consts = make_consts(tlas_count, tlas_offset, org, d)
     state = init_state(R, active, tmax0, dev)
+    if scene.nl8.shape[0] == 0:
+        # no node rows (a geometry shard without instances: a 0-node TLAS
+        # in every subframe): every lane exhausts at its first step, as in
+        # the kernel's walk, and there is no row to read
+        state = state._replace(done=torch.ones_like(state.done))
     counts = None
     if return_counts:
         flags = lambda t: torch.zeros(t.shape[0], dtype=torch.bool, device=dev)

@@ -26,8 +26,13 @@ row visit per lane, finished lanes masked, until no lane is alive. It is the
 JAX package's one-speed walk (``leaf_every=None``, no compaction). That
 package's two-speed parking and staged lane compaction are schedules of a
 SIMD loop that its own tests prove result-invariant; a thread leaves its own
-loop on the card, so ``wide_ray_query`` takes neither knob. The one-hot
-hot-row fetch belongs to a later slice.
+loop on the card, so ``wide_ray_query`` takes neither knob. The JAX walk's
+hot advances (``_wide_cheap_step(hot=True)``, its rows fetched by the
+bit-exact one-hot matmul ``_onehot_row``) read rows [0, H) of a
+hot-permuted table (scene/device.DevicePacker(hot_rows=)) from a copy of
+them; here every row, hot or not, is the plain row gather from
+``wide_rows``, which holds the same bits, so a hot-permuted scene walks
+unchanged.
 
 Cursors, links, prim ids and the instance id are uint32/int32 bit patterns
 stored in float columns. Here they are **int32** tensors holding the same

@@ -65,10 +65,13 @@ class SceneDevice(NamedTuple):
     sf_light: Array   # (S, 7) f32
     # Optional tables, in the JAX package's field order. nl5: the bf16 node
     # rows of with_bf16_nodes (every binary walk then reads them in place of
-    # nl8; a scene with wide tables walks those and ignores nl5). The hot
-    # rows belong to a later slice of the port: they stay None, and the code
-    # raises NotImplementedError when one is set. The emissive-light tables
-    # (lt_*) come from pack_scene(emissive_nee=True) (ops/arealights.py).
+    # nl8; a scene with wide tables walks those and ignores nl5). The
+    # emissive-light tables (lt_*) come from pack_scene(emissive_nee=True)
+    # (ops/arealights.py). hot_rows / hot_planes: DevicePacker(hot_rows=)'s
+    # copy of the permuted mega-table's prefix [0, H) (accel/hotperm.py),
+    # and the same words as four int8 byte planes, packed as the JAX
+    # package packs them for its one-hot fetch; the port's walks read those
+    # rows from wide_rows itself.
     nl5: Array | None = None      # (8N, 5) f32; cols 0-2 bf16 pairs, 3-4 bits
     # Wide-BVH tables (pack_scene(wide=True)); wide_root_base stays None for
     # a one-shot pack (wide_root is indexed by the tlas offset itself).
@@ -101,6 +104,18 @@ def _concat_rows_bitsafe(static_dev: torch.Tensor, tail_host: np.ndarray) -> tor
     tail = to_device(np.ascontiguousarray(tail_host, f32).view(np.int32),
                      static_dev.device)
     return torch.cat([static_dev.view(torch.int32), tail]).view(torch.float32)
+
+
+def _hot_byte_planes(rows_f32: np.ndarray) -> np.ndarray:
+    """(H, W) f32 rows -> (H, 4W) int8: the rows' u32 words split into four
+    byte planes, each biased by -128 so it fits int8 (the JAX package's
+    operand of its one-hot hot-row fetch)."""
+    u = np.ascontiguousarray(rows_f32, f32).view(np.uint32)
+    planes = [
+        (((u >> (8 * b)) & 0xFF).astype(np.int32) - 128).astype(np.int8)
+        for b in range(4)
+    ]
+    return np.concatenate(planes, axis=1)
 
 
 def _round_bf16_down(x: np.ndarray) -> np.ndarray:
@@ -410,8 +425,12 @@ class DevicePacker:
     build_frame_tail); with ``chunked=True`` the chunked static region
     (accel/chunks.py: meshes split into subtrees of at most
     ``chunks.CHUNK_MAX`` triangles, an instance-split static TLAS built
-    here once, per-frame tails carrying only the dynamic instances). The hot-row
-    permutation (``hot_rows``) is a later slice of the port (S10).
+    here once, per-frame tails carrying only the dynamic instances).
+    ``hot_rows=H`` (chunked regions only, else ValueError) permutes the
+    static rows so the H hottest sit at [0, H) (accel/hotperm.py; by
+    ``hot_score`` when given, else the structural order) and fills
+    ``hot_rows`` / ``hot_planes`` of every frame scene; the walks are
+    unchanged and their results bit-identical to the unpermuted pack.
     """
 
     # shape-stability buckets, kept from the JAX package (where every
@@ -425,12 +444,12 @@ class DevicePacker:
 
     def __init__(self, scene, wide: bool = False, leaf_bundle: int | None = 8,
                  wide_layout="w8", chunked: bool = False,
-                 hot_rows: int = 0, device=None):
-        if hot_rows:
-            raise NotImplementedError(
-                "DevicePacker(hot_rows=): the hot-row tables are a later "
-                "slice of the port (S10, accel/hotperm.py)"
-            )
+                 hot_rows: int = 0, hot_score=None, device=None):
+        if hot_rows and not (wide and chunked):
+            # the plain WideStaticRegion predates the chunk TLAS and has no
+            # root map to rewrite
+            raise ValueError("hot_rows needs the chunked static region "
+                             "(wide=True, chunked=True)")
         self.device = device = resolve_device(device)
         mesh_arrays = scene.mesh_buf.arrays()
         indices, pos, normal, albedo, material = mesh_arrays
@@ -486,6 +505,14 @@ class DevicePacker:
                     leaf_bundle=leaf_bundle,
                     layout=_wide_layout(wide_layout),
                 )
+            self._hot_dev = self._hot_planes_dev = None
+            if hot_rows:
+                from pathtracing_tpu_torch.accel.hotperm import apply_hot_permutation
+
+                apply_hot_permutation(self._wide_static, hot_rows, score=hot_score)
+                hot = self._wide_static.rows[: self._wide_static.hot_count]
+                self._hot_dev = dev(hot)
+                self._hot_planes_dev = dev(_hot_byte_planes(hot))
             self._wide_static_dev = dev(self._wide_static.rows)
             self._tri_shade = dev(
                 pack_tri_shade(indices, pos, normal, albedo, material, meshes)
@@ -575,5 +602,7 @@ class DevicePacker:
                 wide_root=dev(root_by_off),
                 wide_root_base=self._root_base,
                 tri_shade=self._tri_shade,
+                hot_rows=self._hot_dev,
+                hot_planes=self._hot_planes_dev,
             )
         return out

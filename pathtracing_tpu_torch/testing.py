@@ -58,7 +58,7 @@ def assert_same_tables(tscene, jscene) -> None:
     """The port's SceneDevice against the JAX package's: same field names in
     the same order, and every table the JAX scene has equal in shape, dtype
     and bytes (contiguous on the port's side); what it lacks is None here."""
-    np_of_torch = {torch.float32: np.float32, torch.int32: np.int32}
+    np_of_torch = {torch.float32: np.float32, torch.int32: np.int32, torch.int8: np.int8}
     assert tscene._fields == jscene._fields
     for k in tscene._fields:
         tv, jv = getattr(tscene, k), getattr(jscene, k)

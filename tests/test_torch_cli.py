@@ -134,15 +134,31 @@ def test_device_rule_and_later_slices(data_dir, tmp_path):
         # no fallback: without --device cpu and without a card it raises
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["--data-dir", data_dir, "--out", str(tmp_path)])
-    # --shard is a later slice; --adaptive is refused with a sample range
-    # and outside [1, spp] (an argparse error, before anything renders)
-    with pytest.raises(NotImplementedError, match="S10"):
-        run(data_dir, tmp_path, "--shard")
+    # --adaptive is refused with a sample range or --shard, and outside
+    # [1, spp] (an argparse error, before anything renders)
     for bad in (["--adaptive", "4", "--sample-range", "0", "2"],
+                ["--adaptive", "4", "--shard"],
                 ["--adaptive", "9", "--spp", "8"], ["--adaptive", "0"]):
         with pytest.raises(SystemExit):
             run(data_dir, tmp_path, *bad)
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("wavefront", [False, True], ids=["scan", "wavefront"])
+def test_shard_matches_unsharded(runs, data_dir, tmp_path, wavefront):
+    """--shard renders each frame through parallel/sharding.
+    render_frame_sharded over the CPU's one-device mesh: the BMP the
+    unsharded frame gives, byte for byte."""
+    base, _ = runs
+    extra = ["--wavefront"] if wavefront else []
+    run(data_dir, tmp_path, "--spp", "2", "--frames", "1000", "1001", "--shard", *extra)
+    got = (tmp_path / "frame_1000.bmp").read_bytes()
+    if wavefront:
+        (tmp_path / "wf").mkdir()
+        run(data_dir, tmp_path / "wf", "--spp", "2", "--frames", "1000", "1001", *extra)
+        assert got == (tmp_path / "wf" / "frame_1000.bmp").read_bytes()
+    else:
+        assert got == (base / "frames" / "frame_1000.bmp").read_bytes()
 
 
 @pytest.mark.parametrize("wide", [False, True], ids=["binary", "w8"])

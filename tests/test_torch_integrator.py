@@ -174,12 +174,15 @@ def test_production_config_runs_and_subframe_rows_bound(scenes, motion):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"query_shade": lambda *a: None}, {"record": True, "lit": True},
-           {"replay": ((), ()), "lit": True}]
+    "kw", [{"query_shade": lambda *a: None, "lit": True}, {"record": True, "lit": True},
+           {"replay": ((), ()), "lit": True},
+           {"query_shade": lambda *a: None, "record": True}]
 )
 def test_later_slices_raise(scenes, kw):
-    """query_shade (the sharding slice) raises; record/replay are ported and
-    raise, as in JAX, on a scene with area-light tables (a later slice)."""
+    """What the JAX package refuses, the port refuses (NotImplementedError):
+    a query_shade override on a scene with area-light tables, record/replay
+    with light tables, and record/replay under an override (the override
+    itself is ported: tests/test_torch_geomshard.py)."""
     kw = dict(kw)
     scene = scenes[0]
     if kw.pop("lit", False):

@@ -5,8 +5,10 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from pathtracing_tpu.scene import device as jdevice
+from pathtracing_tpu_torch import convert
 from pathtracing_tpu_torch.config import PRODUCTION, TESTING
 from pathtracing_tpu_torch.convert import scene_from_jax
 from pathtracing_tpu_torch.scene import golden as tgolden
@@ -105,14 +107,16 @@ def test_scene_from_jax_round_trips_byte_equal(which):
 def test_scene_from_jax_refuses_tables_of_later_slices():
     js = jgolden.scene_device_from_golden(golden("scene.gold"))
     fields = _jax_fields(js)
-    # the bf16 node rows (S2) come across (tests/test_torch_bf16_nodes.py);
-    # the hot rows (S10) are refused
+    # the tables of once later slices come across: the bf16 node rows (S2,
+    # tests/test_torch_bf16_nodes.py) and the hot rows (S10,
+    # tests/test_torch_hotperm.py); no table is refused any more
+    assert convert._LATER == ()
     assert scene_from_jax({**fields, "nl5": np.zeros((4, 5), np.float32)},
                           device="cpu").nl5.shape == (4, 5)
-    with pytest.raises(NotImplementedError):
-        scene_from_jax({**fields, "hot_rows": np.zeros((4, 48), np.float32)}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        scene_from_jax({**fields, "hot_planes": np.zeros((4, 192), np.int8)}, device="cpu")
+    hot = scene_from_jax({**fields, "hot_rows": np.arange(192, dtype=np.float32).reshape(4, 48),
+                          "hot_planes": np.full((4, 192), -7, np.int8)}, device="cpu")
+    assert n(hot.hot_rows).tobytes() == np.arange(192, dtype=np.float32).tobytes()
+    assert hot.hot_planes.dtype == torch.int8 and int(hot.hot_planes.sum()) == -7 * 768
     with pytest.raises(KeyError):
         scene_from_jax({k: v for k, v in fields.items() if k != "vattr"}, device="cpu")
     with pytest.raises(KeyError):
