@@ -40,7 +40,10 @@ Phases, one JSON object per line:
                     and spills as they were before their walks moved into
                     wide_walk.cuh and binary_walk.cuh, and the path kernels'
                     timed builds (K2 and K5, first design and wide block) as
-                    recorded in K2_TIMED and K5_TIMED
+                    recorded in K2_TIMED and K5_TIMED. The phases below up
+                    to gather_probe need only P1's, K1's and P2's libraries
+                    and run while the path kernels' libraries build (their
+                    lines come before build's)
   scene, wide_scene table sizes; rows and bytes of the wide tables per layout
   kernel_check      ray_query kernel vs plain version: the 4096 rays of
                     rays.gold in five modes, and the two batches the main path
@@ -191,8 +194,11 @@ Phases, one JSON object per line:
                     then the CLI in processes of its own: frames 1000-1002
                     at 64 spp by K2, frame 1000 at 128 spp (64 K2
                     launches), frame 1000 at 64 spp by K5 on the binary
-                    frame tables, samples [0, 4) + [4, 8) merged (within 1
-                    LSB of the in-process K2 frame); each run's launches
+                    frame tables, samples [0, 4) + [4, 8) (two processes
+                    at once with S10's --shard run, beside the subframe
+                    checks) merged by the CLI's --merge in this process
+                    (within 1 LSB of the in-process K2 frame); each run's
+                    launches
                     (P1 in load_scene, the frames' kernel only), seconds,
                     Msamples/s, peak memory and table bytes, every BMP
                     required, and the device's idle share of the first K2
@@ -289,9 +295,34 @@ Phases, one JSON object per line:
                     L2 flushed: K2 w8/w16/s8 and K5 binary/w8 at 1080p x 8
                     spp on the row-major frame, K2 w8 with a Morton and with
                     a shuffled pixel_order, K5 w8 and binary on a shuffled
-                    list, K6 at 1080p x 1 spp; median and spread of 5; their
+                    list, K6 at 1080p x 1 spp; median and spread of 3; their
                     sums byte-equal; registers, spills and resident blocks
                     of each design; the design the wrapper takes
+  S10 (sharding):
+  shard_check       K2 and K5 (binary) sharded at 1080p x 8 spp on the meshes
+                    (4, 1), (2, 2), (1, 4): tiles x samples launches; bit-equal
+                    to one launch with tiles only, else to the shard-order
+                    sum of single-device launches over the same ranges, and
+                    within the JAX bar of one launch; the scan shards (P1,
+                    K1) on a 640x360 list at (2, 2); render_frame_sharded by
+                    K5 on this machine's mesh
+  multihost_check   parallel.multihost_demo with 2 processes (an all_reduce,
+                    round-robin frames by P1 on the card, byte-identical to
+                    one process's), run beside megakernel_check and
+                    wavefront_check
+  geomshard_check   the large scene split over 2 and 4 geometry shards (one
+                    without instances) and a (geom 2, tiles 2) mesh: per-shard
+                    table bytes; the 1080p x 1 spp scan, P1 per shard per
+                    bounce, against the replicated scan frame
+  hotperm_check     the animated frame packed with hot_rows=1024 on the card,
+                    equal to the CPU's pack; K1 batches and a 2 spp K2
+                    launch bit-equal to the unpermuted pack's, K2 timed in
+                    turns on both
+  shard_cli         the CLI's --shard --wavefront at 1080p x 8 spp: one K5
+                    launch a card, within 1 LSB of the in-process K2 frame
+  shard_grad_check  make_sharded_fast_grad_frame at 1080p x 1 spp on (4, 1)
+                    (4 K6 launches) against main_path_grad's step;
+                    make_sharded_render_grad on 4,096 lanes on (1, 2)
   kernels           the per-kernel summary line
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises: the
 script exits non-zero and prints no result line. There is no CPU fallback:
@@ -303,9 +334,11 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
 import pathlib
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -316,6 +349,7 @@ import torch
 from torch.profiler import ProfilerActivity
 from torch.profiler import profile as torch_profile
 
+from pathtracing_tpu_torch import cli as port_cli
 from pathtracing_tpu_torch import models, tuning
 from pathtracing_tpu_torch.accel.wide import (
     LAYOUT_S8,
@@ -359,6 +393,17 @@ from pathtracing_tpu_torch.ops.wavefront import (
     path_trace_wavefront_plain,
 )
 from pathtracing_tpu_torch.ops.wide_traversal import wide_ray_query_plain
+from pathtracing_tpu_torch.parallel.geomshard import build_shard_scenes, make_geom_sharded_render
+from pathtracing_tpu_torch.parallel.multihost import local_device_mesh
+from pathtracing_tpu_torch.parallel.sharding import (
+    Mesh,
+    make_mesh,
+    make_sharded_fast_grad_frame,
+    make_sharded_render,
+    make_sharded_render_grad,
+    make_sharded_render_megakernel,
+    render_frame_sharded,
+)
 from pathtracing_tpu_torch.probes import gather_probe as GP
 from pathtracing_tpu_torch.render import (
     LARGE_SCENE_NODES,
@@ -856,12 +901,28 @@ def path_builds(kernels, builds, tags) -> dict:
     return out
 
 
-def phase_build():
-    """All twelve libraries, one nvcc each, started together."""
+def phase_build(early=None):
+    """All twelve libraries, one nvcc each, started together. ``early``:
+    (library names, fn): fn runs in this thread as soon as those libraries
+    are built, while the others still build (the path kernels' libraries
+    take the longest). The build's seconds run from the start to the last
+    library built."""
     t0 = time.perf_counter()
+    done_at = {}
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        list(pool.map(lambda lib: lib.build(), LIBRARIES.values()))
-    sec = time.perf_counter() - t0
+        futures = {}
+        for name, lib in LIBRARIES.items():
+            futures[name] = pool.submit(lib.build)
+            futures[name].add_done_callback(
+                lambda f, name=name: done_at.__setitem__(name, time.perf_counter()))
+        if early is not None:
+            names, fn = early
+            for name in names:
+                futures[name].result()
+            fn()
+        for f in futures.values():
+            f.result()
+    sec = max(done_at.values()) - t0
     report = {}
     for name, lib in LIBRARIES.items():
         res = lib.resources()
@@ -2449,7 +2510,8 @@ def phase_large_scene(cfg, smi):
     launch = {"k2_w8": lambda: CM.megakernel_cuda(cfg, scene, n, MAIN_SPP),
               "k5_binary": lambda: CWF.wavefront_cuda(cfg, binary, *fl, MAIN_SPP),
               "k5_w8": lambda: CWF.wavefront_cuda(cfg, scene, *fl, MAIN_SPP)}
-    t = time_launches(launch)
+    # the path kernels' spread within a call is +-1 %: 3 repetitions
+    t = time_launches(launch, reps=3)
     timing = {}
     for name, fn in launch.items():
         sc = binary if name == "k5_binary" else scene
@@ -2465,7 +2527,8 @@ def phase_large_scene(cfg, smi):
                          scan_sums["binary" if name == "k5_binary" else "w8"],
                          MAIN_SPP, 0, 0, W)
         res.update(ms=t[name][0], ms_all=t[name][1],
-                   **launch_device_ms(fn, "megakernel" if name == "k2_w8" else "wavefront"),
+                   **launch_device_ms(fn, "megakernel" if name == "k2_w8" else "wavefront",
+                                      reps=3),
                    vs_scan_frame={k: cmp[k] for k in ("close_share", "bit_equal_share",
                                                       "max_abs_err")})
         res["roofline_share"] = res["bound_ms"] / res["ms"]
@@ -2509,8 +2572,9 @@ def phase_large_scene(cfg, smi):
     require(instance_share > 0, f"large scene: {instance_share} of primary rays hit an object")
     # S2: the bf16 node rows on the same tables
     nl5 = phase_bf16_nodes_large(cfg, binary, qb, p1, scan_sums["binary"], smi)
+    # the build is shared with geomshard_check
     return {"info": info, "p1": p1, "k1": k1, "tile_ms": tile_ms, "frames": frames,
-            "timing": timing, "k6": k6, "nl5": nl5}
+            "timing": timing, "k6": k6, "nl5": nl5, "host": s, "scene": scene}
 
 
 # ------------------------------------------------- the animated frame loop
@@ -2528,11 +2592,17 @@ ANIM_DEEP = f"frame{ANIM_DEEP_SPP}"
 CLI_TIMEOUT = 300
 
 
-def cli_run(tag, *args, out=None, metrics=True) -> dict:
-    """``python -m pathtracing_tpu_torch.cli`` on the stand-ins at the
-    production preset, in a process of its own (its exit code required 0):
-    seconds, the metrics lines (load and frames, with each frame's kernel
-    launches) and the output folder."""
+def stop_process_group(proc) -> None:
+    """Kill a process started in a session of its own, with its children."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def cli_start(tag, *args, out=None, metrics=True) -> dict:
+    """Start ``python -m pathtracing_tpu_torch.cli`` on the stand-ins at the
+    production preset, in a process of its own (its output to files beside
+    its metrics); ``cli_wait`` reads it."""
     if out is None:  # a folder of its own
         out = ANIM_DIR / tag
         shutil.rmtree(out, ignore_errors=True)
@@ -2543,19 +2613,39 @@ def cli_run(tag, *args, out=None, metrics=True) -> dict:
            "--data-dir", str(ANIM_DIR / "standins"), "--out", str(out), *args]
     if metrics:
         cmd += ["--metrics", str(log)]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
-    sec = time.perf_counter() - t0
-    require(r.returncode == 0, f"cli {tag}: exit {r.returncode}\n{r.stdout[-3000:]}\n"
-                               f"{r.stderr[-3000:]}")
-    res = {"seconds": sec, "out": out, "stdout_tail": r.stdout.strip().splitlines()[-4:],
-           "stdout": r.stdout}
+    streams = {k: ANIM_DIR / f"{tag}.{k}" for k in ("stdout", "stderr")}
+    with open(streams["stdout"], "w") as fo, open(streams["stderr"], "w") as fe:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=fo, stderr=fe, start_new_session=True)
+    return {"tag": tag, "proc": proc, "t0": time.perf_counter(), "out": out, "log": log,
+            "metrics": metrics, "streams": streams}
+
+
+def cli_wait(run) -> dict:
+    """A started CLI run to its end (its exit code required 0, killed past
+    CLI_TIMEOUT): seconds since its start, the metrics lines (load and
+    frames, with each frame's kernel launches) and the output folder."""
+    tag, proc = run["tag"], run["proc"]
+    try:
+        rc = proc.wait(timeout=CLI_TIMEOUT)
+    finally:
+        stop_process_group(proc)
+    sec = time.perf_counter() - run["t0"]
+    stdout, stderr = (run["streams"][k].read_text() for k in ("stdout", "stderr"))
+    require(rc == 0, f"cli {tag}: exit {rc}\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    out, log, metrics = run["out"], run["log"], run["metrics"]
+    res = {"seconds": sec, "out": out, "stdout_tail": stdout.strip().splitlines()[-4:],
+           "stdout": stdout}
     if metrics:
         lines = [json.loads(x) for x in log.read_text().splitlines()]
         load = [x for x in lines if x["kind"] == "load"]
         require(len(load) == 1 and load[0]["device"] == "cuda", f"cli {tag}: {load}")
         res.update(load=load[0], frames=[x for x in lines if x["kind"] == "frame"])
     return res
+
+
+def cli_run(tag, *args, out=None, metrics=True) -> dict:
+    """One CLI run, alone (see cli_start, cli_wait)."""
+    return cli_wait(cli_start(tag, *args, out=out, metrics=metrics))
 
 
 def cli_frames(tag, run, frames, launches, bmp=True) -> list:
@@ -2794,16 +2884,43 @@ def phase_animation_cli(smi):
          frames=frames, k2_launch=k2_launch, card=smi)
     emit("animation_chunked_k1", batch=LARGE_BATCH, k1=k1, card=smi)
     emit("animation_nl5", **anim_nl5, card=smi)
-    subframes = {spp: subframe_check(s, s_cpu, packer, packer_cpu, ANIM_CHECK_FRAMES[0], spp)
-                 for spp in ANIM_SUBFRAME_SPP}
-    emit("animation_subframes", frame=ANIM_CHECK_FRAMES[0], checks=subframes, card=smi)
+    # the CLI runs checked for what they make and not timed, in processes of
+    # their own beside the subframe checks (which take no time readings but
+    # their setup's): the two sample ranges and S10's --shard (each frame
+    # over this machine's cards, one tile a card, by K5 on the chunked
+    # tables, one launch a card)
+    f0 = str(ANIM_FRAMES[0])
+    one = (f0, str(ANIM_FRAMES[0] + 1))
+    parts = ANIM_DIR / "ranges"
+    shutil.rmtree(parts, ignore_errors=True)
+    half = ANIM_CHECK_SPP // 2
+    started = {}
+    for a, b in ((0, half), (half, ANIM_CHECK_SPP)):
+        started[f"range_{a}_{b}"] = (
+            cli_start(f"range_{a}_{b}", "--spp", str(ANIM_CHECK_SPP), "--frames", *one,
+                      "--sample-range", str(a), str(b), "--wide", "1", out=parts),
+            [ANIM_FRAMES[0]], {"megakernel": -(-half // chunks[half])})
+    started["shard"] = (cli_start("shard", "--spp", str(ANIM_CHECK_SPP), "--frames", *one,
+                                  "--shard", "--wavefront"),
+                        [ANIM_FRAMES[0]], {"wavefront": torch.cuda.device_count()})
+    checked = {}
+    try:
+        subframes = {spp: subframe_check(s, s_cpu, packer, packer_cpu, ANIM_CHECK_FRAMES[0],
+                                         spp)
+                     for spp in ANIM_SUBFRAME_SPP}
+        emit("animation_subframes", frame=ANIM_CHECK_FRAMES[0], checks=subframes, card=smi)
+        for tag, (run, want_frames, launches) in started.items():
+            checked[tag] = (cli_wait(run), want_frames, launches)
+    finally:
+        for run, _, _ in started.values():
+            stop_process_group(run["proc"])
+    # S10: the hot-row permutation on the same frame
+    hot = hotperm_check(cfg, s, s_cpu, packer, smi)
     del s, s_cpu, packer, packer_cpu
     torch.cuda.empty_cache()
 
     # the CLI, each run a process of its own
     zero = {"ray_query": 0, "wide_ray_query": 0, "megakernel": 0, "wavefront": 0}
-    f0 = str(ANIM_FRAMES[0])
-    one = (f0, str(ANIM_FRAMES[0] + 1))
     profile = lambda tag: ("--profile-dir", str(ANIM_DIR / f"{tag}_profile"))
     runs = {
         "frames64": (cli_run("frames64", "--spp", str(ANIM_SPP), "--frames",
@@ -2817,15 +2934,11 @@ def phase_animation_cli(smi):
                                 "--wavefront", "--wide", "0"),
                         [ANIM_FRAMES[0]], {"wavefront": tiles * -(-ANIM_SPP // chunks[ANIM_SPP])}),
     }
-    parts = ANIM_DIR / "ranges"
-    shutil.rmtree(parts, ignore_errors=True)
-    half = ANIM_CHECK_SPP // 2
-    for a, b in ((0, half), (half, ANIM_CHECK_SPP)):
-        runs[f"range_{a}_{b}"] = (
-            cli_run(f"range_{a}_{b}", "--spp", str(ANIM_CHECK_SPP), "--frames", *one,
-                    "--sample-range", str(a), str(b), "--wide", "1", out=parts),
-            [ANIM_FRAMES[0]], {"megakernel": -(-half // chunks[half])})
-    merge = cli_run("merge", "--merge", out=parts, metrics=False)
+    runs.update(checked)
+    # the merge in this process, through the CLI's entry point
+    t0 = time.perf_counter()
+    require(port_cli.main(["--merge", "--out", str(parts)]) == 0, "cli --merge")
+    merge = {"seconds": time.perf_counter() - t0}
     merged = read_bmp(str(parts / f"frame_{ANIM_FRAMES[0]:04d}.bmp"))
     lsb = np.abs(merged.astype(np.int16) - k2_rgb.astype(np.int16))
     require(int(lsb.max()) <= 1, f"merged sample ranges vs the K2 frame: {int(lsb.max())} LSB")
@@ -2850,6 +2963,16 @@ def phase_animation_cli(smi):
         x["traced"] = {**tr, "idle_share": 1.0 - tr["device_busy_ms"] / x["render_ms"]}
     cli["merge"] = {"seconds": merge["seconds"], "max_lsb_vs_k2_frame": int(lsb.max()),
                     "equal_share": float((lsb == 0).mean())}
+    # the sharded CLI frame (one 8 spp K5 launch a card) against the
+    # in-process K2 frame (its spp chunks' sums added): within 1 LSB
+    sharded = read_bmp(str(runs["shard"][0]["out"] / f"frame_{ANIM_FRAMES[0]:04d}.bmp"))
+    shard_lsb = np.abs(sharded.astype(np.int16) - k2_rgb.astype(np.int16))
+    require(int(shard_lsb.max()) <= 1,
+            f"the --shard frame vs the K2 frame: {int(shard_lsb.max())} LSB")
+    cli["shard"].update(max_lsb_vs_k2_frame=int(shard_lsb.max()),
+                        equal_share_vs_k2_frame=float((shard_lsb == 0).mean()),
+                        mesh_tiles=torch.cuda.device_count())
+    emit("shard_cli", **cli["shard"], card=smi)
     for run in cli.values():
         for x in run.get("frames", ()):
             x["table_bytes_total"] = sum(x["table_bytes"].values())
@@ -2857,7 +2980,7 @@ def phase_animation_cli(smi):
     emit("animation_cli", load_scene_s=load["load_scene_s"], packer_s=load["packer_s"],
          **cli, card=smi)
     return {"load": load, "frames": frames, "k1": k1, "k2_launch": k2_launch, "cli": cli,
-            "subframes": subframes, "nl5": anim_nl5}
+            "subframes": subframes, "nl5": anim_nl5, "hotperm": hot}
 
 
 # ------------------------------------------------- the path kernels' designs
@@ -2961,7 +3084,7 @@ DESIGN_CASES = (
 )
 
 
-def phase_design_timing(cfg, scenes, built, smi, reps=5):
+def phase_design_timing(cfg, scenes, built, smi, reps=3):
     """The path kernels' two designs in this call, on this card: one launch
     of each DESIGN_CASES case at the main path's shape (1080p x 8 spp; K6 at
     1080p x 1 spp), the designs taking turns, L2 flushed before each launch;
@@ -3161,12 +3284,12 @@ def zero_row_share(g) -> float:
     return float((g.reshape(-1, g.shape[-1]) == 0).all(-1).float().mean())
 
 
-def kernel_split(fn, reps=5) -> dict:
+def kernel_split(fn, reps=5, want=None) -> dict:
     """Where one call of ``fn`` spends its time: the host's enqueue time
     (host clock around the call, no synchronise; median of ``reps``) and the
     device time of each kernel it launches (torch.profiler over ``reps``
     calls, each after an L2 flush by a kernel of its own name, which is left
-    out; mean per call)."""
+    out; mean per call). ``want``: a kernel name the profile must hold."""
     flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
     fn()
     host = []
@@ -3177,8 +3300,9 @@ def kernel_split(fn, reps=5) -> dict:
         fn()
         host.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
-    # a profile now and then comes back without its device activity (seen
-    # after many profiles in one process): up to five profiles are taken
+    # a profile now and then comes back without its device activity, or
+    # with only some of its kernels (seen after many profiles in one
+    # process): up to five profiles are taken
     for _ in range(5):
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -3190,7 +3314,7 @@ def kernel_split(fn, reps=5) -> dict:
             if "bitwise_not" not in name:
                 dev[name[:72]] = dev.get(name[:72], 0.0) + ms / reps
                 count[name[:72]] = count.get(name[:72], 0) + n
-        if dev:
+        if dev and (want is None or any(want in k for k in dev)):
             break
     require(dev, "the profiler recorded no device time")
     # a profile can also come back with only some of its launches (seen on
@@ -3207,7 +3331,7 @@ def launch_device_ms(fn, kernel, reps=5) -> dict:
     ``fn`` launches once (the mean of the launches a profile of ``reps``
     calls recorded), how many launches it recorded, and the device time of
     fn's other kernels (the wrapper's fills and casts) per call."""
-    ks = kernel_split(fn, reps)
+    ks = kernel_split(fn, reps, want=kernel)
     names = [k for k in ks["device_ms_per_launch"] if kernel in k]
     require(len(names) == 1, f"{kernel}: profiled {list(ks['device_ms_per_launch'])}")
     return {"device_ms": ks["device_ms_per_launch"][names[0]],
@@ -3506,9 +3630,9 @@ def split_step(cfg, n, scene):
 def profile_replay_chunk(cfg, scene) -> dict:
     """One all-fields replay chunk of the 1080p frame (the last
     REPLAY_CHUNK items, the bottom rows, where the geometry is) and its
-    backward under torch.profiler, as trace_sample --grad profiles it: its
-    device time by kernel, the gather transposes' share (K7a stg_*, K7b
-    rowg_*), and no device kernel whose name holds indexing_backward."""
+    backward under torch.profiler (device activity only): its device time
+    by kernel, the gather transposes' share (K7a stg_*, K7b rowg_*), and no
+    device kernel whose name holds indexing_backward."""
     n = cfg.image_width * cfg.image_height
     items = n * GRAD_SPP
     part = slice(max(0, items - diff_render.REPLAY_CHUNK), items)
@@ -3522,7 +3646,9 @@ def profile_replay_chunk(cfg, scene) -> dict:
     torch.cuda.synchronize()
     CG.reset_launches()
     t0 = time.perf_counter()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the chunk's ~10^5 host-side op events are not
+    # read, and gathering them took the profile ~20 s
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -3552,9 +3678,9 @@ def phase_main_path_grad(cfg, scene, smi):
     per replay chunk in the all-fields step and once in a sun step; K7b
     3 (1 + max_bounces) times per chunk (vattr, inst_f and tri_pos of each
     shade), only in the all-fields step; no P1, K1, K2 or K5. Then the
-    all-fields step twice more: warm, through the entry point (what each
-    step of a training loop pays; the first step also pays first calls),
-    and by its pieces (split_step); and one replay chunk under the profiler
+    all-fields step once more, warm (what each step of a training loop
+    pays; the first step also pays first calls), timed whole and by its
+    pieces (split_step); and one replay chunk under the profiler
     (profile_replay_chunk), whose backward must run no indexing_backward
     kernel: every gather of a differentiable table transposes on K7a or
     K7b."""
@@ -3626,15 +3752,11 @@ def phase_main_path_grad(cfg, scene, smi):
     require(errs[-1] < errs[0], f"the sun error did not fall: {errs}")
 
     # the all-fields step again, warm (what each step of a training loop
-    # pays), then once more by its pieces
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss_warm, _ = all_fn(scene)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
+    # pays), timed whole and by its pieces
     split, split_loss_s = split_step(cfg, n, scene)
-    for name, l in (("warm", loss_warm), ("split", split_loss_s)):
-        require(float(l) == float(loss), f"the {name} step's loss {float(l)} != {float(loss)}")
+    warm_s = split["step"]
+    require(float(split_loss_s) == float(loss),
+            f"the warm step's loss {float(split_loss_s)} != {float(loss)}")
     profiled = profile_replay_chunk(cfg, scene)
     res = {"width": cfg.image_width, "height": cfg.image_height, "bounces": cfg.max_bounces,
            "spp": GRAD_SPP, "items": n * GRAD_SPP, "replay_chunk": diff_render.REPLAY_CHUNK,
@@ -3648,7 +3770,7 @@ def phase_main_path_grad(cfg, scene, smi):
            "sun_step_seconds": secs, "launches": total, "profiled_chunk": profiled,
            "card": smi}
     emit("main_path_grad", **res)
-    return res
+    return res, (loss, grads)
 
 
 # ------------------------------------------------------------ area lights
@@ -4223,6 +4345,367 @@ def anim_kernel(anim, tag, kernel) -> dict:
                                             for x in run["frames"]]}
 
 
+# ---------------------------------------------------------------- S10: sharding
+
+SHARD_MESHES = ((4, 1), (2, 2), (1, 4))  # (tiles, samples) of the golden frame's meshes
+SHARD_LIST = (640, 360)  # the scan shards' pixel list: the frame's first 640 x 360 pixels
+SHARD_SCAN_SPP = 2
+SHARD_GRAD_MESH = (4, 1)  # 1 spp: a samples axis needs an even spp
+SHARD_GRAD_LANES = 4096
+HOT_ROWS = 1024  # DevicePacker(hot_rows=): the JAX CLI's hot table
+GRAD_RTOL = 2e-4  # tests/test_parallel.py's gradient bar; atol 1e-6 max|ref| on the card
+MULTIHOST_DIR = ROOT / "build" / "multihost"  # the demo's frames (git-ignored)
+MULTIHOST_ARGS = ("--processes", "2", "--frames", "4", "--size", "320x180", "--spp", "2")
+
+
+def shard_devices(n=4) -> list:
+    """n mesh slots over this machine's cards: distinct cards while there
+    are enough of them, else the cards in turn (one card: n times)."""
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [cards[i % len(cards)] for i in range(n)]
+
+
+def shard_order_sum(parts):
+    """Tuples of sums added in shard order (the sharded renderers' order)."""
+    total = list(parts[0])
+    for part in parts[1:]:
+        total = [a + b for a, b in zip(total, part)]
+    return tuple(total)
+
+
+def bit_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_shard_check(cfg, binary, wide, smi):
+    """S10's pixel / sample sharding on the golden frame at the main path's
+    width (1920x1080 x 5 bounces x MAIN_SPP): make_sharded_render_megakernel
+    (K2, one launch a shard) and make_sharded_render(wavefront=True) (K5 on
+    the binary tables, one launch a shard) on the meshes (4, 1), (2, 2) and
+    (1, 4): each run's launches tiles x samples; tiles only bit-equal to one
+    single-device launch; with a samples axis bit-equal to the shard-order
+    sum of single-device launches over the same sample ranges, and within
+    the JAX bar of one launch. The scan shards (P1 on the binary tables, K1
+    on w8) on a 640x360 list of the frame at (2, 2), bit-equal to the
+    shard-order sum of single-device scans. render_frame_sharded through K5
+    on this machine's mesh (local_device_mesh) against render_frame's K5
+    frame. Meshes take distinct cards where there are enough."""
+    W, H = cfg.image_width, cfg.image_height
+    n = W * H
+    devs = shard_devices(4)
+    counters = (CT, CW, CM, CWF)
+    xs, ys = frame_list(cfg)
+    one = {"megakernel": tuple(CM.megakernel_cuda(cfg, wide, n, MAIN_SPP)[:3]),
+           "wavefront": tuple(CWF.wavefront_cuda(cfg, binary, xs, ys, MAIN_SPP)[:3])}
+    out = {"cards": torch.cuda.device_count(), "mesh_devices": [str(d) for d in devs]}
+    for kernel, mod in (("megakernel", CM), ("wavefront", CWF)):
+        for t, s in SHARD_MESHES:
+            mesh = make_mesh(t, s, devs)
+            if kernel == "megakernel":
+                fn = lambda: make_sharded_render_megakernel(cfg, mesh, n, MAIN_SPP)(wide)
+            else:
+                fn = lambda: make_sharded_render(cfg, mesh, MAIN_SPP, wavefront=True)(
+                    binary, xs, ys)
+            got, sec, peak, _ = frame_launches(f"shard {kernel} {t}x{s}", counters,
+                                               {mod: t * s}, fn)
+            local = MAIN_SPP // s
+            if kernel == "megakernel":
+                parts = [CM.megakernel_cuda(cfg, wide, n, local, sample_base=k * local)[:3]
+                         for k in range(s)]
+            else:
+                parts = [CWF.wavefront_cuda(cfg, binary, xs, ys, local,
+                                            sample_base=k * local)[:3] for k in range(s)]
+            require(bit_equal(got, shard_order_sum(parts)),
+                    f"shard {kernel} {t}x{s}: not the shard-order sum of its ranges")
+            if s == 1:
+                require(bit_equal(got, one[kernel]), f"shard {kernel} {t}x{s}: not one launch")
+            cmp = mk_compare(f"shard {kernel} {t}x{s} vs one launch", got, one[kernel],
+                             MAIN_SPP, 0, 0, W)
+            out[f"{kernel}_{t}x{s}"] = {
+                "launches": t * s, "seconds": sec, "peak_memory_allocated_bytes": int(peak),
+                "bit_equal_to_shard_order_sum": True,
+                "vs_one_launch": {k: cmp[k] for k in ("close_share", "bit_equal_share",
+                                                      "max_abs_err")}}
+    # the scan shards on a 640x360 list, P1 (binary) and K1 (w8)
+    m = SHARD_LIST[0] * SHARD_LIST[1]
+    lx, ly = xs[:m], ys[:m]
+    for name, scene, mod in (("scan_binary", binary, CT), ("scan_w8", wide, CW)):
+        mesh = make_mesh(2, 2, devs)
+        got, sec, _, _ = frame_launches(
+            f"shard {name}", counters,
+            {mod: 4 * (SHARD_SCAN_SPP // 2) * (1 + cfg.max_bounces)},
+            lambda: make_sharded_render(cfg, mesh, SHARD_SCAN_SPP)(scene, lx, ly))
+        half = SHARD_SCAN_SPP // 2
+        parts = [tuple(torch.from_numpy(np.ascontiguousarray(c)).cuda() for c in render_pixels(
+            cfg, scene, lx, ly, spp=half, sample_base=k * half, average=False,
+            megakernel=False).T) for k in range(2)]
+        require(bit_equal(got, shard_order_sum(parts)),
+                f"shard {name}: not the shard-order sum of the single-device scans")
+        out[name] = {"mesh": [2, 2], "pixels": m, "spp": SHARD_SCAN_SPP, "seconds": sec,
+                     "launches": 4 * half * (1 + cfg.max_bounces),
+                     "bit_equal_to_shard_order_sum": True}
+    # render_frame_sharded through K5 on this machine's mesh
+    mesh = local_device_mesh()
+    tiles = mesh.shape["tiles"]
+    colors, sec, peak, _ = frame_launches(
+        "render_frame_sharded", counters, {CWF: tiles},
+        lambda: render_frame_sharded(cfg, binary, mesh, MAIN_SPP, wavefront=True))
+    ref, _ = render_frame(cfg, binary, spp=MAIN_SPP, wavefront=True)
+    equal = float((colors == ref).all(-1).mean())
+    require(colors.shape == (H, W, 3) and np.isfinite(colors).all(), "render_frame_sharded")
+    if tiles == 1:
+        require(equal == 1.0, f"render_frame_sharded on one card: {equal} of pixels equal")
+    out["render_frame_sharded"] = {"mesh": mesh.shape, "launches": tiles, "seconds": sec,
+                                   "peak_memory_allocated_bytes": int(peak),
+                                   "pixels_bit_equal_to_render_frame": equal}
+    emit("shard_check", width=W, height=H, bounces=cfg.max_bounces, spp=MAIN_SPP, **out,
+         card=smi)
+    return out
+
+
+def grads_close(tag, got, ref) -> float:
+    """Every field of ``got`` within GRAD_RTOL of ``ref`` (atol 1e-6
+    max|ref|), finite; returns the worst error over that bar."""
+    worst = 0.0
+    for k, r in ref.items():
+        g, r = got[k].double().cpu(), r.double().cpu()
+        require(bool(torch.isfinite(g).all()), f"{tag} {k}: not finite")
+        bar = GRAD_RTOL * r.abs() + 1e-6 * float(r.abs().max()) + 1e-30
+        e = float(((g - r).abs() / bar).max())
+        require(e <= 1.0, f"{tag} {k}: {e} x the bar")
+        worst = max(worst, e)
+    return worst
+
+
+def phase_shard_grad_check(cfg, wide, binary, ref, smi):
+    """S10's sharded gradients. make_sharded_fast_grad_frame at the main
+    gradient's shape (1920x1080 x 5 bounces x GRAD_SPP, w8) on a
+    SHARD_GRAD_MESH mesh: one K6 record launch a shard, the replays'
+    backward on K7a / K7b; the loss within rtol 1e-5 and every field within
+    GRAD_RTOL of main_path_grad's single-device all-fields step (``ref``).
+    make_sharded_render_grad on 4,096 lanes of the golden 640x360 frame
+    (binary, TESTING's 4 bounces) on a (1, 2) mesh at 2 spp, remat on: P1
+    twice a bounce (the forward and its recomputation), against
+    render_value_and_grad of each sample, averaged."""
+    counters = (CT, CW, CM, CWF, CG)
+    n = cfg.image_width * cfg.image_height
+    t, s = SHARD_GRAD_MESH
+    mesh = make_mesh(t, s, shard_devices(t * s))
+    ref_loss, ref_grads = ref
+    for mod in counters:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = make_sharded_fast_grad_frame(cfg, mesh, n, GRAD_SPP)(wide)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    chunks = -(-(n * GRAD_SPP // (t * s)) // diff_render.REPLAY_CHUNK)  # a shard's
+    launches = {"k6": CM.record_launches, "k7a": CG.small_table_launches,
+                "k7b": CG.row_launches, "p1": CT.launches, "k1": CW.launches,
+                "k2": CM.launches, "k5": CWF.launches}
+    want = {"k6": t * s, "k7a": 2 * chunks * t * s,
+            "k7b": 3 * (1 + cfg.max_bounces) * chunks * t * s,
+            "p1": 0, "k1": 0, "k2": 0, "k5": 0}
+    require(launches == want, f"sharded fast gradient launches {launches}, expected {want}")
+    rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    require(rel <= 1e-5, f"sharded fast gradient loss {float(loss)} vs {float(ref_loss)}")
+    fast = {"mesh": [t, s], "spp": GRAD_SPP, "seconds": sec, "launches": launches,
+            "loss": float(loss), "loss_single_device": float(ref_loss), "loss_rel_err": rel,
+            "worst_err_over_bar": grads_close("sharded fast gradient", grads, ref_grads)}
+    del grads
+
+    tcfg = TESTING
+    lanes = SHARD_GRAD_LANES
+    pix = torch.arange(lanes, dtype=torch.int32, device="cuda") + 200 * tcfg.image_width
+    xs, ys = pix % tcfg.image_width, pix // tcfg.image_width
+    mesh = make_mesh(1, 2, shard_devices(2))
+    for mod in counters:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = make_sharded_render_grad(tcfg, mesh, 2)(binary, xs, ys)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {"p1": CT.launches, "k7a": CG.small_table_launches, "k7b": CG.row_launches}
+    want_p1 = 2 * (1 + tcfg.max_bounces) * 2  # 2 shards x 1 sample, forward + remat
+    require(launches["p1"] == want_p1 and launches["k7a"] > 0 and launches["k7b"] > 0,
+            f"sharded slow gradient launches {launches}, P1 expected {want_p1}")
+    ref_loss, ref_grads = 0.0, None
+    for k in range(2):
+        si = torch.full((lanes,), k, dtype=torch.int32, device="cuda")
+        l, g = render_value_and_grad(tcfg, binary, xs, ys, si)
+        ref_loss += float(l) / 2
+        g = {f: v / 2 for f, v in g.items()}
+        ref_grads = g if ref_grads is None else {f: ref_grads[f] + g[f] for f in g}
+    rel = abs(float(loss) - ref_loss) / abs(ref_loss)
+    require(rel <= 1e-5, f"sharded slow gradient loss {float(loss)} vs {ref_loss}")
+    slow = {"mesh": [1, 2], "lanes": lanes, "spp": 2, "bounces": tcfg.max_bounces,
+            "seconds": sec, "launches": launches, "loss_rel_err": rel,
+            "worst_err_over_bar": grads_close("sharded slow gradient", grads, ref_grads)}
+    emit("shard_grad_check", fast_frame=fast, slow_lanes=slow,
+         bar=f"loss rtol 1e-5; fields rtol {GRAD_RTOL}, atol 1e-6 max|ref|", card=smi)
+    return {"fast": fast, "slow": slow}
+
+
+def phase_geomshard_check(cfg, host, binary, smi):
+    """S10's geometry sharding on the large scene (the host Scene and the
+    replicated binary tables of large_scene's build): split over 2 and 4
+    shards (build_shard_scenes on the card; at 4 the greedy assignment
+    leaves a shard without instances, every subframe's TLAS there has no
+    node), per-shard table bytes against the replicated scene's; the
+    1920x1080 x 1 spp scan, geometry-sharded (P1 per shard per bounce), on
+    2 shards, 4 shards and a (geom 2, tiles 2) mesh: launches, seconds, the
+    JAX bar against the single-device scan frame and the bit-equal share;
+    the (2, 2) mesh bit-equal to 2 shards."""
+    W, H = cfg.image_width, cfg.image_height
+    n = W * H
+    xs, ys = frame_pixels(cfg)
+    counters = (CT, CW, CM, CWF)
+    scan, scan_s, _, _ = frame_launches(
+        "geomshard single-device scan", counters,
+        {CT: -(-n // tile_pixels(binary)) * (1 + cfg.max_bounces)},
+        lambda: render_pixels(cfg, binary, xs, ys, spp=1, average=False, megakernel=False))
+    scan = tuple(torch.from_numpy(np.ascontiguousarray(scan[:, k])) for k in range(3))
+    replicated = sum(field_bytes(binary, BINARY_TABLES).values())
+    out = {"replicated_table_bytes": replicated, "scan_seconds": scan_s}
+    devs = shard_devices(4)
+    results = {}
+    for shards, tiles in ((2, None), (4, None), (2, 2)):
+        t0 = time.perf_counter()
+        scenes, assign = build_shard_scenes(host, cfg, shards, device=devs[:shards])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        grid = np.array(devs[: shards * (tiles or 1)], dtype=object)
+        mesh = (Mesh(grid.reshape(shards, tiles), ("geom", "tiles")) if tiles
+                else Mesh(grid, ("geom",)))
+        tag = f"geom {shards}" + (f" x tiles {tiles}" if tiles else "")
+        fn = make_geom_sharded_render(cfg, mesh, 1, tile_axis="tiles" if tiles else None)
+        got, sec, peak, _ = frame_launches(tag, counters,
+                                           {CT: shards * (tiles or 1) * (1 + cfg.max_bounces)},
+                                           lambda: fn(scenes, xs, ys))
+        got = tuple(g.cpu() for g in got)
+        cmp = mk_compare(f"{tag} vs the scan frame", got, scan, 1, 0, 0, W)
+        empty = [s for s in range(shards) if not (assign == s).any()]
+        res = {"shards": shards, "tiles": tiles or 1, "seconds": sec,
+               "launches": shards * (tiles or 1) * (1 + cfg.max_bounces),
+               "peak_memory_allocated_bytes": int(peak), "build_seconds": build_s,
+               "instances_per_shard": [int((assign == s).sum()) for s in range(shards)],
+               "shard_table_bytes": [sum(field_bytes(sc, BINARY_TABLES).values())
+                                     for sc in scenes],
+               "empty_shards": empty,
+               "vs_scan_frame": {k: cmp[k] for k in ("finite_share", "close_share", "bar",
+                                                     "bit_equal_share", "max_abs_err")}}
+        res["shard_over_replicated"] = [b / replicated for b in res["shard_table_bytes"]]
+        for s in empty:
+            require(scenes[s].nl8.shape[0] == 0 and int(scenes[s].sf_tlas_count.max()) == 0,
+                    f"{tag}: empty shard {s} has node rows")
+        if shards == 4:
+            require(empty, f"{tag}: no shard without instances ({res['instances_per_shard']})")
+        results[tag] = (res, got)
+        out[tag] = res
+        del scenes
+    require(bit_equal(results["geom 2 x tiles 2"][1], results["geom 2"][1]),
+            "geom 2 x tiles 2: not the geom 2 sums")
+    emit("geomshard_check", width=W, height=H, bounces=cfg.max_bounces, spp=1, **out,
+         card=smi)
+    return out
+
+
+def hotperm_check(cfg, s, s_cpu, packer, smi):
+    """S10's hot-row permutation on the animated frame (stand-ins, frame
+    1000 at ANIM_CHECK_SPP): DevicePacker(hot_rows=HOT_ROWS) on the card,
+    its tables equal to the CPU's hot pack byte for byte, its hot table the
+    prefix of its mega-table; K1 on the permuted tables (65,536 rays, the
+    primary and first bounce batch, closest and any-hit lanes) and one K2
+    launch of 2 spp over the frame bit-equal to the unpermuted pack's; the
+    two packs' K2 launches timed in turns (a reading only)."""
+    W, H = cfg.image_width, cfg.image_height
+    n = W * H
+    frame = ANIM_CHECK_FRAMES[0]
+    setup_animation_frame(s, frame, cfg)
+    setup_animation_frame(s_cpu, frame, cfg)
+    base = packer.pack_frame(s)
+    t0 = time.perf_counter()
+    hot_packer = DevicePacker(s, wide=True, chunked=True, hot_rows=HOT_ROWS)
+    hot = hot_packer.pack_frame(s)
+    torch.cuda.synchronize()
+    packer_s = time.perf_counter() - t0
+    packs_equal("hotperm", hot, DevicePacker(s_cpu, wide=True, chunked=True, hot_rows=HOT_ROWS,
+                                             device="cpu").pack_frame(s_cpu))
+    require(hot.hot_rows.shape[0] == HOT_ROWS
+            and torch.equal(hot.hot_rows.view(torch.int32),
+                            hot.wide_rows[:HOT_ROWS].view(torch.int32)),
+            "hotperm: the hot table is not the mega-table's prefix")
+    idx = torch.arange(LARGE_BATCH, dtype=torch.int64, device="cuda") * n // LARGE_BATCH
+    q = capture_queries(cfg, base, (idx % W).to(torch.int32), (idx // W).to(torch.int32))
+    CW.reset_launches()
+    for (a, k), name in zip(q[:2], ("primary", "bounce")):
+        ha, oa = ray_query(*a, **k)
+        hb, ob = ray_query(hot, *a[1:], **k)
+        require(all(torch.equal(x, y) for x, y in zip(ha, hb)) and torch.equal(oa, ob),
+                f"hotperm: K1 {name} batch differs on the permuted tables")
+    k1_launches = CW.launches
+    require(k1_launches == 4, f"hotperm: {k1_launches} K1 launches")
+    CM.reset_launches()
+    a, b = CM.megakernel_cuda(cfg, base, n, 2), CM.megakernel_cuda(cfg, hot, n, 2)
+    require(bit_equal(a[:3], b[:3]) and int(b[4]) == 0,
+            "hotperm: the K2 launch's sums differ on the permuted tables")
+    k2_launches = CM.launches
+    t = time_launches({"unpermuted": lambda: CM.megakernel_cuda(cfg, base, n, 2),
+                       "hot": lambda: CM.megakernel_cuda(cfg, hot, n, 2)}, reps=3)
+    out = {"frame": frame, "hot_rows": HOT_ROWS, "hot_packer_s": packer_s,
+           "wide_rows": list(hot.wide_rows.shape), "card_pack_equals_cpu": True,
+           "k1_launches": k1_launches, "k1_bit_equal": True,
+           "k2_launches": k2_launches, "k2_spp": 2, "k2_bit_equal": True,
+           "k2_ms": {k: v[0] for k, v in t.items()},
+           "k2_ms_all": {k: v[1] for k, v in t.items()}}
+    emit("hotperm_check", **out, card=smi)
+    del hot_packer, hot, base, q
+    return out
+
+
+def start_multihost_demo() -> dict:
+    """Start parallel.multihost_demo (2 processes, see phase_multihost_check)
+    in a session of its own, its output to a file; it needs only P1's
+    library, so it runs while the other libraries build."""
+    shutil.rmtree(MULTIHOST_DIR, ignore_errors=True)
+    MULTIHOST_DIR.mkdir(parents=True)
+    log = MULTIHOST_DIR / "demo.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pathtracing_tpu_torch.parallel.multihost_demo",
+             "--device", "cuda", *MULTIHOST_ARGS, "--out", str(MULTIHOST_DIR / "frames"),
+             "--timeout", str(CLI_TIMEOUT)],
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
+    return {"proc": proc, "log": log, "t0": time.perf_counter()}
+
+
+def phase_multihost_check(demo, smi):
+    """S10's frames over hosts: parallel.multihost_demo (``demo``, started
+    while the kernels built) with 2 processes on this machine, each joining
+    one gloo group, summing one per process with an all_reduce, and
+    rendering its round-robin frames of the golden scene on the card
+    (render_frames_distributed: render_frame_sharded's scan on
+    local_device_mesh, P1); the frames byte-identical to the demo process's
+    own render of them."""
+    proc = demo["proc"]
+    try:
+        rc = proc.wait(timeout=CLI_TIMEOUT + 60)
+    finally:
+        stop_process_group(proc)
+    sec = time.perf_counter() - demo["t0"]
+    text = demo["log"].read_text()
+    require(rc == 0, f"multihost demo: exit {rc}\n{text[-3000:]}")
+    lines = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+    result = lines[-1]
+    hosts = [x for x in lines if "host" in x]
+    require(result["ok"] and not result["differ_from_single"] and len(hosts) == 3,
+            f"multihost demo: {result}")
+    require(all(x["launches"]["ray_query"] > 0 for x in hosts),
+            f"multihost demo: P1 launches {[x['launches'] for x in hosts]}")
+    emit("multihost_check", seconds_since_start=sec, ran_while_kernels_built=True,
+         result=result, hosts=hosts, card=smi)
+    return {"seconds_since_start": sec, "hosts": hosts, "result": result}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -4236,8 +4719,21 @@ def main() -> int:
          cuda=torch.version.cuda, numpy=np.__version__,
          python=sys.version.split()[0])
 
-    built = phase_build()
+    # the phases that need only P1's, K1's and P2's libraries run while the
+    # path kernels' libraries build
+    demo, early = {}, {}
+    try:
+        built = phase_build((("ray_query", "wide_ray_query", "gather_rows"),
+                             lambda: early.update(early_phases(smi))))
+        return run_phases(t_start, smi, kind, built, early, demo)
+    finally:
+        if demo:
+            stop_process_group(demo["proc"])
 
+
+def early_phases(smi) -> dict:
+    """The scenes, and the phases of P1, K1 and P2 alone (kernel_check,
+    wide_kernel_check, breakdown, gather_probe): their results by name."""
     scene_g = load_golden(str(GOLDEN / "scene.gold"))
     rays_g = load_golden(str(GOLDEN / "rays.gold"))
     scene = scene_device_from_golden(scene_g, TESTING)
@@ -4265,6 +4761,21 @@ def main() -> int:
     phase_breakdown(prod_cfg, prod_scene, "binary")
     phase_breakdown(prod_cfg, prod_wide, "wide")
     gather_launches, gather_shapes, gather_sweep = phase_gather_probe(smi)
+    return {k: v for k, v in locals().items() if k != "smi"}
+
+
+def run_phases(t_start, smi, kind, built, early, demo) -> int:
+    """main() past the build: every other phase, then the result lines.
+    ``early``: early_phases' results; ``demo``: filled with the multihost
+    demo's process once it starts."""
+    scene_g, rays_g, scene, prod_cfg, prod_scene, prod_wide, wide_scenes = (
+        early[k] for k in ("scene_g", "rays_g", "scene", "prod_cfg", "prod_scene",
+                           "prod_wide", "wide_scenes"))
+    max_err, shapes, binary_out = early["max_err"], early["shapes"], early["binary_out"]
+    wide_err, wide_shapes, other_times = (early[k] for k in ("wide_err", "wide_shapes",
+                                                             "other_times"))
+    gather_launches, gather_shapes, gather_sweep = (
+        early[k] for k in ("gather_launches", "gather_shapes", "gather_sweep"))
     gather_one = gather_shapes[-1]  # the large table at one render tile's lanes
     oracle_mean = phase_oracle_frame(scene)
     phase_oracle_frame(wide_scenes[MAIN_LAYOUT], "oracle_frame_wide")
@@ -4272,11 +4783,15 @@ def main() -> int:
     phase_oracle_frame(scene, "oracle_frame_wavefront", wavefront=True)
     motion_g = load_golden(str(GOLDEN / "motion.gold"))
     motion_wide = scene_device_from_motion_golden(motion_g, wide=True, wide_layout=MAIN_LAYOUT)
+    # S10's multihost demo runs in processes of its own beside the two
+    # check phases that take no time readings
+    demo.update(start_multihost_demo())
     mk_err = phase_megakernel_check(wide_scenes[MAIN_LAYOUT], motion_wide)
     wf_err = phase_wavefront_check(
         {"binary": scene, **wide_scenes},
         {"binary": scene_device_from_motion_golden(motion_g), MAIN_LAYOUT: motion_wide},
     )
+    multihost = phase_multihost_check(demo, smi)
     launches, colors, scan_sec = phase_main_path(prod_cfg, prod_scene, oracle_mean, wide=False)
     wide_launches, wide_colors, wide_sec = phase_main_path(
         prod_cfg, prod_wide, oracle_mean, wide=True, binary_colors=colors
@@ -4287,6 +4802,8 @@ def main() -> int:
     wf_launches, wf_sec, wf_peak, wf_equal = phase_main_path_fused(
         prod_cfg, prod_scene, oracle_mean, colors, scan_sec, wavefront=True
     )
+    # S10: pixel / sample sharding of the same frame
+    shard = phase_shard_check(prod_cfg, prod_scene, prod_wide, smi)
     tonemap_res = phase_tonemap_check(prod_cfg, prod_wide)
     mk_time = phase_megakernel_timing(prod_cfg, prod_wide, smi)
     wf_time = phase_wavefront_timing(prod_cfg, prod_scene, prod_wide, smi)
@@ -4303,11 +4820,16 @@ def main() -> int:
     adaptive = phase_adaptive_cli(smi)
     dn = phase_denoise_check(smi)
     large = phase_large_scene(prod_cfg, smi)
-    anim = phase_animation_cli(smi)
+    # S10: geometry sharding on the large scene's build
+    geo = phase_geomshard_check(prod_cfg, large.pop("host"), binary_tables(large.pop("scene")),
+                                smi)
+    anim = phase_animation_cli(smi)  # with S10's hotperm_check and shard_cli
     rec_err = phase_record_check(wide_scenes, motion_wide)
     grad_k = phase_grad_kernel_check(prod_cfg, prod_wide, smi)
     phase_grad_slow_check(scene, wide_scenes[MAIN_LAYOUT])
-    grad = phase_main_path_grad(prod_cfg, prod_wide, smi)
+    grad, grad_ref = phase_main_path_grad(prod_cfg, prod_wide, smi)
+    sgrad = phase_shard_grad_check(prod_cfg, prod_wide, scene, grad_ref, smi)
+    del grad_ref
     rec_time = phase_record_timing(prod_cfg, prod_wide, smi)
     # the path kernels' designs: where the cycles go, and the two designs
     # timed in this call
@@ -4349,6 +4871,13 @@ def main() -> int:
             "blocks_per_sm": built["ray_query"]["blocks_per_sm"],
             "lane_fill": {**walk(shapes[0]), **walk(bounce)},
             "large_scene": large_walk(large, "p1", "scan_binary"),
+            # S10: the paths that run it per shard (launches of each run)
+            "sharded": {"scan_2x2": shard["scan_binary"]["launches"],
+                        "geomshard": {k: v["launches"] for k, v in geo.items()
+                                      if isinstance(v, dict)},
+                        "slow_gradient_1x2": sgrad["slow"]["launches"]["p1"],
+                        "multihost_hosts": [x["launches"]["ray_query"]
+                                            for x in multihost["hosts"]]},
             # the animated frame loop: load_scene's placement in every CLI
             # process, and the in-process scan frames on the frame tables
             "animation_cli": {
@@ -4409,6 +4938,8 @@ def main() -> int:
             "blocks_per_sm": built["wide_ray_query"]["blocks_per_sm"],
             "lane_fill": {**walk(wide_shapes[0]), **walk(wbounce)},
             "large_scene": large_walk(large, "k1", "scan_w8"),
+            "sharded": {"scan_w8_2x2": shard["scan_w8"]["launches"],
+                        "hotperm_batches": anim["hotperm"]["k1_launches"]},
             "animation_chunked": [{k: sh[k] for k in five + ("max_abs_err", "p1_ms_same_batch",
                                                              "id_mismatches_vs_ray_query")}
                                   for sh in anim["k1"]],
@@ -4465,6 +4996,10 @@ def main() -> int:
             "blocks_per_sm_first_design": built["megakernel"]["blocks_per_sm"],
             **design_summary("megakernel", designs, split),
             "large_scene": large_path(large, "k2_w8", "megakernel_w8"),
+            "sharded": {**{m: shard[f"megakernel_{m}"]["launches"]
+                           for m in ("4x1", "2x2", "1x4")},
+                        "hotperm": anim["hotperm"]["k2_launches"],
+                        "hotperm_ms": anim["hotperm"]["k2_ms"]},
             "animation_cli": {**anim_kernel(anim, "frames64", "megakernel"),
                               f"frame_{ANIM_DEEP_SPP}_spp": anim_kernel(anim, ANIM_DEEP,
                                                                         "megakernel"),
@@ -4505,6 +5040,10 @@ def main() -> int:
             **design_summary("wavefront", designs, split),
             "large_scene": large_path(large, "k5_binary", "wavefront_binary"),
             "large_scene_w8": large_path(large, "k5_w8", "wavefront_w8"),
+            "sharded": {**{m: shard[f"wavefront_{m}"]["launches"]
+                           for m in ("4x1", "2x2", "1x4")},
+                        "render_frame_sharded": shard["render_frame_sharded"]["launches"],
+                        "cli_shard": anim["cli"]["shard"]["frames"][0]["launches"]["wavefront"]},
             "tonemap_check": tonemap_res,
             "animation_cli": {**anim_kernel(anim, "wavefront64", "wavefront"),
                               "last_subframes_vs_scan": {
@@ -4593,6 +5132,7 @@ def main() -> int:
             "large_scene": {k: large["k6"][k] for k in (
                 "launches", "ms", "device_ms", "bound_ms", "bound_by", "max_abs_err",
                 "primary_hit_share")},
+            "sharded_fast_gradient": sgrad["fast"]["launches"]["k6"],
             "card": smi,
         },
         {
@@ -4604,6 +5144,8 @@ def main() -> int:
             "max_abs_err": grad_k["max_abs_err"]["small_table_grad"],
             **grad_kernel_entry(grad_k["small_table_grad"]),
             "onehot_matmul_ms": grad_k["small_table_grad"]["onehot_matmul_ms"],
+            "sharded_gradients": {"fast": sgrad["fast"]["launches"]["k7a"],
+                                  "slow": sgrad["slow"]["launches"]["k7a"]},
             **regs("gather_grad"),
             "card": smi,
         },
@@ -4621,6 +5163,8 @@ def main() -> int:
             **{tab: {**grad_kernel_entry(grad_k[f"row_grad_{tab}"]),
                      "passes": grad_k[f"row_grad_{tab}"]["passes"]}
                for tab in ("inst_f", "tri_pos", "tri_pos_two_pass")},
+            "sharded_gradients": {"fast": sgrad["fast"]["launches"]["k7b"],
+                                  "slow": sgrad["slow"]["launches"]["k7b"]},
             **regs("gather_grad"),
             "card": smi,
         },
