@@ -57,6 +57,14 @@ Phases, one JSON object per line:
                     plain version's row-read counts, the bound (the table
                     rows the batch touched), simd_efficiency and the
                     active-warp share of each batch.
+  bounded_walk_check P1's bounded query (ray_query(max_steps=,
+                    return_state=), the library's second kernel) on the
+                    bounce batch, nl8 and nl5 rows: the lanes' completion
+                    steps swept through ray_query (p50 ... p100, as
+                    tools/stress_probe.py reads them), the walk state at 8,
+                    64 and the longest lane's steps bit-equal to the plain
+                    version's on every field, the hits at the longest lane's
+                    steps bit-equal to the unbounded query's; timed beside it
   wide_kernel_check wide_ray_query kernel, layouts w8, w16, s8: the same
                     modes plus a per-lane tmin, vs its plain version (same
                     bars), vs the oracle, vs the ray_query kernel on the same
@@ -318,6 +326,17 @@ Phases, one JSON object per line:
                     equal to the CPU's pack; K1 batches and a 2 spp K2
                     launch bit-equal to the unpermuted pack's, K2 timed in
                     turns on both
+  packer_options_check (S11) the animated frame packed with chunk_max 256,
+                    octants=1 and bake_static beside the base pack: each pack
+                    on the card equal to the CPU's, its rows, bytes and
+                    packer seconds; K1 batches equal to the plain wide walk
+                    on each, their ids against the base pack's; one 2 spp K2
+                    launch within the JAX bar of the base pack's, one K5
+                    (w8) launch bit-equal to it; K2 timed on the four packs
+                    in turns beside their rows a ray. setup_animation_frame
+                    (build_tlas_trees=False) at 1024 spp against True: host
+                    seconds, the wide tables and root cursors byte-equal, a
+                    K2 launch bit-equal
   shard_cli         the CLI's --shard --wavefront at 1080p x 8 spp: one K5
                     launch a card, within 1 LSB of the in-process K2 frame
   shard_grad_check  make_sharded_fast_grad_frame at 1080p x 1 spp on (4, 1)
@@ -351,6 +370,7 @@ from torch.profiler import profile as torch_profile
 
 from pathtracing_tpu_torch import cli as port_cli
 from pathtracing_tpu_torch import models, tuning
+from pathtracing_tpu_torch.accel.chunks import CHUNK_MAX
 from pathtracing_tpu_torch.accel.wide import (
     LAYOUT_S8,
     LAYOUT_W8,
@@ -387,7 +407,12 @@ from pathtracing_tpu_torch.ops.megakernel import (
 )
 from pathtracing_tpu_torch.ops.integrator import path_trace_samples
 from pathtracing_tpu_torch.ops.tonemap import tonemap
-from pathtracing_tpu_torch.ops.traversal import ray_query, ray_query_plain, simd_efficiency
+from pathtracing_tpu_torch.ops.traversal import (
+    _TravState,
+    ray_query,
+    ray_query_plain,
+    simd_efficiency,
+)
 from pathtracing_tpu_torch.ops.wavefront import (
     path_trace_wavefront,
     path_trace_wavefront_plain,
@@ -901,6 +926,19 @@ def path_builds(kernels, builds, tags) -> dict:
     return out
 
 
+def p1_kernels(kernels) -> dict:
+    """{"query": (registers, spill bytes), "bounded": ...} of a ray_query
+    library's two kernels, picked by entry name; raises unless there are
+    exactly those two."""
+    out = {}
+    for k in kernels:
+        kind = ("bounded" if "ray_query_bounded_kernel" in k["entry"]
+                else "query" if "ray_query_kernel" in k["entry"] else k["entry"])
+        out[kind] = (k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"])
+    require(sorted(out) == ["bounded", "query"], f"ray_query kernels {sorted(out)}")
+    return out
+
+
 def phase_build(early=None):
     """All twelve libraries, one nvcc each, started together. ``early``:
     (library names, fn): fn runs in this thread as soon as those libraries
@@ -976,15 +1014,17 @@ def phase_build(early=None):
     require(k1 == {k: (v, 0) for k, v in K1_REGISTERS.items()},
             f"wide_ray_query registers/spills {k1}, expected {K1_REGISTERS} / 0")
     report["wide_ray_query"]["registers_spills_by_layout"] = k1
-    p1 = report["ray_query"]["kernels"]
-    p1_regs = [(k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"]) for k in p1]
-    require(p1_regs == [(P1_REGISTERS, 0)],
-            f"ray_query registers/spills {p1_regs}, expected {P1_REGISTERS} / 0")
-    p1_nl5 = [(k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"])
-              for k in report["ray_query_nl5"]["kernels"]]
-    require(len(p1_nl5) == 1 and p1_nl5[0][1] == 0,
-            f"ray_query_nl5 registers/spills {p1_nl5}, expected one kernel, 0 spills")
-    report["ray_query_nl5"]["registers_spills"] = p1_nl5[0]
+    # P1's two kernels per library: the query, and the bounded query (its own
+    # kernel, so the query compiles as before)
+    p1 = p1_kernels(report["ray_query"]["kernels"])
+    require(p1["query"] == (P1_REGISTERS, 0),
+            f"ray_query registers/spills {p1}, expected {P1_REGISTERS} / 0")
+    p1_nl5 = p1_kernels(report["ray_query_nl5"]["kernels"])
+    require(p1_nl5["query"][1] == 0 and p1_nl5["bounded"][1] == 0 and p1["bounded"][1] == 0,
+            f"ray_query registers/spills {p1}, nl5 {p1_nl5}: spills")
+    report["ray_query"]["registers_spills"] = p1
+    report["ray_query_nl5"]["registers_spills"] = p1_nl5["query"]
+    report["ray_query_nl5"]["registers_spills_bounded"] = p1_nl5["bounded"]
     wf = path_builds(report["wavefront"]["kernels"] + report["wavefront_lit"]["kernels"],
                      WF_BUILDS, WALK_MANGLED)
     mk = path_builds(report["megakernel"]["kernels"] + report["megakernel_lit"]["kernels"],
@@ -1128,7 +1168,117 @@ def phase_kernel_check(scene_g, rays_g, scene, prod_cfg, prod_scene):
     require(shapes[1]["active"] < shapes[1]["rays"], "bounce batch holds no inactive lane")
     for s in shapes:
         emit("kernel_check", part="main_path_shape", **s)
-    return max(max(errs.values()), *(s["max_abs_err"] for s in shapes)), shapes, out
+    bounded = phase_bounded_walk(prod_scene, *calls[1], shapes[1])
+    return (max(max(errs.values()), *(s["max_abs_err"] for s in shapes)), shapes, out,
+            bounded)
+
+
+BOUNDED_STEPS = (8, 64)  # the bounded P1's max_steps, beside the longest lane's steps
+
+
+def bits(t):
+    """A tensor compared bit for bit: f32 as its int32 words."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def state_bits_differ(a, b) -> list:
+    """The _TravState fields of two walk states that differ in any bit."""
+    return [f for f in _TravState._fields
+            if not torch.equal(bits(getattr(a, f)), bits(getattr(b, f)))]
+
+
+def completion_steps(args, kwargs):
+    """Each lane's steps to done by the bounded query, read as
+    tools/stress_probe.py reads them: max_steps doubled until every lane is
+    done, a lane's step the first bound at which it is (an upper bound);
+    then the longest lane's steps, exactly, by bisection. Every call goes
+    through ray_query with return_state=True. Returns (steps per lane,
+    longest, calls)."""
+    R = args[3].x.shape[0]
+    done_at = torch.full((R,), -1, dtype=torch.int32, device="cuda")
+    k, calls = 1, 0
+    while True:
+        done = ray_query(*args, **kwargs, max_steps=k, return_state=True).done
+        calls += 1
+        done_at[done & (done_at < 0)] = k
+        if bool(done.all()):
+            break
+        k *= 2
+    lo, hi = k // 2, k
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        calls += 1
+        if bool(ray_query(*args, **kwargs, max_steps=mid, return_state=True).done.all()):
+            hi = mid
+        else:
+            lo = mid
+    return done_at, hi, calls
+
+
+def phase_bounded_walk(scene, args, kwargs, bounce):
+    """P1's bounded query (ray_query(max_steps=, return_state=)) on the
+    golden main path's bounce batch, on nl8 and nl5 rows: the lanes'
+    completion steps swept through ray_query (the launches counted from 0
+    over that sweep, the path this drives); at max_steps 8, 64 and the
+    longest lane's steps the kernel's walk state bit-equal to the plain
+    version's on every field; at the longest lane's steps its hits bit-equal
+    to the unbounded P1's; the bounded state launch timed beside the
+    unbounded query, with its bound (nl8: the bounce batch's counted walk,
+    ``bounce`` = measure_shape's reading, without the finalize step, and
+    the state's 88 B a lane written). Runs beside the path kernels' build
+    (it needs P1's libraries only)."""
+    R = args[3].x.shape[0]
+    active = args[7]
+    out = {}
+    for rows in ("nl8", "nl5"):
+        sc = scene if rows == "nl8" else nl5_scene(scene)
+        a = (sc, *args[1:])
+        CT.reset_launches()
+        done_at, longest, calls = completion_steps(a, kwargs)
+        launches = CT.bounded_launches
+        require(launches == calls == CT.launches_by_rows[rows] and launches > 0,
+                f"bounded {rows}: {launches} bounded launches for {calls} calls")
+        steps = done_at[active].cpu().numpy()
+        checks = {}
+        for k in (*BOUNDED_STEPS, longest):
+            st = CT.ray_query_cuda(*a, **kwargs, max_steps=k, return_state=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sp = ray_query_plain(*a, **kwargs, max_steps=k, return_state=True)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            differ = state_bits_differ(st, sp)
+            require(not differ, f"bounded {rows} at {k} steps: state fields {differ} differ")
+            checks[k] = {"done_share": float(st.done[active].float().mean()),
+                         "plain_ms": plain_ms, "state_bit_equal": True}
+        hb, ob = CT.ray_query_cuda(*a, **kwargs, max_steps=longest)
+        hu, ou = CT.ray_query_cuda(*a, **kwargs)
+        require(all(torch.equal(bits(x), bits(y)) for x, y in zip((*hb, ob), (*hu, ou))),
+                f"bounded {rows} at the longest lane's {longest} steps: hits differ")
+        t = time_launches({
+            "bounded_state": lambda: CT.ray_query_cuda(*a, **kwargs, max_steps=longest,
+                                                       return_state=True),
+            "query": lambda: CT.ray_query_cuda(*a, **kwargs)}, reps=3)
+        out[rows] = {
+            "launches": launches, "longest_steps": longest, "checks": checks,
+            "completion_steps_upper": {f"p{p}": int(np.quantile(steps, p / 100))
+                                       for p in (50, 90, 99, 100)},
+            "hits_at_longest_equal_unbounded": True,
+            "ms": t["bounded_state"][0], "ms_all": t["bounded_state"][1],
+            "query_ms_same_call": t["query"][0], "plain_ms": checks[longest]["plain_ms"]}
+        if rows == "nl8":
+            hits = int((st.c_inst >= 0).sum())
+            io_b = ray_io_bytes(kwargs.get("anyhit", False), args[6], R,
+                                int(active.sum())) + R * (4 * len(_TravState._fields) - 22)
+            out[rows].update(bound(
+                bounce["table_bytes_needed"], io_b,
+                bounce["node_sectors"] * SECTOR_B + (bounce["tri_rows"] - hits) * TRI_ROW_B
+                + (bounce["inst_rows"] - hits) * INST_ROW_B,
+                bounce["node_rows"] * NODE_FLOPS + (bounce["tri_rows"] - hits) * TRI_FLOPS
+                + (bounce["inst_rows"] - hits) * INST_FLOPS))
+    emit("bounded_walk_check", batch="golden bounce", rays=R, steps=list(BOUNDED_STEPS),
+         **out)
+    return out
 
 
 def phase_wide_scenes(scene_g):
@@ -2150,8 +2300,7 @@ def phase_bf16_nodes_check(scene_g, rays_g, scene, prod_cfg, prod_scene, scan_co
     emit("bf16_nodes_check", part="main_path_batches", lanes=lanes, checks=batches,
          timing=timing, registers_spills={
              "nl5": built["ray_query_nl5"]["registers_spills"],
-             "nl8": [(k["registers"], k["spill_store_bytes"] + k["spill_load_bytes"])
-                     for k in built["ray_query"]["kernels"]][0]},
+             "nl8": built["ray_query"]["registers_spills"]["query"]},
          blocks_per_sm={"nl5": built["ray_query_nl5"]["blocks_per_sm"],
                         "nl8": built["ray_query"]["blocks_per_sm"]},
          node_table=node_table_bytes(prod5), card=smi)
@@ -2801,10 +2950,10 @@ def phase_animation_cli(smi):
     for i in s.instances:
         placed[name_of[i.blas.node_offset]] = placed.get(name_of[i.blas.node_offset], 0) + 1
     t0 = time.perf_counter()
-    packer = DevicePacker(s, wide=True, chunked=True)
+    packer = DevicePacker(s, wide=True, chunk_max=CHUNK_MAX)
     torch.cuda.synchronize()
     packer_s = time.perf_counter() - t0
-    packer_cpu = DevicePacker(s_cpu, wide=True, chunked=True, device="cpu")
+    packer_cpu = DevicePacker(s_cpu, wide=True, chunk_max=CHUNK_MAX, device="cpu")
     load = {"standins_write_s": write_s, "load_scene_s": load_s,
             "load_scene_cpu_s": cpu_load_s, "packer_s": packer_s,
             "host_builders": builds, "instances": len(s.instances),
@@ -2914,8 +3063,10 @@ def phase_animation_cli(smi):
     finally:
         for run, _, _ in started.values():
             stop_process_group(run["proc"])
-    # S10: the hot-row permutation on the same frame
+    # S10: the hot-row permutation on the same frame; S11: the packer's
+    # options and the setup without the per-subframe TLAS builds
     hot = hotperm_check(cfg, s, s_cpu, packer, smi)
+    options = packer_options_check(cfg, s, s_cpu, packer, k1, smi)
     del s, s_cpu, packer, packer_cpu
     torch.cuda.empty_cache()
 
@@ -2980,7 +3131,7 @@ def phase_animation_cli(smi):
     emit("animation_cli", load_scene_s=load["load_scene_s"], packer_s=load["packer_s"],
          **cli, card=smi)
     return {"load": load, "frames": frames, "k1": k1, "k2_launch": k2_launch, "cli": cli,
-            "subframes": subframes, "nl5": anim_nl5, "hotperm": hot}
+            "subframes": subframes, "nl5": anim_nl5, "hotperm": hot, "options": options}
 
 
 # ------------------------------------------------- the path kernels' designs
@@ -4624,12 +4775,12 @@ def hotperm_check(cfg, s, s_cpu, packer, smi):
     setup_animation_frame(s_cpu, frame, cfg)
     base = packer.pack_frame(s)
     t0 = time.perf_counter()
-    hot_packer = DevicePacker(s, wide=True, chunked=True, hot_rows=HOT_ROWS)
+    hot_packer = DevicePacker(s, wide=True, chunk_max=CHUNK_MAX, hot_rows=HOT_ROWS)
     hot = hot_packer.pack_frame(s)
     torch.cuda.synchronize()
     packer_s = time.perf_counter() - t0
-    packs_equal("hotperm", hot, DevicePacker(s_cpu, wide=True, chunked=True, hot_rows=HOT_ROWS,
-                                             device="cpu").pack_frame(s_cpu))
+    packs_equal("hotperm", hot, DevicePacker(s_cpu, wide=True, chunk_max=CHUNK_MAX,
+                                             hot_rows=HOT_ROWS, device="cpu").pack_frame(s_cpu))
     require(hot.hot_rows.shape[0] == HOT_ROWS
             and torch.equal(hot.hot_rows.view(torch.int32),
                             hot.wide_rows[:HOT_ROWS].view(torch.int32)),
@@ -4660,6 +4811,168 @@ def hotperm_check(cfg, s, s_cpu, packer, smi):
     emit("hotperm_check", **out, card=smi)
     del hot_packer, hot, base, q
     return out
+
+
+# the chunked packer's options checked on the animated frame: the CLI's pack
+# ("base"), smaller chunks, one octant's trees, and the static instances
+# baked into world space
+PACK_OPTIONS = {"base": {"chunk_max": CHUNK_MAX}, "256": {"chunk_max": 256},
+                "o1": {"chunk_max": CHUNK_MAX, "octants": 1},
+                "bake": {"chunk_max": CHUNK_MAX, "bake_static": True}}
+PACK_K2_SPP = 2  # one K2 / K5 dispatch of the animated frame (over LARGE_SCENE_NODES)
+
+
+def pack_k1(tag, scene, base_hits, batch) -> dict:
+    """K1 on one 65,536-ray batch of the animated frame on a pack: ids equal
+    to the plain wide walk on the same pack (1e-6), its rows a ray from the
+    plain walk's counts; against the base pack's K1 hits, the share of equal
+    ids and, on the lanes that differ, the thit of both packs (a reading)."""
+    a, k = batch
+    args = (scene, *a[1:])
+    hk, ok = CW.wide_ray_query_cuda(*args, **k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hp, op, counts = wide_ray_query_plain(*args, **k, return_counts=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = compare_hits(tag, hk, ok, hp, op)
+    active = a[7]
+    hb = base_hits
+    same = (hk.inst == hb.inst) & (hk.prim == hb.prim)
+    differ = (~same & active).nonzero()[:, 0][:8]
+    rows = counts.wide_rows + counts.leaf_rows + counts.inst_rows
+    return {"max_abs_err": err, "plain_ms": plain_ms, "rows": rows,
+            "rows_a_ray": rows / max(int(active.sum()), 1),
+            "ids_equal_base_share": float(same[active].float().mean()),
+            "thit_equal_base_share": float((bits(hk.thit) == bits(hb.thit))[active]
+                                           .float().mean()),
+            "differing_lanes": [{"lane": int(i), "thit": float(hk.thit[i]),
+                                 "thit_base": float(hb.thit[i])} for i in differ]}
+
+
+def packer_options_check(cfg, s, s_cpu, packer, base_k1, smi):
+    """The chunked packer's options on the animated frame (stand-ins, frame
+    1000, 1920x1080 x 5 bounces at ANIM_CHECK_SPP; packs of PACK_OPTIONS,
+    ``packer`` the base): each pack on the card equal to the CPU's
+    (packed in a thread of their own beside the launches), its rows, bytes
+    and packer seconds; K1 on the frame's 65,536-ray primary and bounce
+    batches (closest and any-hit lanes) equal to the plain wide walk on the
+    same pack, and against the base pack's K1 the share of equal ids; one
+    K2 launch of PACK_K2_SPP within the JAX bar of the base pack's (and its
+    bit-equal share); one K5 (w8) launch equal to K2 on the same pack, bit
+    for bit; K2 timed on the four packs in turns (3 repeats, device time
+    beside), next to each pack's rows a ray (a reading: no gain claimed).
+    Then setup_animation_frame(build_tlas_trees=False) at the production
+    preset's 1024 spp (128 subframes) against True: host seconds of each,
+    the frame's wide_rows and every subframe's root cursors byte-equal, one
+    K2 launch bit-equal. The launches of each kernel on the new packs are
+    counted from 0 over this phase's drive (K1's batches, K2's and K5's
+    launches). ``base_k1``: animation_frames' K1 readings of the base pack
+    on the same batches (measure_wide_shape)."""
+    W, H = cfg.image_width, cfg.image_height
+    n = W * H
+    frame = ANIM_CHECK_FRAMES[0]
+    setup_animation_frame(s, frame, cfg)
+    setup_animation_frame(s_cpu, frame, cfg)
+
+    def cpu_packs():
+        return {k: DevicePacker(s_cpu, wide=True, device="cpu", **kw).pack_frame(s_cpu)
+                for k, kw in PACK_OPTIONS.items() if k != "base"}
+
+    packs = {"base": packer.pack_frame(s)}
+    out = {k: {} for k in PACK_OPTIONS}
+    with ThreadPoolExecutor(1) as pool:
+        cpu = pool.submit(cpu_packs)
+        for k, kw in PACK_OPTIONS.items():
+            if k != "base":
+                t0 = time.perf_counter()
+                packs[k] = DevicePacker(s, wide=True, **kw).pack_frame(s)
+                torch.cuda.synchronize()
+                out[k]["packer_s"] = time.perf_counter() - t0
+            out[k].update(wide_rows=int(packs[k].wide_rows.shape[0]),
+                          wide_bytes=packs[k].wide_rows.numel() * 4,
+                          wide_over_l2=packs[k].wide_rows.numel() * 4 / L2_BYTES)
+        idx = torch.arange(LARGE_BATCH, dtype=torch.int64, device="cuda") * n // LARGE_BATCH
+        q = capture_queries(cfg, packs["base"], (idx % W).to(torch.int32),
+                            (idx // W).to(torch.int32))[:2]
+        for c in (CW, CM, CWF):
+            c.reset_launches()
+        xs_t, ys_t = (torch.from_numpy(v).cuda() for v in frame_pixels(cfg))
+        sums, base_hits = {}, {}
+        for k, pack in packs.items():
+            for (a, kw), name in zip(q, ("primary", "bounce")):
+                if k == "base":
+                    base_hits[name] = CW.wide_ray_query_cuda(*a, **kw)[0]
+                else:
+                    out[k][f"k1_{name}"] = pack_k1(f"{k} K1 {name}", pack, base_hits[name],
+                                                   (a, kw))
+            k2 = CM.megakernel_cuda(cfg, pack, n, PACK_K2_SPP)
+            k5 = CWF.wavefront_cuda(cfg, pack, xs_t, ys_t, PACK_K2_SPP)
+            require(bit_equal(k2[:3], k5[:3]) and int(k2[4]) == 0 and int(k5[4]) == 0,
+                    f"pack {k}: K5 (w8) differs from K2, or a sample was abandoned")
+            sums[k] = k2[:3]
+            if k != "base":
+                cmp = mk_compare(f"pack {k}: K2 vs the base pack's", sums[k], sums["base"],
+                                 PACK_K2_SPP, 0, 0, W)
+                out[k]["k2_vs_base"] = {key: cmp[key] for key in (
+                    "finite_share", "close_share", "bar", "bit_equal_share", "max_abs_err")}
+            out[k]["k5_equals_k2"] = True
+        launches = {"k1": CW.launches, "k2": CM.launches, "k5": CWF.launches}
+        require(launches == {"k1": 2 * len(packs), "k2": len(packs), "k5": len(packs)},
+                f"packer options: launches {launches}")
+        t = time_launches({k: functools.partial(CM.megakernel_cuda, cfg, p, n, PACK_K2_SPP)
+                           for k, p in packs.items()}, reps=3)
+        for k, p in packs.items():
+            out[k].update(k2_ms=t[k][0], k2_ms_all=t[k][1],
+                          **launch_device_ms(functools.partial(CM.megakernel_cuda, cfg, p, n,
+                                                               PACK_K2_SPP),
+                                             "megakernel", reps=3))
+        del q
+        for k, dev_cpu in cpu.result().items():
+            packs_equal(f"pack {k}", packs[k], dev_cpu)
+            out[k]["card_pack_equals_cpu"] = True
+    # the base pack's rows a ray: the plain walk's counts of the same
+    # batches in animation_frames (where K1 is held to it on this pack)
+    for sh in base_k1:
+        rows = sh["wide_rows"] + sh["leaf_rows"] + sh["inst_rows"]
+        out["base"][f"k1_{sh['shape'].split()[-1]}"] = {"rows": rows,
+                                                        "rows_a_ray": rows / sh["active"]}
+    del packs, sums
+
+    # the frame's setup without the per-subframe binary TLAS builds
+    cfg_sub = dataclasses.replace(PRODUCTION)
+    skip = {}
+    for build in (True, False):
+        t0 = time.perf_counter()
+        setup_animation_frame(s, frame, cfg_sub, build_tlas_trees=build)
+        setup_s = time.perf_counter() - t0
+        dev = packer.pack_frame(s)
+        torch.cuda.synchronize()
+        base = int(dev.wide_root_base)
+        skip[build] = {"setup_s": setup_s, "pack_s": time.perf_counter() - t0 - setup_s,
+                       "subframes": len(s.subframes),
+                       "tlas_nodes": sum(sf.tlas.node_count for sf in s.subframes),
+                       "rows": dev.wide_rows,
+                       "roots": torch.stack([dev.wide_root[sf.tlas.node_offset - base]
+                                             for sf in s.subframes]),
+                       "k2": CM.megakernel_cuda(cfg_sub, dev, n, PACK_K2_SPP)[:3]}
+        del dev
+    a, b = skip[True], skip[False]
+    require(b["tlas_nodes"] == 0 and a["subframes"] == b["subframes"]
+            == cfg_sub.subframe_count, "build_tlas_trees=False: subframe handles")
+    require(torch.equal(bits(a["rows"]), bits(b["rows"])) and torch.equal(a["roots"], b["roots"]),
+            "build_tlas_trees=False: the wide tables or root cursors differ")
+    require(bit_equal(a["k2"], b["k2"]), "build_tlas_trees=False: the K2 launch differs")
+    skip_out = {str(build).lower(): {k: v[k] for k in ("setup_s", "pack_s", "subframes",
+                                                          "tlas_nodes")}
+                for build, v in skip.items()}
+    del skip, a, b
+    setup_animation_frame(s, frame, cfg)
+    emit("packer_options_check", frame=frame, spp=PACK_K2_SPP, options=PACK_OPTIONS,
+         packs=out, launches=launches, build_tlas_trees=skip_out,
+         tables_equal_without_tlas_trees=True, k2_bit_equal_without_tlas_trees=True,
+         card=smi)
+    return {"packs": out, "launches": launches, "build_tlas_trees": skip_out}
 
 
 def start_multihost_demo() -> dict:
@@ -4723,7 +5036,7 @@ def main() -> int:
     # path kernels' libraries build
     demo, early = {}, {}
     try:
-        built = phase_build((("ray_query", "wide_ray_query", "gather_rows"),
+        built = phase_build((("ray_query", "ray_query_nl5", "wide_ray_query", "gather_rows"),
                              lambda: early.update(early_phases(smi))))
         return run_phases(t_start, smi, kind, built, early, demo)
     finally:
@@ -4752,7 +5065,7 @@ def early_phases(smi) -> dict:
          main_path_wide_table_bytes=CW.table_bytes(prod_wide))
     wide_scenes = phase_wide_scenes(scene_g)
 
-    max_err, shapes, binary_out = phase_kernel_check(
+    max_err, shapes, binary_out, bounded = phase_kernel_check(
         scene_g, rays_g, scene, prod_cfg, prod_scene
     )
     wide_err, wide_shapes, other_times = phase_wide_kernel_check(
@@ -4776,6 +5089,7 @@ def run_phases(t_start, smi, kind, built, early, demo) -> int:
                                                              "other_times"))
     gather_launches, gather_shapes, gather_sweep = (
         early[k] for k in ("gather_launches", "gather_shapes", "gather_sweep"))
+    bounded = early["bounded"]
     gather_one = gather_shapes[-1]  # the large table at one render tile's lanes
     oracle_mean = phase_oracle_frame(scene)
     phase_oracle_frame(wide_scenes[MAIN_LAYOUT], "oracle_frame_wide")
@@ -4867,7 +5181,8 @@ def run_phases(t_start, smi, kind, built, early, demo) -> int:
             "library_ms": None,  # no single PyTorch call computes a BVH ray query
             "shape": f"bounce batch, {bounce['rays']} rays",
             "primary": {k: shapes[0][k] for k in five},
-            **regs("ray_query"),
+            # the query kernel's (the library's bounded kernel: ray_query_bounded)
+            "registers_spills": built["ray_query"]["registers_spills"]["query"],
             "blocks_per_sm": built["ray_query"]["blocks_per_sm"],
             "lane_fill": {**walk(shapes[0]), **walk(bounce)},
             "large_scene": large_walk(large, "p1", "scan_binary"),
@@ -4884,6 +5199,34 @@ def run_phases(t_start, smi, kind, built, early, demo) -> int:
                 "launches_load_scene": anim["cli"]["frames64"]["load"]["launches"]["ray_query"],
                 "scan_frame_seconds": {f: v["scan_binary"]["seconds"]
                                        for f, v in anim["frames"].items()}},
+            "card": smi,
+        },
+        {
+            # P1's bounded query: the same library's second kernel
+            "name": "ray_query_bounded",
+            "route": "cuda",
+            "source": SOURCES["ray_query"],
+            "replaces": "pathtracing_tpu/ops/pallas_traversal.py:64",
+            # the JAX walk's bounded loop, which the Pallas body runs
+            "bounded_loop_of": "pathtracing_tpu/ops/traversal.py:546",
+            # the completion-step sweep through ray_query (bounded_walk_check)
+            "launches": bounded["nl8"]["launches"],
+            "max_abs_err": 0.0,  # every state field bit-equal, or the phase raised
+            "ms": bounded["nl8"]["ms"],
+            "plain_ms": bounded["nl8"]["plain_ms"],
+            "bound_ms": bounded["nl8"]["bound_ms"],
+            "bound_by": bounded["nl8"]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a BVH ray query
+            "shape": (f"golden bounce batch, {bounce['rays']} rays, max_steps = the "
+                      f"longest lane's {bounded['nl8']['longest_steps']}, the walk state"),
+            "query_ms_same_call": bounded["nl8"]["query_ms_same_call"],
+            "registers_spills": built["ray_query"]["registers_spills"]["bounded"],
+            "nl5": {k: bounded["nl5"][k] for k in ("launches", "ms", "plain_ms",
+                                                   "query_ms_same_call", "longest_steps",
+                                                   "completion_steps_upper")},
+            "nl5_registers_spills": built["ray_query_nl5"]["registers_spills_bounded"],
+            "completion_steps_upper": bounded["nl8"]["completion_steps_upper"],
+            "checks": {rows: bounded[rows]["checks"] for rows in ("nl8", "nl5")},
             "card": smi,
         },
         {
@@ -4943,6 +5286,11 @@ def run_phases(t_start, smi, kind, built, early, demo) -> int:
             "animation_chunked": [{k: sh[k] for k in five + ("max_abs_err", "p1_ms_same_batch",
                                                              "id_mismatches_vs_ray_query")}
                                   for sh in anim["k1"]],
+            # S11: the packer's options on the same frame and batches
+            "packer_options": {
+                "launches": anim["options"]["launches"]["k1"],
+                **{k: {b: v[f"k1_{b}"] for b in ("primary", "bounce")}
+                   for k, v in anim["options"]["packs"].items()}},
             "card": smi,
         },
         {
@@ -5009,6 +5357,14 @@ def run_phases(t_start, smi, kind, built, early, demo) -> int:
                                   for tag in ("frames64", ANIM_DEEP)},
                               "last_subframes_vs_scan": {
                                   spp: v["k2_vs_scan"] for spp, v in anim["subframes"].items()}},
+            # S11: one 2 spp launch a pack, timed in turns
+            "packer_options": {
+                "launches": anim["options"]["launches"]["k2"],
+                **{k: {key: v[key] for key in ("wide_rows", "wide_bytes", "k2_ms", "device_ms")
+                       if key in v} | ({"vs_base": v["k2_vs_base"]} if "k2_vs_base" in v
+                                       else {})
+                   for k, v in anim["options"]["packs"].items()},
+                "build_tlas_trees": anim["options"]["build_tlas_trees"]},
             "card": smi,
         },
         {
@@ -5049,6 +5405,9 @@ def run_phases(t_start, smi, kind, built, early, demo) -> int:
                               "last_subframes_vs_scan": {
                                   spp: v["k5_binary_vs_scan"]
                                   for spp, v in anim["subframes"].items()}},
+            # S11: one w8 launch a pack, each bit-equal to K2 on it
+            "packer_options": {"launches": anim["options"]["launches"]["k5"],
+                               "equal_to_k2": True},
             "card": smi,
         },
         {

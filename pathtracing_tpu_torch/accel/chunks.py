@@ -143,6 +143,31 @@ def _world_aabbs(transforms: np.ndarray, bmin: np.ndarray, bmax: np.ndarray):
     return lmin, lmax
 
 
+def _chunk_prim_lists(links0: np.ndarray, chunk_roots) -> list[np.ndarray]:
+    """Per-chunk primitive id lists by iterative DFS over the octant-0
+    binary links (chunks partition the tree, so total work is O(nodes))."""
+    first, sibling, is_leaf = _children_arrays(links0, len(links0))
+    accept = links0[:, 0].astype(np.int64)
+    out = []
+    for root in chunk_roots:
+        prims = []
+        stack = [int(root)]
+        while stack:
+            v = stack.pop()
+            if is_leaf[v]:
+                prims.append(accept[v] & 0x7FFFFFFF)
+                continue
+            c = first[v]
+            while True:
+                stack.append(int(c))
+                nxt = sibling[c]
+                if nxt == sibling[v]:
+                    break
+                c = nxt
+        out.append(np.asarray(prims, np.int64))
+    return out
+
+
 def _inst_chunk_rows(
     lay: WideLayout, inv12: np.ndarray, inst_ids: np.ndarray,
     root8s: np.ndarray, base: int,
@@ -175,7 +200,14 @@ class ChunkedStaticRegion:
       chunks_of     mesh key (node_offset, node_count) ->
                     (node_ids (C,), aabb6 (C, 6) f32 local AABBs,
                      root8 (C, 8) u32 chunk entry cursors)
-      layout, leaf_bundle
+      layout, leaf_bundle, chunk_max, octants, bake_static
+
+    Options (the JAX package's, the same bytes for each): ``chunk_max``
+    triangles a chunk holds at most; ``octants`` 8 (a tree per direction
+    octant) or 1 (octant 0's tree only, every entry cursor aliased to it);
+    ``bake_static`` re-emits every static instance's chunks in world space
+    under identity INST rows (needs the native wide builder, else
+    RuntimeError).
     """
 
     def __init__(
@@ -187,13 +219,24 @@ class ChunkedStaticRegion:
         static_instances,
         leaf_bundle: int | None = 8,
         layout: WideLayout = LAYOUT_W8,
+        chunk_max: int = CHUNK_MAX,
+        octants: int = 8,
+        bake_static: bool = False,
     ):
         import sys
 
         if sys.getrecursionlimit() < 100000:
             sys.setrecursionlimit(100000)
+        assert octants in (1, 8), octants
         self.layout = layout
         self.leaf_bundle = leaf_bundle
+        self.chunk_max = chunk_max
+        self.bake_static = bake_static
+        # octants=1 emits only octant 0's tree per chunk/TLAS and aliases
+        # the 8 entry cursors to it: ~8x fewer interior rows, trading
+        # near-to-far order for a far smaller table (the JAX package chose
+        # it for its TPU gather, whose cost rose with table footprint)
+        self.octants = octants
         lay = layout
         nodes = np.asarray(bvh_nodes, f32)
         links_all = np.ascontiguousarray(bvh_links, u32)
@@ -202,6 +245,9 @@ class ChunkedStaticRegion:
         native = _use_native()
         if native:
             from pathtracing_tpu_torch.accel.native import build_wide_tree_native
+        elif bake_static:
+            # the JAX package raises this after building the chunk trees
+            raise RuntimeError("bake_static needs the native wide builder")
 
         bundle = 2 * lay.leaf_tris if leaf_bundle is None else leaf_bundle
         self.chunks_of: dict = {}
@@ -210,6 +256,7 @@ class ChunkedStaticRegion:
         builder = None if native else WideBuilder(
             leaf_bundle=leaf_bundle, layout=lay
         )
+        mesh_cache: dict = {}  # bake_static: key -> (links8, n6, tri9, roots)
 
         for mesh, blas in mesh_blas_pairs:
             key = (blas.node_offset, blas.node_count)
@@ -218,7 +265,7 @@ class ChunkedStaticRegion:
             off, cnt = key
             links8 = links_all[8 * off : 8 * off + 8 * cnt]
             n6 = nodes[off : off + cnt]
-            roots = chunk_nodes(links8[:cnt], cnt, CHUNK_MAX)
+            roots = chunk_nodes(links8[:cnt], cnt, chunk_max)
             tri = indices[
                 mesh.index_offset : mesh.index_offset + 3 * mesh.triangle_count
             ].reshape(-1, 3).astype(np.int64) + mesh.base_vertex_offset
@@ -226,13 +273,15 @@ class ChunkedStaticRegion:
 
             node_ids = np.asarray(roots, np.int64)
             aabb6 = n6[node_ids].copy()
+            if bake_static:
+                mesh_cache[key] = (links8, n6, tri9, node_ids)
             root8s = np.zeros((len(roots), 8), u32)
             for k, v in enumerate(roots):
                 if native:
                     res = build_wide_tree_native(
                         links8, n6, tri9, None, bundle, lay.n_slots,
                         lay.leaf_tris, row_cursor, int(END_BLAS),
-                        root_node=int(v),
+                        root_node=int(v), n_octants=octants,
                         stub=lay.stub,
                     )
                     if res is None:
@@ -260,12 +309,13 @@ class ChunkedStaticRegion:
                             )
                         return lay.make_cursor(KIND_LEAF, leaf_cache[pk])
 
-                    for o in range(8):
+                    for o in range(octants):
                         links_o = links8[o * cnt : (o + 1) * cnt]
                         rid = builder.build_wide_tree(
                             links_o, n6, int(v), leaf_target, END_BLAS
                         )
                         root8s[k, o] = lay.make_cursor(KIND_WIDE, rid)
+                    root8s[k, octants:] = root8s[k, 0]
             self.chunks_of[key] = (node_ids, aabb6, root8s)
 
         if not native:
@@ -274,12 +324,86 @@ class ChunkedStaticRegion:
             row_cursor = len(chunk_rows)
 
         # ---- static chunk INST rows -------------------------------------
+        # bake_static: every STATIC instance's chunk trees are
+        # re-emitted with WORLD-SPACE triangle vertices and node AABBs and
+        # an IDENTITY-transform INST row (original instance id, so shading
+        # and hit records are untouched). The static TLAS then covers
+        # EXACT per-chunk world boxes (reduced over the chunk's world
+        # triangles) instead of corner-transformed mesh boxes — the loose
+        # boxes + per-instance re-descents made tropical_tree 38% of the
+        # rows the JAX package's TPU walk gathered. Costs: the static
+        # table grows with total INSTANCED triangles (~79x the unique-mesh
+        # count on the reference's full scene), and the leaf test runs on
+        # world-space vertices, which shifts exact-t ties into the
+        # documented chaotic-lane class (docs/PARITY.md) — the candidate
+        # SET is unchanged (conservative boxes, same triangles), so hits
+        # differ only on ulp-level t ties; validation is the PSNR gate,
+        # not bit-equality.
         inv12, ids, root8s, bmin, bmax, tmats = [], [], [], [], [], []
+        ident12 = np.eye(4, dtype=f32)[:, 0:3].reshape(12)
+        ident4 = np.eye(4, dtype=f32)
+        chunk_prims: dict = {}
+        if bake_static:
+            for key, (links8, n6, tri9, node_ids) in mesh_cache.items():
+                cnt = key[1]
+                chunk_prims[key] = _chunk_prim_lists(
+                    links8[:cnt], node_ids
+                )
         for abs_id, inst in enumerate(static_instances):
             key = (inst.blas.node_offset, inst.blas.node_count)
             node_ids, aabb6, r8 = self.chunks_of[key]
             C = len(node_ids)
             if C == 0:
+                continue
+            if bake_static:
+                # per-chunk WORLD SAH rebuild: exact world boxes AND
+                # world-axis octant orderings. (A cheaper variant reusing
+                # the mesh-space topology with corner-transformed node
+                # boxes gathered 2.2x the base pack's rows a sample on the
+                # JAX package's TPU walk: rotation-degraded ordering and
+                # loose interior boxes more than cancel the TLAS win.)
+                links8, n6, tri9, _nids = mesh_cache[key]
+                t = np.asarray(inst.transform, f32)
+                rot, trans = t[:3, :3], t[3, :3]
+                v = tri9.reshape(-1, 3, 3)
+                tri9w = np.ascontiguousarray(
+                    (v @ rot + trans).reshape(-1, 9), f32
+                )
+                vw = tri9w.reshape(-1, 3, 3)
+                tmin_all = vw.min(axis=1)
+                tmax_all = vw.max(axis=1)
+                r8w = np.zeros((C, 8), u32)
+                emin = np.empty((C, 3), f32)
+                emax = np.empty((C, 3), f32)
+                for k in range(C):
+                    prims = chunk_prims[key][k]
+                    t_nodes, t_links = build_from_leaves(
+                        tmin_all[prims], tmax_all[prims],
+                        prims.astype(u32),
+                    )
+                    res = build_wide_tree_native(
+                        np.ascontiguousarray(t_links, u32),
+                        np.asarray(t_nodes, f32), tri9w, None, bundle,
+                        lay.n_slots, lay.leaf_tris, row_cursor,
+                        int(END_BLAS), root_node=0, n_octants=octants,
+                        stub=lay.stub,
+                    )
+                    if res is None:
+                        raise RuntimeError(
+                            "native wide chunk build failed (corrupt links?)"
+                        )
+                    rows, root8 = res
+                    parts.append(rows)
+                    r8w[k] = root8
+                    row_cursor += len(rows)
+                    emin[k] = t_nodes[0, 0:3]
+                    emax[k] = t_nodes[0, 3:6]
+                inv12.append(np.tile(ident12, (C, 1)))
+                ids.append(np.full(C, abs_id, np.int64))
+                root8s.append(r8w)
+                bmin.append(emin)
+                bmax.append(emax)
+                tmats.append(np.tile(ident4[None], (C, 1, 1)))
                 continue
             inv = np.asarray(inst.inv_transform, f32)[:, 0:3].reshape(12)
             inv12.append(np.tile(inv, (C, 1)))
@@ -314,7 +438,7 @@ class ChunkedStaticRegion:
             )
             rows, self.static_root8 = _emit_tlas_rows(
                 lay, t_nodes, t_links, inst_cursors, row_cursor,
-                np.full(8, END_TLAS, u32), bundle,
+                np.full(8, END_TLAS, u32), bundle, octants,
             )
             parts.append(rows)
             row_cursor += len(rows)
@@ -329,7 +453,7 @@ class ChunkedStaticRegion:
 
 def _emit_tlas_rows(
     lay: WideLayout, t_nodes, t_links, payload_cursors: np.ndarray,
-    base_row: int, exit8: np.ndarray, bundle: int,
+    base_row: int, exit8: np.ndarray, bundle: int, octants: int = 8,
 ):
     """Wide rows for a TLAS whose leaves are payload_cursors[payload],
     with per-octant exit cursors. Returns (rows, root8)."""
@@ -343,14 +467,14 @@ def _emit_tlas_rows(
             np.ascontiguousarray(t_links, u32), np.asarray(t_nodes, f32),
             None, np.ascontiguousarray(payload_cursors, u32),
             bundle, lay.n_slots, lay.leaf_tris, base_row, int(END_TLAS),
-            exit8=np.ascontiguousarray(exit8, u32),
+            exit8=np.ascontiguousarray(exit8, u32), n_octants=octants,
             stub=lay.stub,
         )
         if res is not None:
             return res
     b = WideBuilder(leaf_bundle=0, base=base_row, layout=lay)
     root8 = np.zeros(8, u32)
-    for o in range(8):
+    for o in range(octants):
         links_o = np.asarray(t_links, u32)[o * n : (o + 1) * n]
 
         def leaf_target(prims, group):
@@ -362,6 +486,7 @@ def _emit_tlas_rows(
             u32(exit8[o]),
         )
         root8[o] = lay.make_cursor(KIND_WIDE, rid)
+    root8[octants:] = root8[0]
     rows = b.finalize() if b.rows else np.zeros((0, lay.w_row), f32)
     return rows, root8
 
@@ -473,6 +598,7 @@ def build_frame_tail_chunked(
             rows, root8 = _emit_tlas_rows(
                 lay, t_nodes, t_links, cursors[sel], row_cursor,
                 static.static_root8, bundle,
+                static.octants,
             )
             parts.append(rows)
             row_cursor += len(rows)

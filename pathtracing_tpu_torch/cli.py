@@ -169,6 +169,7 @@ def main(argv=None):
 
     import torch
 
+    from pathtracing_tpu_torch.accel.chunks import CHUNK_MAX
     from pathtracing_tpu_torch.config import PRODUCTION, TESTING
     from pathtracing_tpu_torch.io.bmp import write_bmp
     from pathtracing_tpu_torch.render import render_frame
@@ -219,7 +220,8 @@ def main(argv=None):
     else:
         scene = load_scene(data_dir=args.data_dir, config=config, device=device)
         load_s = time.perf_counter() - t0
-        packer = DevicePacker(scene, wide=wide, chunked=wide, device=device)
+        packer = DevicePacker(scene, wide=wide, chunk_max=CHUNK_MAX if wide else None,
+                              device=device)
         packer_s = time.perf_counter() - t0 - load_s
     print(
         f"EXECUTION TIME OF load_scene() : "

@@ -34,6 +34,7 @@ def build(
     DevicePacker.pack_frame per frame (cli.py does this with host/device
     pipelining).
     """
+    from pathtracing_tpu_torch.accel.chunks import CHUNK_MAX
     from pathtracing_tpu_torch.scene.device import DevicePacker
     from pathtracing_tpu_torch.scene.loader import load_scene, setup_animation_frame
 
@@ -42,5 +43,6 @@ def build(
         wide = device.type == "cuda"
     s = load_scene(data_dir=data_dir, config=config, device=device)
     setup_animation_frame(s, frame, config)
-    dev = DevicePacker(s, wide=wide, chunked=wide, device=device).pack_frame(s)
+    dev = DevicePacker(s, wide=wide, chunk_max=CHUNK_MAX if wide else None,
+                       device=device).pack_frame(s)
     return s, dev

@@ -21,6 +21,12 @@ instance, any other through ``nl8``. The source builds two libraries, one
 per row format (``-DPT_NODE_ROWS=5`` for nl5), and the wrapper launches the
 one of the scene's rows or raises; it never walks the other table.
 
+The bounded query (``max_steps`` / ``return_state``, the JAX walk's
+arguments) is the library's second kernel: each lane stops after
+``max_steps`` steps of the one-speed loop and the kernel writes its whole
+walk state (``_TravState``, one int32 plane per field) or the hit
+finalized from it. The unbounded kernel is the same as before.
+
 Build and binding: ops/cuda_build.py (``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes``, built at first use under a
 hash-keyed name in ``build/torch_kernels/``). The hash covers the two headers
@@ -39,7 +45,7 @@ from pathtracing_tpu_torch.ops.cuda_build import (
     KernelLibrary,
     check_tensor as _check,
 )
-from pathtracing_tpu_torch.ops.traversal import RayHit
+from pathtracing_tpu_torch.ops.traversal import RayHit, _TravState
 from pathtracing_tpu_torch.utils.vec import Vec3
 
 SOURCE = CSRC / "ray_query.cu"
@@ -49,6 +55,8 @@ WALK_HEADER = CSRC / "binary_walk.cuh"
 _p, _f, _i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 SYMBOLS = {
     "pt_ray_query": ([_p] * 15 + [_f, _f, _i] + [_p] * 7 + [_i, _p], _i),
+    "pt_ray_query_bounded": ([_p] * 15 + [_f, _f, _i, _i, _p] + [_p] * 7 + [_i, _p], _i),
+    "pt_ray_query_state_fields": ([], _i),
     "pt_ray_query_block_size": ([], _i),
     "pt_ray_query_node_words": ([], _i),
     "pt_ray_query_occupancy": ([], _i),
@@ -61,16 +69,29 @@ LIBRARY_BY_ROWS = {"nl8": LIBRARY, "nl5": NL5_LIBRARY}
 # f32 words of a node row per format
 NODE_WORDS = {"nl8": 8, "nl5": 5}
 
-# Launches of the kernel since the last reset, in all and per node-row
-# format: incremented where the kernel is launched and nowhere else, so a
-# run can show that it went through it.
+# Launches of the kernels since the last reset, in all and per node-row
+# format, and of the bounded kernel among them: incremented where a kernel
+# is launched and nowhere else, so a run can show that it went through it.
 launches = 0
 launches_by_rows = {"nl8": 0, "nl5": 0}
+bounded_launches = 0
+
+# The walk state's planes as the bounded kernel writes them: _TravState's
+# fields in order, each an int32 plane holding the field's bits (floats) or
+# 0 / 1 (bools).
+STATE_DTYPES = {
+    f: (torch.bool if f in ("in_blas", "done", "occluded")
+        else torch.float32 if f.startswith(("b_org", "b_inv", "b_S")) or f == "tmax"
+        else torch.int32)
+    for f in _TravState._fields
+}
+# no step bound: the bounded kernel's max_steps for return_state alone
+UNBOUNDED_STEPS = 2**31 - 1
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, bounded_launches
+    launches = bounded_launches = 0
     for k in launches_by_rows:
         launches_by_rows[k] = 0
 
@@ -133,9 +154,13 @@ def ray_query_cuda(
     tmax0,
     active,
     anyhit=False,
+    max_steps=None,
+    return_state=False,
 ):
     """Ray query on CUDA tensors by the hand-written kernel; same contract
-    as ``ops/traversal.ray_query``. Returns (RayHit, occluded).
+    as ``ops/traversal.ray_query``. Returns (RayHit, occluded), or with
+    ``return_state`` the walk's ``_TravState``; ``max_steps`` or
+    ``return_state`` launch the bounded kernel.
 
     ``anyhit``: a Python bool, or a per-lane bool tensor (one batch may mix
     shadow and bounce rays). ``tmax0``: a scalar or a per-lane f32 tensor.
@@ -146,7 +171,7 @@ def ray_query_cuda(
     dtype, shape or layout, and on a refused launch; it never gives way to
     the plain version or to the other node table.
     """
-    global launches
+    global launches, bounded_launches
     device = org.x.device
     if device.type != "cuda":
         raise ValueError(f"ray_query_cuda needs CUDA tensors, got {device}")
@@ -181,7 +206,17 @@ def ray_query_cuda(
     else:
         tmax_all = float(tmax0)
 
+    bounded = max_steps is not None or return_state
+    if bounded:
+        steps = UNBOUNDED_STEPS if max_steps is None else int(max_steps)
+        if not 0 <= steps <= UNBOUNDED_STEPS:
+            raise ValueError(f"max_steps {max_steps}: 0 to {UNBOUNDED_STEPS}")
     lib = load_library(rows)
+    state = None
+    if return_state:
+        if int(lib.pt_ray_query_state_fields()) != len(_TravState._fields):
+            raise RuntimeError("ray_query library writes another walk state")
+        state = torch.empty((len(_TravState._fields), R), dtype=i32, device=device)
     thit = torch.empty(R, dtype=f32, device=device)
     bu = torch.empty(R, dtype=f32, device=device)
     bv = torch.empty(R, dtype=f32, device=device)
@@ -196,22 +231,41 @@ def ray_query_cuda(
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pt_ray_query(
+        inputs = (
             ptr(nodes), ptr(scene.tri_pos), ptr(scene.inst_f), ptr(scene.inst_u),
             ptr(tlas_count), ptr(tlas_offset),
             ptr(org.x), ptr(org.y), ptr(org.z), ptr(d.x), ptr(d.y), ptr(d.z),
             ptr(tmax_lane), ptr(active), ptr(anyhit_lane),
             float(tmin), tmax_all, anyhit_all,
-            ptr(thit), ptr(bu), ptr(bv), ptr(inst), ptr(prim), ptr(back), ptr(occ),
-            R, stream,
         )
+        outputs = (ptr(thit), ptr(bu), ptr(bv), ptr(inst), ptr(prim), ptr(back), ptr(occ),
+                   R, stream)
+        if bounded:
+            err = lib.pt_ray_query_bounded(*inputs, steps, ptr(state), *outputs)
+        else:
+            err = lib.pt_ray_query(*inputs, *outputs)
     if err != 0:
         raise RuntimeError(f"ray_query kernel launch refused: cudaError {err}")
     if R > 0:
         launches += 1
         launches_by_rows[rows] += 1
+        bounded_launches += int(bounded)
+    if return_state:
+        return state_from_planes(state)
     hit = RayHit(
         thit=thit, bary_u=bu, bary_v=bv, bary_w=1.0 - bu - bv,
         inst=inst, prim=prim, back=back,
     )
     return hit, occ
+
+
+def state_from_planes(planes) -> _TravState:
+    """The ``_TravState`` of the bounded kernel's (fields, R) int32 planes,
+    each field in its dtype (floats by their bits)."""
+    out = {}
+    for plane, (f, dt) in zip(planes, STATE_DTYPES.items()):
+        if dt == torch.float32:
+            out[f] = plane.view(dt)
+        else:
+            out[f] = plane != 0 if dt == torch.bool else plane
+    return _TravState(**out)

@@ -305,6 +305,8 @@ def ray_query(
     tmax0,
     active: Array,
     anyhit: bool | Array = False,
+    max_steps: int | None = None,
+    return_state: bool = False,
 ):
     """Trace a batch of rays to completion.
 
@@ -321,8 +323,22 @@ def ray_query(
     through the binary tables. Tensors on a CUDA device launch the kernel
     (or raise — there is no way from here to the plain version for them);
     tensors on the CPU take the plain version.
+
+    The bounded walk (the JAX package's ``max_steps`` / ``return_state``):
+    either argument takes the binary walk, on a wide scene too. A lane stops
+    after ``max_steps`` steps of the one-speed loop, a step being one pass
+    of ``_full_step``: a node visit, a pop from an exhausted BLAS back to
+    the TLAS, or the end of an exhausted TLAS. ``return_state=True``
+    returns the walk's ``_TravState`` in place of (RayHit, occluded);
+    without it a bounded run returns the hit finalized from the bounded
+    state. These are the states of JAX's one-speed run (``leaf_every=None,
+    compact_after=None``, the setting of its tools); JAX's default
+    two-speed loop also parks a pending triangle candidate in its bounded
+    state (``p_prim``), which the port, having no two-speed loop, does not
+    have.
     """
-    if scene.wide_rows is not None:
+    bounded = max_steps is not None or return_state
+    if scene.wide_rows is not None and not bounded:
         from pathtracing_tpu_torch.ops.wide_traversal import wide_ray_query
 
         return wide_ray_query(
@@ -332,10 +348,12 @@ def ray_query(
         from pathtracing_tpu_torch.ops.cuda_traversal import ray_query_cuda
 
         return ray_query_cuda(
-            scene, tlas_count, tlas_offset, org, d, tmin, tmax0, active, anyhit
+            scene, tlas_count, tlas_offset, org, d, tmin, tmax0, active, anyhit,
+            max_steps=max_steps, return_state=return_state,
         )
     return ray_query_plain(
-        scene, tlas_count, tlas_offset, org, d, tmin, tmax0, active, anyhit
+        scene, tlas_count, tlas_offset, org, d, tmin, tmax0, active, anyhit,
+        max_steps=max_steps, return_state=return_state,
     )
 
 
@@ -351,10 +369,15 @@ def ray_query_plain(
     active: Array,
     anyhit: bool | Array = False,
     return_counts: bool = False,
+    max_steps: int | None = None,
+    return_state: bool = False,
 ):
     """The plain PyTorch version of the ray-query kernel; same contract as
-    ``ray_query``, on whatever device the tensors lie. ``return_counts``
-    additionally returns the RayQueryCounts of this batch."""
+    ``ray_query``, on whatever device the tensors lie (``max_steps`` /
+    ``return_state`` as there). ``return_counts`` additionally returns the
+    RayQueryCounts of this batch (not with ``return_state``)."""
+    if return_counts and return_state:
+        raise ValueError("return_counts with return_state: take one")
     R = org.x.shape
     dev = org.x.device
     tmin = float(tmin)
@@ -379,8 +402,12 @@ def ray_query_plain(
             torch.zeros(R, dtype=torch.int32, device=dev),
             flags(scene.nl8), flags(scene.inst_f), flags(scene.tri_pos),
         )
-    while not bool(state.done.all()):
+    steps = 0
+    while not bool(state.done.all()) and (max_steps is None or steps < max_steps):
         state = _full_step(scene, state, consts, tmin, anyhit, counts)
+        steps += 1
+    if return_state:
+        return state
     hit = _finalize_hit(scene, consts, state)
     if return_counts:
         # the finalize step reads the hit's instance and triangle rows

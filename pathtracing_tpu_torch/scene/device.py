@@ -422,15 +422,18 @@ class DevicePacker:
     on the device.
 
     wide=True adds the mega-table (accel/wide.WideStaticRegion +
-    build_frame_tail); with ``chunked=True`` the chunked static region
-    (accel/chunks.py: meshes split into subtrees of at most
-    ``chunks.CHUNK_MAX`` triangles, an instance-split static TLAS built
-    here once, per-frame tails carrying only the dynamic instances).
-    ``hot_rows=H`` (chunked regions only, else ValueError) permutes the
-    static rows so the H hottest sit at [0, H) (accel/hotperm.py; by
-    ``hot_score`` when given, else the structural order) and fills
-    ``hot_rows`` / ``hot_planes`` of every frame scene; the walks are
-    unchanged and their results bit-identical to the unpermuted pack.
+    build_frame_tail); with ``chunk_max`` set the chunked static region
+    (accel/chunks.py: meshes split into subtrees of at most ``chunk_max``
+    triangles, ``chunks.CHUNK_MAX`` = 1024 for the CLI, an instance-split
+    static TLAS built here once, per-frame tails carrying only the dynamic
+    instances), with its options ``octants`` (8, or 1: octant 0's trees
+    only) and ``bake_static`` (the static instances' chunks in world
+    space; needs the native wide builder). ``hot_rows=H`` (chunked regions
+    only, else ValueError) permutes the static rows so the H hottest sit at
+    [0, H) (accel/hotperm.py; by ``hot_score`` when given, else the
+    structural order) and fills ``hot_rows`` / ``hot_planes`` of every
+    frame scene; the walks are unchanged and their results bit-identical
+    to the unpermuted pack.
     """
 
     # shape-stability buckets, kept from the JAX package (where every
@@ -443,13 +446,14 @@ class DevicePacker:
     _INST_BUCKET = 8       # instance rows
 
     def __init__(self, scene, wide: bool = False, leaf_bundle: int | None = 8,
-                 wide_layout="w8", chunked: bool = False,
-                 hot_rows: int = 0, hot_score=None, device=None):
-        if hot_rows and not (wide and chunked):
+                 wide_layout="w8", chunk_max: int | None = None,
+                 octants: int = 8, hot_rows: int = 0, hot_score=None,
+                 bake_static: bool = False, device=None):
+        if hot_rows and not (wide and chunk_max):
             # the plain WideStaticRegion predates the chunk TLAS and has no
             # root map to rewrite
-            raise ValueError("hot_rows needs the chunked static region "
-                             "(wide=True, chunked=True)")
+            raise ValueError("hot_rows needs chunk_max (the chunked static "
+                             "region, wide=True)")
         self.device = device = resolve_device(device)
         mesh_arrays = scene.mesh_buf.arrays()
         indices, pos, normal, albedo, material = mesh_arrays
@@ -480,7 +484,7 @@ class DevicePacker:
         self._wide_static = None
         self._chunked = False
         if wide:
-            if chunked:
+            if chunk_max:
                 # Chunked fast path (accel/chunks.py): instance-split
                 # static TLAS built once here; per-frame tails carry only
                 # the dynamic instances. Traversal format is identical.
@@ -494,6 +498,9 @@ class DevicePacker:
                     scene.instances[: scene.static_instance_count],
                     leaf_bundle=leaf_bundle,
                     layout=_wide_layout(wide_layout),
+                    chunk_max=chunk_max,
+                    octants=octants,
+                    bake_static=bake_static,
                 )
                 self._chunked = True
             else:

@@ -342,9 +342,19 @@ def get_animation_frame_count(config: RenderConfig) -> int:
 
 
 def setup_animation_frame(
-    s: Scene, frame_index: int, config: RenderConfig
+    s: Scene, frame_index: int, config: RenderConfig,
+    build_tlas_trees: bool = True,
 ) -> None:
-    """reference: scene.cc:271-718."""
+    """reference: scene.cc:271-718.
+
+    build_tlas_trees=False skips the per-subframe binary TLAS builds
+    (reference: scene.cc:698-710) and appends zero-count placeholder
+    handles with distinct node_offsets instead. Valid ONLY for the chunked
+    wide tables: their packer (accel/chunks.build_frame_tail_chunked)
+    builds its own per-subframe dynamic trees from the instance list and
+    uses sf.tlas.node_offset only as a row key, so the binary trees are
+    dead weight there. The binary walks (the scan, P1, K5 on binary
+    tables) need the real trees."""
     if s.subframes:
         s.bvh_buf.pop(s.subframes[0].tlas)
     del s.instances[s.static_instance_count :]
@@ -467,6 +477,19 @@ def setup_animation_frame(
                 cos_solid_angle=float(f32(np.cos(f32(4.0 * np.pi / 180.0)))),
             )
         )
+
+    if not build_tlas_trees:
+        base = len(s.bvh_buf.nodes)
+        for i in range(subframe_count):
+            s.subframes.append(
+                Subframe(
+                    BvhHandle(node_count=0, node_offset=base + i),
+                    cams[i], lights[i],
+                )
+            )
+        s.subframe_entries = entries
+        s.frame_static_end = static_end
+        return
 
     # Parallel TLAS builds into local buffers (reference: scene.cc:698-710);
     # the native builder releases the GIL during the C++ call.

@@ -8,15 +8,29 @@ bit. The placement: the same mesh for every instance, the rotations equal,
 the translations within rtol 1e-6 / atol 1e-4. A placed position is
 origin + dir * thit on a ray cast from y = 200; the two packages' walks
 find the same triangle and barycentrics on every ray, but JAX's thit
-differs by a few ulps of a ray ~200 long (XLA:CPU contracts FMAs; the
-port's walk is IEEE, as the oracle's), which moved a position by up to
+differs by a few ulps of a ray ~200 long, which moved a position by up to
 6.1e-5 on these stand-ins. The share of bit-equal instance transforms is
 held at its measured 71 % (a change of either walk's arithmetic moves it).
+
+Why (traced): the cause is JAX's XLA:CPU arithmetic, not the port. JAX's
+own placement cast run op by op (``jax.disable_jit``, every op rounded on
+its own) equals the port's bit for bit on all 1,024 rays
+(``test_placement_is_jax_op_by_op``). Its compiled loop contracts the
+triangle test (ops/traversal.py ``_tri_intersect``; reference
+math.hh:358-401) into FMAs: every component of ``uvw = cross(y3, x3)`` as
+``fma(a, b, -(c * d))``, and ``t``'s dot product as ``fma(wz, qz, fma(wx,
+qx, wy * qy))``; that emulation gives the compiled ``thit`` on all 294
+rays where it differs. First lane: ray 0 (origin (-92.04409, 200,
+13.728508), tri_pos row 7489), where the first op that differs is ``wy =
+y3.z * x3.x - y3.x * x3.z`` (IEEE -0.5654682, contracted -0.56546825), and
+``thit`` 198.60582 becomes 198.60585. The port's IEEE walk is what the
+oracle's goldens require, so the tolerance stays.
 One JAX compile: the placement's ``ray_query`` in JAX's ``load_scene``."""
 
 import copy
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 
@@ -115,6 +129,33 @@ def test_setup_animation_frame_matches_jax(loaded):
             # the bunny and the dragon in view, at aperture 0.4
             assert {"buddha", "teapot", "bunny", "dragon"} <= names
             assert ts.subframes[0].cam.aperture_radius == np.float32(0.4)
+
+
+def test_placement_is_jax_op_by_op(loaded):
+    """The placement casts through both packages' ``_terrain_trace_batch``
+    on the loaded scene's terrain: the port's hits, positions and normals
+    equal JAX's op-by-op run bit for bit (JAX's compiled run differs on
+    some positions: the module docstring)."""
+    from pathtracing_tpu.accel.builder_py import build_tlas as jbuild_tlas
+    from pathtracing_tpu_torch.accel.builder_py import build_tlas as tbuild_tlas
+
+    _, ts, js = loaded
+    ts, js = copy.deepcopy(ts), copy.deepcopy(js)
+    f32 = np.float32
+    us = tloader._placement_uniforms()
+    origins = np.stack([us[:, 0] * f32(200.0) - f32(100.0), np.full(len(us), 200.0, f32),
+                        us[:, 1] * f32(200.0) - f32(100.0)], -1).astype(f32)
+    dirs = np.tile(np.array([0.0, -1.0, 0.0], f32), (len(us), 1))
+    mine = tloader._terrain_trace_batch(
+        ts, tbuild_tlas(ts.instances[:1], [0], ts.bvh_buf.nodes, ts.bvh_buf), origins, dirs,
+        "cpu")
+    with jax.disable_jit():
+        theirs = jloader._terrain_trace_batch(
+            js, jbuild_tlas(js.instances[:1], [0], js.bvh_buf.nodes, js.bvh_buf), origins,
+            dirs)
+    for a, b in zip(mine, theirs):
+        assert a.tobytes() == b.tobytes()
+    assert 900 < mine[0].sum() < len(us)  # water and misses rejected
 
 
 def test_sun_sets(loaded):

@@ -44,8 +44,8 @@ def scenes(tmp_path_factory):
 @pytest.fixture(scope="module")
 def packers(scenes):
     s, _ = scenes
-    base = DevicePacker(s, wide=True, chunked=True, device="cpu")
-    hot = DevicePacker(s, wide=True, chunked=True, hot_rows=HOT, device="cpu")
+    base = DevicePacker(s, wide=True, chunk_max=JAX_CHUNK_MAX, device="cpu")
+    hot = DevicePacker(s, wide=True, chunk_max=JAX_CHUNK_MAX, hot_rows=HOT, device="cpu")
     return base, hot, base.pack_frame(s), hot.pack_frame(s)
 
 
@@ -102,7 +102,7 @@ def test_measured_score_packs_as_jax(scenes):
     as the JAX package's packer given the same score."""
     s, js = scenes
     score = np.random.default_rng(1).random(50_000)
-    got = DevicePacker(s, wide=True, chunked=True, hot_rows=256, hot_score=score,
+    got = DevicePacker(s, wide=True, chunk_max=JAX_CHUNK_MAX, hot_rows=256, hot_score=score,
                        device="cpu").pack_frame(s)
     want = jdevice.DevicePacker(js, wide=True, chunk_max=JAX_CHUNK_MAX, hot_rows=256,
                                 hot_score=score).pack_frame(js)
@@ -133,7 +133,7 @@ def test_permuted_walks_are_bit_equal(scenes, packers):
 
 def test_hot_rows_need_the_chunked_region_and_cross_over(scenes, packers):
     s, _ = scenes
-    for kw in ({"wide": True}, {"chunked": True}, {}):
+    for kw in ({"wide": True}, {"chunk_max": JAX_CHUNK_MAX}, {}):
         with pytest.raises(ValueError, match="chunked"):
             DevicePacker(s, hot_rows=HOT, device="cpu", **kw)
     hot = packers[3]

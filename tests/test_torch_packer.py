@@ -33,6 +33,7 @@ from pathtracing_tpu.ops.wide_traversal import wide_ray_query as jax_wide_ray_qu
 from pathtracing_tpu.scene import device as jdevice
 from pathtracing_tpu.scene import types as jtypes
 from pathtracing_tpu.utils.vec import Vec3 as JVec3
+from pathtracing_tpu_torch.accel.chunks import CHUNK_MAX
 from pathtracing_tpu_torch.config import TESTING
 from pathtracing_tpu_torch.ops import cuda_megakernel as CM
 from pathtracing_tpu_torch.ops.wide_traversal import wide_ray_query_plain
@@ -91,7 +92,7 @@ def scenes(tmp_path_factory):
 PACKERS = {
     "binary": ({}, {}),
     "w8": ({"wide": True}, {"wide": True}),
-    "chunked": ({"wide": True, "chunked": True}, {"wide": True, "chunk_max": JAX_CHUNK_MAX}),
+    "chunked": ({"wide": True, "chunk_max": CHUNK_MAX}, {"wide": True, "chunk_max": JAX_CHUNK_MAX}),
 }
 
 
@@ -202,7 +203,7 @@ def test_repack_is_shape_stable(scenes):
     subframe rows differ."""
     s, _ = scenes
     s = copy.deepcopy(s)
-    packer = DevicePacker(s, wide=True, chunked=True, device="cpu")
+    packer = DevicePacker(s, wide=True, chunk_max=CHUNK_MAX, device="cpu")
     a = packer.pack_frame(s)
     setup_animation_frame(s, FRAME + 1, CFG)
     b = packer.pack_frame(s)
