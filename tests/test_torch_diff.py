@@ -70,6 +70,9 @@ def _loss(scene):
     return float(torch.mean(0.2126 * c.x + 0.7152 * c.y + 0.0722 * c.z))
 
 
+# Its setup holds the JAX gradient's compile: 261-312 s with the run's other
+# workers busy, about the default limit.
+@pytest.mark.limit(800)
 def test_value_and_grad_matches_jax(loss_and_grads, jax_loss_and_grads):
     loss, grads = loss_and_grads
     jloss, jgrads = jax_loss_and_grads

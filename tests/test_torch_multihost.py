@@ -17,8 +17,8 @@ def test_two_process_demo(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "pathtracing_tpu_torch.parallel.multihost_demo",
          "--device", "cpu", "--processes", "2", "--size", "64x36", "--spp", "2",
-         "--frames", "4", "--out", str(tmp_path), "--timeout", "240"],
-        cwd=str(ROOT), timeout=300, capture_output=True, text=True,
+         "--frames", "4", "--out", str(tmp_path), "--timeout", "180"],
+        cwd=str(ROOT), timeout=240, capture_output=True, text=True,
     )
     assert r.returncode == 0, r.stdout + r.stderr
     lines = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
